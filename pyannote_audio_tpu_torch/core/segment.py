@@ -1,0 +1,97 @@
+"""Temporal primitives: Segment, SlidingWindow, SlidingWindowFeature.
+
+Counterpart of pyannote_audio_tpu/core/segment.py, cut to what the
+diarization path uses. Host-side and numpy-only, except that a
+SlidingWindowFeature may hold a torch tensor (chunk-level scores that stay
+on the model's device until a consumer moves them).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+# Two segments closer than this are considered identical / touching.
+SEGMENT_PRECISION = 1e-6
+
+
+@dataclass(frozen=True, order=True)
+class Segment:
+    """A time interval [start, end), in seconds."""
+
+    start: float = 0.0
+    end: float = 0.0
+
+    @property
+    def duration(self) -> float:
+        return self.end - self.start if self.end > self.start else 0.0
+
+    def __bool__(self) -> bool:
+        """A segment is false-y when empty (duration below precision)."""
+        return bool((self.end - self.start) > SEGMENT_PRECISION)
+
+    def __str__(self) -> str:
+        return f"[{self.start:.3f} --> {self.end:.3f}]"
+
+    def __repr__(self) -> str:
+        return f"<Segment({self.start:g}, {self.end:g})>"
+
+
+class SlidingWindow:
+    """Fixed-duration window sliding with a fixed step.
+
+    Frame ``i`` covers ``[start + i * step, start + i * step + duration)``.
+    """
+
+    def __init__(self, duration: float = 0.030, step: float = 0.010,
+                 start: float = 0.0):
+        if duration <= 0:
+            raise ValueError("duration must be positive")
+        if step <= 0:
+            raise ValueError("step must be positive")
+        self._duration = float(duration)
+        self._step = float(step)
+        self._start = float(start)
+
+    duration = property(lambda self: self._duration)
+    step = property(lambda self: self._step)
+    start = property(lambda self: self._start)
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, SlidingWindow)
+                and self._duration == other._duration
+                and self._step == other._step
+                and self._start == other._start)
+
+    def closest_frame(self, t: float) -> int:
+        """Index of the frame whose *center* is closest to time ``t``."""
+        return int(np.rint(
+            (t - self._start - 0.5 * self._duration) / self._step))
+
+    def __getitem__(self, i: int) -> Segment:
+        start = self._start + i * self._step
+        return Segment(start, start + self._duration)
+
+    def __repr__(self) -> str:
+        return (f"<SlidingWindow duration={self._duration:g} "
+                f"step={self._step:g} start={self._start:g}>")
+
+
+class SlidingWindowFeature:
+    """A (num_frames, ...) array whose first axis is a SlidingWindow.
+
+    ``data`` is a numpy array, or a torch tensor for chunk-level scores
+    that stay on the device they were computed on.
+    """
+
+    def __init__(self, data, sliding_window: SlidingWindow):
+        self.data = data
+        self.sliding_window = sliding_window
+
+    def __len__(self) -> int:
+        return len(self.data)
+
+    def __repr__(self) -> str:
+        return (f"<SlidingWindowFeature shape={tuple(self.data.shape)} "
+                f"window={self.sliding_window!r}>")

@@ -1,0 +1,70 @@
+"""Multi-layer (bi)LSTM whose recurrence is the CUDA kernel on the card.
+
+Counterpart of pyannote_audio_tpu/models/blocks/rnn.py. Parameters carry
+torch.nn.LSTM's names and layout (``weight_ih_l{i}[_reverse]``, ...), so
+reference checkpoints load verbatim. Each layer hoists both directions'
+input projections into one matmul, then runs
+``ops.lstm_kernel.lstm_bidirectional_recurrence``: one kernel launch per
+layer for CUDA tensors, the plain PyTorch recurrence for CPU tensors. Any
+hidden size works (the JAX module's ``H % 128`` gate is a TPU lane rule).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ...ops.lstm_kernel import lstm_bidirectional_recurrence
+
+
+class LSTM(nn.Module):
+    """(B, T, D) -> (B, T, H * num_directions), batch first, inference."""
+
+    def __init__(self, input_size: int, hidden_size: int = 128,
+                 num_layers: int = 2, bidirectional: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.input_size = input_size
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.bidirectional = bidirectional
+        H = hidden_size
+        in_dim = input_size
+        for i in range(num_layers):
+            for suffix in self._suffixes():
+                for name, shape in ((f"weight_ih_l{i}", (4 * H, in_dim)),
+                                    (f"weight_hh_l{i}", (4 * H, H)),
+                                    (f"bias_ih_l{i}", (4 * H,)),
+                                    (f"bias_hh_l{i}", (4 * H,))):
+                    self.register_parameter(
+                        name + suffix, nn.Parameter(torch.empty(shape)))
+            in_dim = H * len(self._suffixes())
+        self.reset_parameters(generator)
+
+    def _suffixes(self):
+        return ("", "_reverse") if self.bidirectional else ("",)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """torch.nn.LSTM's init: U(-1/sqrt(H), 1/sqrt(H)) everywhere."""
+        bound = self.hidden_size ** -0.5
+        for p in self.parameters():
+            p.copy_(torch.rand(p.shape, generator=generator) * 2 * bound
+                    - bound)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x.transpose(0, 1)                                 # (T, B, D)
+        for i in range(self.num_layers):
+            names = [f"l{i}{s}" for s in self._suffixes()]
+            w_ih = torch.cat([getattr(self, f"weight_ih_{n}")
+                              for n in names])
+            bias = torch.cat([getattr(self, f"bias_ih_{n}")
+                              + getattr(self, f"bias_hh_{n}")
+                              for n in names])
+            w_hh = torch.stack([getattr(self, f"weight_hh_{n}")
+                                for n in names])
+            xw = torch.matmul(h, w_ih.t()) + bias          # (T, B, D*4H)
+            h = lstm_bidirectional_recurrence(xw.contiguous(), w_hh)
+        return h.transpose(0, 1)

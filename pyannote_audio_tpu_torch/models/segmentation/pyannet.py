@@ -1,0 +1,105 @@
+"""PyanNet: SincNet -> BiLSTM -> feed-forward -> powerset classifier.
+
+Counterpart of pyannote_audio_tpu/models/segmentation/pyannet.py
+(``PyanNetModule`` and ``PyanNet``'s frame math). Parameter names follow
+the reference checkpoint layout (``sincnet.*``, ``lstm.weight_ih_l0``,
+``linear.{i}.*``, ``classifier.*``), which is what the JAX model's
+``export_torch_state_dict`` emits.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ...core.model import FrameModel, Specifications
+from ..blocks.rnn import LSTM
+from ..blocks.sincnet import SincNet
+
+def _linear(in_features: int, out_features: int,
+            generator: Optional[torch.Generator]) -> nn.Linear:
+    layer = nn.Linear(in_features, out_features)
+    bound = in_features ** -0.5
+    with torch.no_grad():
+        for p in (layer.weight, layer.bias):
+            p.copy_(torch.rand(p.shape, generator=generator) * 2 * bound
+                    - bound)
+    return layer
+
+
+class PyanNet(FrameModel, nn.Module):
+    """(B, 1, samples) -> (B, frames, dimension) log-probabilities.
+
+    ``specifications`` fixes the chunk duration and the output classes;
+    the default is the diarization setting: 10 s chunks, 3 speakers with
+    at most 2 active, i.e. a 7-class powerset log-softmax.
+    """
+
+    def __init__(self, specifications: Optional[Specifications] = None,
+                 sincnet_stride: int = 10, sample_rate: int = 16000,
+                 lstm_hidden: int = 128, lstm_layers: int = 2,
+                 bidirectional: bool = True, linear_hidden: int = 128,
+                 linear_layers: int = 2,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.specifications = specifications or Specifications(
+            duration=10.0, classes=["speaker#1", "speaker#2", "speaker#3"],
+            powerset_max_classes=2)
+        self.sample_rate = sample_rate
+        self.sincnet_stride = sincnet_stride
+        self.sincnet = SincNet(stride=sincnet_stride,
+                               sample_rate=sample_rate, generator=generator)
+        self.lstm = LSTM(60, hidden_size=lstm_hidden, num_layers=lstm_layers,
+                         bidirectional=bidirectional, generator=generator)
+        width = lstm_hidden * (2 if bidirectional else 1)
+        self.linear = nn.ModuleList()
+        for _ in range(linear_layers):
+            self.linear.append(_linear(width, linear_hidden, generator))
+            width = linear_hidden
+        self.classifier = _linear(width, self.specifications.dimension,
+                                  generator)
+
+    def forward(self, waveforms: torch.Tensor) -> torch.Tensor:
+        x = self.lstm(self.sincnet(waveforms))
+        for layer in self.linear:
+            x = F.leaky_relu(layer(x), 0.01)
+        x = self.classifier(x)
+        if self.specifications.powerset:
+            return F.log_softmax(x, dim=-1)
+        return torch.sigmoid(x)
+
+    def load_reference_state_dict(self, state: Mapping[str, np.ndarray]):
+        """Load a reference-layout state dict (numpy arrays or tensors).
+
+        Accepts the monolithic ``lstm.weight_ih_l{i}[_reverse]`` keys and
+        the per-layer ``lstm.{i}.weight_ih_l0[_reverse]`` layout of
+        ``lstm["monolithic"] = False``, which is the same math at inference.
+        """
+        tensors: Dict[str, torch.Tensor] = {}
+        for key, value in state.items():
+            parts = key.split(".")
+            if parts[0] == "lstm" and len(parts) == 3 and \
+                    parts[1].isdigit():
+                # lstm.{i}.weight_ih_l0[_reverse] -> lstm.weight_ih_l{i}...
+                i, name = parts[1], parts[2]
+                key = "lstm." + name.replace("_l0", f"_l{i}", 1)
+            tensors[key] = torch.tensor(np.asarray(value, dtype=np.float32))
+        self.load_state_dict(tensors, strict=True)
+        return self
+
+    # -- frame math ---------------------------------------------------------
+
+    def num_frames(self, num_samples: int) -> int:
+        return SincNet.num_frames(num_samples, stride=self.sincnet_stride)
+
+    def receptive_field_size(self, num_frames: int = 1) -> int:
+        return SincNet.receptive_field_size(num_frames,
+                                            stride=self.sincnet_stride)
+
+    def receptive_field_center(self, frame: int = 0) -> int:
+        return SincNet.receptive_field_center(frame,
+                                              stride=self.sincnet_stride)

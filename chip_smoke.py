@@ -8,22 +8,31 @@ Phases, each fatal on failure:
   2. build every kernel of the path from the sources in this checkout;
   3. each kernel against its plain PyTorch version on the card, at the
      main path's shapes and at ragged ones, with kernel and plain times;
-  4. the slice end to end: SpeakerDiarization with full-width PyanNet and
-     WeSpeaker ResNet34 (seeded random weights) at bench.py's settings,
-     first held against the same pipeline on the CPU on a short file,
-     then timed on two synthetic PCM16 WAV files of 10 and 3 minutes,
-     with the kernel launch counter showing that PyanNet's LSTM ran
-     through the kernel.
+  4. the exact path (the accelerator gates PYANNOTE_TPU_SEG_BF16,
+     _SHARED_SINC and _SHARED_TRUNK forced to "0", a float32 trunk):
+     SpeakerDiarization with full-width PyanNet and WeSpeaker ResNet34
+     (seeded random weights) at bench.py's settings, held against the
+     same pipeline on the CPU on a 30 s file, then timed with its stages
+     on a synthetic PCM16 WAV file of 3 minutes;
+  5. the accelerator path at its defaults on the card (bf16 SincNet and
+     trunk, the shared whole-file sinc front-end, fbank and trunk): each
+     shared module held against its exact counterpart at full width, then
+     timed with its stages on files of 10 and 3 minutes, with the LSTM
+     kernel's launch count and the path counters proving which path ran,
+     and the peak device memory.
 
-The line before the last is a JSON object describing each kernel; the
-last line is {"ok": true, "device": {...}}. Without a CUDA device the
-script exits non-zero and prints no result.
+The line before the last is a JSON object describing each kernel (its
+launch count is the accelerator path's); the last line is
+{"ok": true, "device": {...}}. Without a CUDA device the script exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -36,6 +45,9 @@ import torch
 
 SAMPLE_RATE = 16000
 FILE_MINUTES = (10.0, 3.0)
+EXACT_MINUTES = (3.0,)
+GATES = ("PYANNOTE_TPU_SEG_BF16", "PYANNOTE_TPU_SHARED_SINC",
+         "PYANNOTE_TPU_SHARED_TRUNK")
 BATCH_SIZE = 256
 PARAMS = {"segmentation": {"min_duration_off": 0.0},
           "clustering": {"method": "centroid", "threshold": 0.6,
@@ -45,6 +57,20 @@ KERNEL_ATOL = 1e-4
 # file: float32 sums in another order through 589 recurrent steps
 REFERENCE_LOGP_ATOL = 1e-3
 REFERENCE_EMBEDDING_RTOL = 1e-3
+# phase 5 bounds: the shared float32 front-end against per-chunk forwards
+# (the JAX package's tests/test_shared_sinc.py bound); bf16 SincNet
+# against float32 (10x the 2.1e-3 that full-width random weights give on
+# the CPU); whole-file fbank slices against per-chunk fbank; panels
+# against one unpanelled trunk pass (float32: summation order; bf16: the
+# JAX package's tests/test_shared_trunk.py bound, panel shapes round
+# differently); shared-trunk embeddings against the exact path as cosine
+# over the active (chunk, speaker) pairs (the JAX package's bounds)
+SHARED_SINC_ATOL = 1e-4
+BF16_SINC_ATOL = 2e-2
+SHARED_FBANK_ATOL = 1e-3
+PANEL_F32_ATOL = 1e-3
+PANEL_BF16_RTOL, PANEL_BF16_ATOL = 5e-2, 6e-2
+SHARED_TRUNK_MIN_COS, SHARED_TRUNK_MEAN_COS = 0.7, 0.85
 
 
 def log(message: str) -> None:
@@ -88,11 +114,22 @@ def cuda_ms(fn, runs: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def segmentation_batches() -> list:
-    """Batch sizes the main path gives PyanNet, file after file."""
+def set_gates(value) -> None:
+    """Force the accelerator gates to ``value`` ("0" / "1"), or unset them
+    (None: on by default on a CUDA device)."""
+    for name in GATES:
+        if value is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = value
+
+
+def segmentation_batches(file_minutes=None) -> list:
+    """Batch sizes the main path gives PyanNet, file after file (of
+    FILE_MINUTES by default)."""
     from pyannote_audio_tpu_torch.core.inference import _chunk_grid
     sizes = []
-    for minutes in FILE_MINUTES:
+    for minutes in file_minutes or FILE_MINUTES:
         starts, _ = _chunk_grid(int(minutes * 60 * SAMPLE_RATE),
                                 10 * SAMPLE_RATE, SAMPLE_RATE)
         sizes += [min(BATCH_SIZE, len(starts) - b)
@@ -316,43 +353,103 @@ def check_against_cpu(pipeline, cpu_pipeline, device) -> None:
                              "CPU on the short file")
 
 
-def phase_slice(device: torch.device, workdir: Path) -> int:
-    from pyannote_audio_tpu_torch.core.annotation import Annotation
-    from pyannote_audio_tpu_torch.core.io import write_wav
+def make_models(compute_dtype: torch.dtype):
+    """Full published widths: sinc stride 10, BiLSTM 2 x 128, 2 x Linear
+    128, 7 powerset classes; ResNet34 (3, 4, 6, 3) x 32 channels, 80 mel
+    bins, 256-d embeddings. Seed 1 gives a random PyanNet that marks
+    speech (most seeds' random heads settle on one class everywhere)."""
     from pyannote_audio_tpu_torch.models.embedding.wespeaker import \
         WeSpeakerResNet34
     from pyannote_audio_tpu_torch.models.segmentation.pyannet import PyanNet
-    from pyannote_audio_tpu_torch.ops.lstm_kernel import \
-        lstm_bidirectional_recurrence
+    return (PyanNet(generator=torch.Generator().manual_seed(1)),
+            WeSpeakerResNet34(compute_dtype=compute_dtype,
+                              generator=torch.Generator().manual_seed(2)))
 
-    # full published widths: sinc stride 10, BiLSTM 2 x 128, 2 x Linear
-    # 128, 7 powerset classes; ResNet34 (3, 4, 6, 3) x 32 channels, 80 mel
-    # bins, 256-d embeddings. Seed 1 gives a random PyanNet that marks
-    # speech (most seeds' random heads settle on one class everywhere).
-    segmentation = PyanNet(generator=torch.Generator().manual_seed(1))
-    embedding = WeSpeakerResNet34(generator=torch.Generator().manual_seed(2))
-    cpu_pipeline = build_pipeline(copy.deepcopy(segmentation),
-                                  copy.deepcopy(embedding), "cpu")
-    pipeline = build_pipeline(segmentation, embedding, device)
-    check_against_cpu(pipeline, cpu_pipeline, device)
-    del cpu_pipeline
 
-    paths = []
-    for k, minutes in enumerate(FILE_MINUTES):
-        path = workdir / f"synth_{k}.wav"
-        write_wav(path, synth(minutes, seed=k)[None], SAMPLE_RATE)
-        paths.append(path)
-    files = [{"audio": str(p), "uri": p.stem} for p in paths]
-    batches = len(segmentation_batches())
+def write_files(workdir: Path, file_minutes) -> list:
+    from pyannote_audio_tpu_torch.core.io import write_wav
+    files = []
+    for k, minutes in enumerate(file_minutes):
+        path = workdir / f"synth_{k}_{minutes:g}_min.wav"
+        if not path.exists():
+            write_wav(path, synth(minutes, seed=k)[None], SAMPLE_RATE)
+        files.append({"audio": str(path), "uri": path.stem})
+    return files
 
-    lstm_bidirectional_recurrence.launches = 0
+
+STAGES = ("decode", "segmentation", "trunk (early dispatch)",
+          "count + stats", "embeddings", "clustering (host)",
+          "reconstruction", "annotation (host)")
+
+
+@contextlib.contextmanager
+def stage_timer(pipeline, seconds: dict):
+    """Time each stage of ``pipeline.apply``, the card synchronised on
+    both sides of every stage (so queued work is charged to the stage
+    that queued it, and no stage overlaps another)."""
+    from pyannote_audio_tpu_torch.pipelines import speaker_diarization as sd
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[name] = seconds.get(name, 0.0) + \
+                time.perf_counter() - start
+            return out
+        return run
+
+    attributes = [(pipeline, "_audio", "decode"),
+                  (pipeline._segmentation, "slide", "segmentation"),
+                  (pipeline, "_start_shared_trunk", "trunk (early dispatch)"),
+                  (sd, "fused_count_stats", "count + stats"),
+                  (pipeline, "get_embeddings", "embeddings"),
+                  (pipeline, "clustering", "clustering (host)"),
+                  (sd, "fused_reconstruct", "reconstruction"),
+                  (pipeline, "to_annotation", "annotation (host)")]
+    saved = [(owner, attr, owner.__dict__.get(attr))
+             for owner, attr, _ in attributes]
+    for owner, attr, name in attributes:
+        setattr(owner, attr, timed(name, getattr(owner, attr)))
+    try:
+        yield seconds
+    finally:
+        for owner, attr, value in saved:
+            if value is None:
+                delattr(owner, attr)
+            else:
+                setattr(owner, attr, value)
+
+
+def timed_passes(pipeline, files: list, minutes: float, label: str) -> dict:
+    """One wall-clock pass (nothing synchronised inside), then one pass
+    with stage timers; prints both and returns the stage table."""
     torch.cuda.synchronize()
     start = time.perf_counter()
-    outputs = pipeline([dict(f) for f in files], max_speakers=4)
+    pipeline([dict(f) for f in files], max_speakers=4)
     torch.cuda.synchronize()
-    seconds = time.perf_counter() - start
-    launches = lstm_bidirectional_recurrence.launches
+    wall = time.perf_counter() - start
+    seconds = {}
+    with stage_timer(pipeline, seconds):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        pipeline([dict(f) for f in files], max_speakers=4)
+        torch.cuda.synchronize()
+        staged = time.perf_counter() - start
+    per_hour = 60.0 / minutes
+    log(f"{label}: {wall:.3f} s for {minutes:g} min of audio = "
+        f"{wall * per_hour:.3f} s per audio-hour (staged pass "
+        f"{staged:.3f} s = {staged * per_hour:.3f} s per audio-hour)")
+    for name in STAGES:
+        log(f"  {name:24s} {seconds.get(name, 0.0):8.3f} s")
+    log(f"  {'other (host glue)':24s} "
+        f"{staged - sum(seconds.values()):8.3f} s")
+    return {"wall": wall, "staged": staged, "stages": seconds}
 
+
+def check_outputs(files: list, outputs: list) -> None:
+    from pyannote_audio_tpu_torch.core.annotation import Annotation
     for f, out in zip(files, outputs):
         ann = out.speaker_diarization
         if not isinstance(ann, Annotation) or not len(ann):
@@ -361,16 +458,226 @@ def phase_slice(device: torch.device, workdir: Path) -> int:
         if not np.isfinite(out.speaker_embeddings).all():
             raise AssertionError(f"{f['uri']}: non-finite centroids")
         log(f"{f['uri']}: {len(ann)} segments, labels {ann.labels()}")
-    expected = 2 * batches
-    log(f"lstm_recurrence launches in the main path: {launches} "
-        f"(2 layers x {batches} segmentation batches = {expected})")
-    if launches != expected:
-        raise AssertionError(f"expected {expected} LSTM kernel launches, "
-                             f"counted {launches}")
-    hours = sum(FILE_MINUTES) / 60.0
-    log(f"slice end to end: {seconds:.3f} s for {sum(FILE_MINUTES):g} min "
-        f"of audio = {seconds / hours:.3f} s per audio-hour")
-    return launches
+
+
+def reset_counts(pipeline) -> None:
+    from pyannote_audio_tpu_torch.ops.lstm_kernel import \
+        lstm_bidirectional_recurrence
+    lstm_bidirectional_recurrence.launches = 0
+    pipeline.counts = dict.fromkeys(pipeline.counts, 0)
+    pipeline._segmentation.counts = dict.fromkeys(
+        pipeline._segmentation.counts, 0)
+
+
+def read_counts(pipeline) -> dict:
+    from pyannote_audio_tpu_torch.ops.lstm_kernel import \
+        lstm_bidirectional_recurrence
+    return dict(pipeline.counts, **pipeline._segmentation.counts,
+                lstm_launches=lstm_bidirectional_recurrence.launches)
+
+
+def phase_exact(device: torch.device, workdir: Path) -> None:
+    """The exact path: gates off, float32 trunk, held against the CPU."""
+    set_gates("0")
+    segmentation, embedding = make_models(torch.float32)
+    cpu_pipeline = build_pipeline(copy.deepcopy(segmentation),
+                                  copy.deepcopy(embedding), "cpu")
+    pipeline = build_pipeline(segmentation, embedding, device)
+    check_against_cpu(pipeline, cpu_pipeline, device)
+    del cpu_pipeline
+
+    files = write_files(workdir, EXACT_MINUTES)
+    batches = len(segmentation_batches(EXACT_MINUTES))
+    reset_counts(pipeline)
+    outputs = pipeline([dict(f) for f in files], max_speakers=4)
+    torch.cuda.synchronize()
+    counts = read_counts(pipeline)
+    check_outputs(files, outputs)
+    log(f"exact path counts: {counts}")
+    # embedding batches are as many as segmentation batches (both 256)
+    expected = {"whole_conv": 0, "whole_fbank": len(files),
+                "trunk_panel_batches": 0, "chunk_trunk_batches": batches,
+                "lstm_launches": 2 * batches}
+    if counts != expected:
+        raise AssertionError(f"the exact path ran other work than "
+                             f"expected: {counts} != {expected}")
+    timed_passes(pipeline, files, sum(EXACT_MINUTES), "exact path")
+
+
+def check_shared_sinc(pipeline, waveform: torch.Tensor) -> None:
+    """(a) Shared-sinc log-probs against per-chunk ones, both float32;
+    then bf16 SincNet on the shared path against float32 per chunk."""
+    inference = pipeline._segmentation
+    powerset, inference._powerset = inference._powerset, None
+
+    def logp(seg_bf16: str, shared: str) -> torch.Tensor:
+        os.environ["PYANNOTE_TPU_SEG_BF16"] = seg_bf16
+        os.environ["PYANNOTE_TPU_SHARED_SINC"] = shared
+        return inference.slide(waveform, SAMPLE_RATE).data
+    try:
+        per_chunk = logp("0", "0")
+        passes = inference.counts["whole_conv"]
+        shared = logp("0", "1")
+        bf16 = logp("1", "1")
+        if inference.counts["whole_conv"] != passes + 2:
+            raise AssertionError("the shared front-end did not run")
+    finally:
+        inference._powerset = powerset
+        set_gates(None)
+    err = (shared - per_chunk).abs().max().item()
+    err_bf16 = (bf16 - per_chunk).abs().max().item()
+    flips = (bf16.argmax(-1) != per_chunk.argmax(-1)).float().mean().item()
+    log(f"(a) shared sinc front-end vs per-chunk, float32: log-prob "
+        f"max_abs_err {err:.3e} on {len(per_chunk)} chunks (limit "
+        f"{SHARED_SINC_ATOL}); bf16 SincNet (shared) vs float32 per chunk: "
+        f"{err_bf16:.3e} (limit {BF16_SINC_ATOL}), powerset argmax "
+        f"flips at {flips:.4%} of chunk frames")
+    if not (torch.isfinite(shared).all() and err <= SHARED_SINC_ATOL):
+        raise AssertionError("the shared sinc front-end disagrees with "
+                             "per-chunk forwards")
+    if not (torch.isfinite(bf16).all() and err_bf16 <= BF16_SINC_ATOL):
+        raise AssertionError("bf16 SincNet is too far from float32")
+
+
+def check_shared_fbank(pipeline, waveform: torch.Tensor) -> None:
+    """(b) Whole-file fbank slices against the per-chunk fbank."""
+    from pyannote_audio_tpu_torch.core.inference import pad_to_grid
+    from pyannote_audio_tpu_torch.ops.fbank import fbank
+    padded = pad_to_grid(waveform, 10 * SAMPLE_RATE, SAMPLE_RATE)
+    feats = pipeline._whole_fbank(padded)
+    chunks = padded[0].unfold(0, 10 * SAMPLE_RATE, SAMPLE_RATE)
+    worst = 0.0
+    for b in range(0, len(chunks), 64):
+        ref = fbank(chunks[b:b + 64] * 32768.0, window_type="hamming")
+        frames = ref.shape[1]
+        ours = torch.stack([feats[c * 100:c * 100 + frames]
+                            for c in range(b, b + len(ref))])
+        worst = max(worst, (ours - ref).abs().max().item())
+    log(f"(b) whole-file fbank {tuple(feats.shape)} sliced vs per-chunk "
+        f"fbank on {len(chunks)} chunks: max_abs_err {worst:.3e} (limit "
+        f"{SHARED_FBANK_ATOL})")
+    if not worst <= SHARED_FBANK_ATOL:
+        raise AssertionError("whole-file fbank slices disagree")
+
+
+def check_panels(pipeline, waveform: torch.Tensor) -> None:
+    """(c) The panelled trunk against one unpanelled pass over the same
+    padded layout, float32 and bf16."""
+    from pyannote_audio_tpu_torch.core.inference import pad_to_grid
+    from pyannote_audio_tpu_torch.ops.fbank import fbank_num_frames
+    emb = pipeline._embedding
+    window = 10 * SAMPLE_RATE
+    padded = pad_to_grid(waveform, window, SAMPLE_RATE)
+    num_real = fbank_num_frames(waveform.shape[1])
+    halo = pipeline.TRUNK_PANEL_HALO
+    dtype = emb.compute_dtype
+    try:
+        for compute_dtype in (torch.float32, torch.bfloat16):
+            emb.compute_dtype = compute_dtype
+            trunk = pipeline.compute_trunk(padded, num_real, window)
+            layout = pipeline.prepare(pipeline._whole_fbank(padded),
+                                      num_real, window)
+            whole = emb.frames_from_fbank(layout[None], centered=True)[0]
+            total = -(-fbank_num_frames(padded.shape[1]) // 8)
+            ours, ref = trunk[:total], whole[halo:halo + total]
+            err = (ours - ref).abs().max().item()
+            if compute_dtype == torch.float32:
+                ok, limit = err <= PANEL_F32_ATOL, f"{PANEL_F32_ATOL}"
+            else:
+                ok = bool(((ours - ref).abs()
+                           <= PANEL_BF16_ATOL
+                           + PANEL_BF16_RTOL * ref.abs()).all())
+                limit = f"atol {PANEL_BF16_ATOL} + rtol {PANEL_BF16_RTOL}"
+            log(f"(c) panel trunk vs one pass, {compute_dtype}: "
+                f"{tuple(ours.shape)} trunk frames, max_abs_err {err:.3e} "
+                f"(scale {ref.abs().max().item():.3e}, limit {limit})")
+            if not (ok and torch.isfinite(trunk).all()):
+                raise AssertionError("the panelled trunk disagrees with "
+                                     "one pass over the same layout")
+    finally:
+        emb.compute_dtype = dtype
+
+
+def check_shared_trunk(pipeline, waveform: torch.Tensor) -> None:
+    """(d) Shared-trunk (bf16) embeddings against the exact path's
+    (per-chunk float32 trunk), on the same segmentation."""
+    emb = pipeline._embedding
+    segmentations = pipeline._segmentation.slide(waveform, SAMPLE_RATE)
+    shared = pipeline.get_embeddings(waveform, segmentations)
+    dtype = emb.compute_dtype
+    os.environ["PYANNOTE_TPU_SHARED_TRUNK"] = "0"
+    emb.compute_dtype = torch.float32
+    try:
+        exact = pipeline.get_embeddings(waveform, segmentations)
+    finally:
+        emb.compute_dtype = dtype
+        set_gates(None)
+    active = (segmentations.data.sum(dim=1) > 0).cpu().numpy()
+    a, b = shared[active], exact[active]
+    cos = np.sum(a * b, axis=1) / (np.linalg.norm(a, axis=1)
+                                   * np.linalg.norm(b, axis=1) + 1e-9)
+    log(f"(d) shared-trunk bf16 vs exact float32 embeddings over "
+        f"{len(cos)} active (chunk, speaker) pairs: cosine min "
+        f"{cos.min():.4f} (limit > {SHARED_TRUNK_MIN_COS}), mean "
+        f"{cos.mean():.4f} (limit > {SHARED_TRUNK_MEAN_COS})")
+    if not (np.isfinite(shared).all() and cos.min() > SHARED_TRUNK_MIN_COS
+            and cos.mean() > SHARED_TRUNK_MEAN_COS):
+        raise AssertionError("shared-trunk embeddings are too far from the "
+                             "exact path's")
+
+
+def panel_batches(pipeline) -> int:
+    """Trunk panel batches the files of FILE_MINUTES take."""
+    from pyannote_audio_tpu_torch.core.inference import _chunk_grid
+    from pyannote_audio_tpu_torch.ops.fbank import fbank_num_frames
+    stride = pipeline.trunk_geometry(10 * SAMPLE_RATE)["stride"]
+    total = 0
+    for minutes in FILE_MINUTES:
+        _, padded_len = _chunk_grid(int(minutes * 60 * SAMPLE_RATE),
+                                    10 * SAMPLE_RATE, SAMPLE_RATE)
+        total += pipeline._num_panel_batches(fbank_num_frames(padded_len),
+                                             stride)
+    return total
+
+
+def phase_accelerator(device: torch.device, workdir: Path) -> int:
+    """The accelerator path at its defaults; returns the LSTM kernel's
+    launch count on it."""
+    set_gates(None)
+    segmentation, embedding = make_models(torch.bfloat16)
+    pipeline = build_pipeline(segmentation, embedding, device)
+    files = write_files(workdir, FILE_MINUTES)
+    short = torch.from_numpy(synth(FILE_MINUTES[1], seed=1)[None]).to(device)
+    long = torch.from_numpy(synth(FILE_MINUTES[0], seed=0)[None]).to(device)
+    with torch.inference_mode():
+        check_shared_sinc(pipeline, short)
+        check_shared_fbank(pipeline, short)
+        check_panels(pipeline, long)
+        check_shared_trunk(pipeline, short)
+    del short, long
+
+    batches = len(segmentation_batches())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts(pipeline)
+    outputs = pipeline([dict(f) for f in files], max_speakers=4)
+    torch.cuda.synchronize()
+    counts = read_counts(pipeline)
+    peak = torch.cuda.max_memory_allocated(device)
+    check_outputs(files, outputs)
+    # 10 + 3 min: 7500 + 2250 trunk frames, panels of 512 in batches of 8
+    expected = {"whole_conv": len(files), "whole_fbank": len(files),
+                "trunk_panel_batches": panel_batches(pipeline),
+                "chunk_trunk_batches": 0, "lstm_launches": 2 * batches}
+    log(f"(e) accelerator path counts: {counts} (expected {expected}); "
+        f"lstm_recurrence launches = 2 layers x {batches} segmentation "
+        f"batches; peak device memory {peak / 2**30:.3f} GiB "
+        f"(torch.cuda.max_memory_allocated)")
+    if counts != expected:
+        raise AssertionError("the accelerator path did not run as "
+                             "expected (a per-chunk fallback?)")
+    timed_passes(pipeline, files, sum(FILE_MINUTES), "accelerator path")
+    return counts["lstm_launches"]
 
 
 def main() -> int:
@@ -383,7 +690,8 @@ def main() -> int:
     phase_build()
     record = phase_kernels(device)
     with tempfile.TemporaryDirectory() as tmp:
-        record["launches"] = phase_slice(device, Path(tmp))
+        phase_exact(device, Path(tmp))
+        record["launches"] = phase_accelerator(device, Path(tmp))
     print(json.dumps({"kernels": [record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,9 +3,17 @@
 Counterpart of pyannote_audio_tpu/models/blocks/sincnet.py (and its
 ``InstanceNorm1d``): instance norm -> 80 parameterized sinc filters (251
 taps, stride 10) -> abs -> 3 x (max-pool 3, instance norm, leaky relu)
-with two Conv1d(k=5) in between. Float32 throughout (the JAX package's
-bf16 SincNet is an accelerator fast path not ported yet). Submodules are
-named as the reference's, so the state dict has its ``sincnet.*`` keys.
+with two Conv1d(k=5) in between. Submodules are named as the
+reference's, so the state dict has its ``sincnet.*`` keys.
+
+The three convolutions run in bf16 where the PYANNOTE_TPU_SEG_BF16 gate
+is on (by default on a CUDA device, off on the CPU; resolved per call from
+the input's device): operands rounded to bf16, float32 accumulation, the
+output rounded to bf16 and cast back to float32. Instance norms, abs and
+pooling stay float32. ``whole_conv`` / ``from_conv`` are the shared
+whole-file front-end (the JAX package's, ``sincnet.py:208-244``).
+Layout is channel-first (B, C, T) inside the block, as torch's convs take
+it; ``forward`` returns (B, frames, 60) as the JAX block does.
 """
 
 from __future__ import annotations
@@ -18,9 +26,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...utils.receptive_field import (multi_conv_num_frames,
+from ...utils.receptive_field import (conv1d_num_frames,
+                                      multi_conv_num_frames,
                                       multi_conv_receptive_field_center,
                                       multi_conv_receptive_field_size)
+from ...utils.runtime import device_flag
 
 SINC_KERNEL_SIZE = 251
 
@@ -93,11 +103,22 @@ class SincConv(nn.Module):
         self.sample_rate = sample_rate
         self.filterbank = _ParamSincFB(n_filters, sample_rate)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        kernels = sinc_filters(self.filterbank.low_hz_[:, 0],
-                               self.filterbank.band_hz_[:, 0],
-                               SINC_KERNEL_SIZE, self.sample_rate)
-        return F.conv1d(x, kernels, stride=self.stride)
+    def kernels(self) -> torch.Tensor:
+        """Materialized (n_filters, 1, taps) filterbank, float32."""
+        return sinc_filters(self.filterbank.low_hz_[:, 0],
+                            self.filterbank.band_hz_[:, 0],
+                            SINC_KERNEL_SIZE, self.sample_rate)
+
+    def raw_conv(self, x: torch.Tensor,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """The strided conv in ``dtype``; the output is left in ``dtype``
+        (bf16 rounds it once, as the JAX ``raw_conv`` does)."""
+        return F.conv1d(x.to(dtype), self.kernels().to(dtype),
+                        stride=self.stride)
+
+    def forward(self, x: torch.Tensor,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        return self.raw_conv(x, dtype).float()
 
 
 class SincNet(nn.Module):
@@ -121,14 +142,71 @@ class SincNet(nn.Module):
                     p.copy_(torch.rand(p.shape, generator=generator)
                             * 2 * bound - bound)
 
+    @staticmethod
+    def compute_dtype(device: torch.device) -> torch.dtype:
+        """bf16 where the PYANNOTE_TPU_SEG_BF16 gate is on for ``device``."""
+        return torch.bfloat16 if device_flag("PYANNOTE_TPU_SEG_BF16", device) \
+            else torch.float32
+
     def forward(self, waveforms: torch.Tensor) -> torch.Tensor:
+        dtype = self.compute_dtype(waveforms.device)
         x = self.wav_norm1d(waveforms)
-        x = self.conv1d[0](x).abs()
+        return self.post_conv(self.conv1d[0](x, dtype), dtype)
+
+    def post_conv(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """Everything after the sinc conv: abs + 3 x (pool, norm, leaky
+        relu) with the two k=5 convs in ``dtype``; (B, 80, T) float32 ->
+        (B, frames, 60)."""
+        x = x.abs()
         for i in range(3):
             if i > 0:
-                x = self.conv1d[i](x)
+                conv = self.conv1d[i]
+                # conv, then the bias added in ``dtype``: two roundings in
+                # bf16, as flax's nn.Conv(dtype=bf16) does them
+                x = (F.conv1d(x.to(dtype), conv.weight.to(dtype))
+                     + conv.bias.to(dtype)[:, None]).float()
             x = F.leaky_relu(self.norm1d[i](F.max_pool1d(x, 3, 3)), 0.01)
         return x.transpose(1, 2)
+
+    # -- shared whole-file front-end -----------------------------------------
+    #
+    # The sinc conv is linear, so the conv of an instance-normalized chunk
+    # is an affine function of the conv of the raw waveform: with the
+    # chunk's mean m and population variance v and the norm's affine
+    # (gamma, beta),
+    #   conv(gamma * (x - m) / sqrt(v + eps) + beta)
+    #     = gamma / sqrt(v + eps) * conv(x)
+    #       + (beta - gamma * m / sqrt(v + eps)) * K1
+    # where K1[f] is the sum of filter f's taps. One conv over the whole
+    # file then serves every chunk whose start lies on the conv stride.
+
+    def whole_conv(self, waveform: torch.Tensor) -> torch.Tensor:
+        """Sinc conv of the raw (un-normalized) waveform: (B, 1, T) ->
+        (B, 80, F_all), kept in the compute dtype (bf16 halves the
+        whole-file buffer)."""
+        return self.conv1d[0].raw_conv(
+            waveform, self.compute_dtype(waveform.device))
+
+    def from_conv(self, frames: torch.Tensor, mean: torch.Tensor,
+                  var: torch.Tensor) -> torch.Tensor:
+        """Finish the block from gathered ``whole_conv`` frames.
+
+        frames: (B, 80, F_c) slices of ``whole_conv``'s output; mean, var:
+        (B,) each chunk's raw-waveform mean and population variance.
+        """
+        norm = self.wav_norm1d
+        k1 = self.conv1d[0].kernels()[:, 0].sum(dim=-1)        # (80,)
+        inv = norm.weight[0] / torch.sqrt(var + norm.eps)      # (B,)
+        shift = norm.bias[0] - mean * inv
+        x = frames.float() * inv[:, None, None] \
+            + shift[:, None, None] * k1[None, :, None]
+        return self.post_conv(x, self.compute_dtype(frames.device))
+
+    @staticmethod
+    def conv_num_frames(num_samples: int, stride: int = 10) -> int:
+        """Sinc-conv output frames for ``num_samples`` input samples."""
+        return conv1d_num_frames(num_samples, kernel_size=SINC_KERNEL_SIZE,
+                                 stride=stride)
 
     @staticmethod
     def num_frames(num_samples: int, stride: int = 10) -> int:

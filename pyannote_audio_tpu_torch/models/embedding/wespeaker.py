@@ -6,8 +6,15 @@ Counterpart of pyannote_audio_tpu/models/embedding/wespeaker.py
 (B, 1, mel, frames)) -> weighted TSTP statistics pooling -> linear.
 BatchNorm uses running statistics (the module is meant to run in eval
 mode). Parameter names follow the reference ``resnet.*`` layout, which
-the JAX model's ``export_torch_state_dict`` emits. Float32 throughout (the
-JAX default trunk is bf16; its tests pin float32).
+the JAX model's ``export_torch_state_dict`` emits.
+
+The trunk (conv1, BatchNorm, layers 1-4) runs in ``compute_dtype``, bf16
+by default as the JAX ``WeSpeakerModule``: conv operands rounded to bf16
+with float32 accumulation and a bf16 output, BatchNorm computed in float32
+from its float32 running statistics and rounded to bf16. Parameters stay
+float32 and are cast per call. Fbank, the mean subtraction, pooling and
+``seg_1`` stay float32, and the trunk's output is cast to float32 before
+the flatten.
 """
 
 from __future__ import annotations
@@ -35,6 +42,12 @@ def _conv(cin: int, cout: int, kernel: int, stride: int,
     return conv
 
 
+def _apply_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv`` in the dtype of ``x`` (its float32 weight cast per call)."""
+    return F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride,
+                    conv.padding)
+
+
 class BasicBlock(nn.Module):
     def __init__(self, in_planes: int, planes: int, stride: int = 1,
                  generator: Optional[torch.Generator] = None):
@@ -50,9 +63,11 @@ class BasicBlock(nn.Module):
                 nn.BatchNorm2d(planes))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
-        return F.relu(out + self.shortcut(x))
+        out = F.relu(self.bn1(_apply_conv(self.conv1, x)))
+        out = self.bn2(_apply_conv(self.conv2, out))
+        if len(self.shortcut):
+            x = self.shortcut[1](_apply_conv(self.shortcut[0], x))
+        return F.relu(out + x)
 
 
 class ResNet(nn.Module):
@@ -85,12 +100,28 @@ class ResNet(nn.Module):
             for p in (self.seg_1.weight, self.seg_1.bias):
                 p.copy_(torch.rand(p.shape, generator=generator) * 2 * bound
                         - bound)
+        # channels-last conv weights (and inputs, see ``trunk``): cuDNN
+        # runs the bf16 trunk about 1.4x faster in this layout than in
+        # NCHW on an H100 (PERF.md)
+        self.to(memory_format=torch.channels_last)
 
     def trunk(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.bn1(self.conv1(x)))
+        """(B, 1, mel, T) -> (B, C, F', T'), in the dtype of ``x``, laid
+        out channels-last."""
+        x = x.contiguous(memory_format=torch.channels_last)
+        x = F.relu(self.bn1(_apply_conv(self.conv1, x)))
         for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
             x = stage(x)
         return x
+
+    def num_frames(self, num_frames: int) -> int:
+        """Trunk output frames for ``num_frames`` input frames, from the
+        strides and paddings of the trunk's convs."""
+        for conv in [self.conv1] + [stage[0].conv1 for stage in (
+                self.layer1, self.layer2, self.layer3, self.layer4)]:
+            num_frames = (num_frames + 2 * conv.padding[1]
+                          - conv.kernel_size[1]) // conv.stride[1] + 1
+        return num_frames
 
 
 class WeSpeakerResNet34(nn.Module):
@@ -101,8 +132,10 @@ class WeSpeakerResNet34(nn.Module):
                  embed_dim: int = 256, sample_rate: int = 16000,
                  frame_length: float = 25.0, frame_shift: float = 10.0,
                  window_type: str = "hamming",
+                 compute_dtype: torch.dtype = torch.bfloat16,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.num_mel_bins = num_mel_bins
         self.sample_rate = sample_rate
         self.frame_length = frame_length
@@ -119,12 +152,20 @@ class WeSpeakerResNet34(nn.Module):
                                 frame_length=self.frame_length,
                                 frame_shift=self.frame_shift,
                                 window_type=self.window_type)
-        return self.frames_from_fbank(feats)
+        return self.frames_from_fbank(feats, centered=True)
 
-    def frames_from_fbank(self, feats: torch.Tensor) -> torch.Tensor:
-        """(B, T, mel) centered fbank -> (B, T', C*F'), flattened c*F' + f
-        like the reference TSTP."""
-        x = self.resnet.trunk(feats.transpose(1, 2)[:, None])  # (B,C,F',T')
+    def frames_from_fbank(self, feats: torch.Tensor,
+                          centered: bool = False) -> torch.Tensor:
+        """(B, T, mel) fbank -> (B, T', C*F'), flattened c*F' + f like the
+        reference TSTP.
+
+        ``centered=False`` subtracts each chunk's mean here: the entry of
+        the shared whole-file fbank, whose slices arrive uncentered.
+        """
+        if not centered:
+            feats = feats - feats.mean(dim=-2, keepdim=True)
+        x = feats.transpose(1, 2)[:, None].to(self.compute_dtype)
+        x = self.resnet.trunk(x).float()                      # (B,C,F',T')
         B, C, Fr, T = x.shape
         return x.reshape(B, C * Fr, T).transpose(1, 2)
 

@@ -64,13 +64,42 @@ class PyanNet(FrameModel, nn.Module):
                                   generator)
 
     def forward(self, waveforms: torch.Tensor) -> torch.Tensor:
-        x = self.lstm(self.sincnet(waveforms))
+        return self._head(self.sincnet(waveforms))
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, frames, 60) float32 SincNet features -> model output."""
+        x = self.lstm(x)
         for layer in self.linear:
             x = F.leaky_relu(layer(x), 0.01)
         x = self.classifier(x)
         if self.specifications.powerset:
             return F.log_softmax(x, dim=-1)
         return torch.sigmoid(x)
+
+    # -- shared front-end protocol (read by Inference.slide) ----------------
+
+    # Inference.slide may run the sinc conv once per file and gather each
+    # chunk's frames (SincNet.from_conv) instead of convolving every
+    # overlapping chunk again.
+    FRONTEND_SHARED = True
+
+    @property
+    def frontend_stride(self) -> int:
+        return self.sincnet_stride
+
+    def frontend_num_frames(self, window_samples: int) -> int:
+        """Sinc-conv output frames of one chunk."""
+        return SincNet.conv_num_frames(window_samples, self.sincnet_stride)
+
+    def precompute_frontend(self, waveform: torch.Tensor) -> torch.Tensor:
+        """Whole-file raw sinc conv: (1, T) -> (1, 80, F_all)."""
+        return self.sincnet.whole_conv(waveform[:, None, :])
+
+    def forward_from_frontend(self, frames: torch.Tensor, mean: torch.Tensor,
+                              var: torch.Tensor) -> torch.Tensor:
+        """Forward from gathered conv frames (B, 80, F_c) and each chunk's
+        raw-waveform mean and population variance (B,)."""
+        return self._head(self.sincnet.from_conv(frames, mean, var))
 
     def load_reference_state_dict(self, state: Mapping[str, np.ndarray]):
         """Load a reference-layout state dict (numpy arrays or tensors).

@@ -5,6 +5,8 @@ Counterpart of pyannote_audio_tpu/ops/fbank.py's exact path
 ``wespeaker_fbank``): snip-edges framing, DC-offset removal, preemphasis
 0.97, window, power-of-two FFT padding, Kaldi mel banks, log with a
 float-eps floor, then the WeSpeaker per-chunk mean subtraction.
+``whole_fbank`` is the uncentered whole-file fbank that the diarization
+pipeline slices per chunk (the JAX pipeline's ``_make_whole_fbank_fn``).
 """
 
 from __future__ import annotations
@@ -123,3 +125,19 @@ def wespeaker_fbank(waveforms: torch.Tensor, num_mel_bins: int = 80,
                   num_mel_bins=num_mel_bins, frame_length=frame_length,
                   frame_shift=frame_shift, window_type=window_type)
     return feats - feats.mean(dim=-2, keepdim=True)
+
+
+def whole_fbank(waveform: torch.Tensor, num_mel_bins: int = 80,
+                sample_rate: int = 16000, frame_length: float = 25.0,
+                frame_shift: float = 10.0,
+                window_type: str = "hamming") -> torch.Tensor:
+    """(channel, samples) mono waveform -> (frames, mel) uncentered fbank
+    in the kaldi x32768 scale; ``fbank_num_frames(samples)`` frames.
+
+    Each frame depends only on its own window, so when a chunk starts on
+    the frame shift, frames ``start // shift`` onwards are exactly the
+    chunk's own fbank before centering.
+    """
+    return fbank(waveform[0] * 32768.0, sample_rate=sample_rate,
+                 num_mel_bins=num_mel_bins, frame_length=frame_length,
+                 frame_shift=frame_shift, window_type=window_type)

@@ -1,18 +1,30 @@
 """Speaker diarization pipeline.
 
-Counterpart of pyannote_audio_tpu/pipelines/speaker_diarization.py on the
-JAX package's exact path (the one it takes on the CPU): sliding-window
-segmentation -> speaker count and activity statistics -> one embedding
-per (chunk, speaker), the ResNet trunk running once per chunk and
-speaker masks acting only at pooling -> host clustering ->
-count-constrained reconstruction -> Annotation.
+Counterpart of pyannote_audio_tpu/pipelines/speaker_diarization.py:
+sliding-window segmentation -> speaker count and activity statistics ->
+one embedding per (chunk, speaker), the ResNet trunk's frames shared by a
+chunk's speakers and speaker masks acting only at pooling -> host
+clustering -> count-constrained reconstruction -> Annotation.
 
+The embedding stage takes one of the JAX package's three paths:
+
+- shared trunk (gate PYANNOTE_TPU_SHARED_TRUNK, by default on a CUDA
+  device, off on the CPU): one whole-file fbank, a sliding-window CMN, the
+  trunk once over the file in halo'd panels, then each chunk pools its
+  slice of the trunk frames. It is approximate by design (the CMN and the
+  real context at chunk borders differ from a standalone chunk's), and
+  it is queued right after segmentation, before the first host sync;
+- shared fbank (on every device): one whole-file fbank sliced per chunk,
+  the mean subtracted per chunk, the trunk per chunk. Exact;
+- per chunk: fbank and trunk per chunk, the reference semantics.
+
+The two shared paths need chunk starts on the 160-sample fbank shift.
 Everything up to the embeddings stays on ``device``; clustering runs on
 the host, then reconstruction runs on the device again. Files are
-processed one after another. Not ported yet: the shared whole-file sinc
-front-end, fbank and trunk, the bf16 fast paths, pipelined batches on
-CUDA streams, hooks, VBx/KMeans/oracle clustering, and renaming labels
-after a reference annotation (labels are always SPEAKER_00, ...).
+processed one after another. Not ported yet: bounded-memory long files,
+pipelined batches on CUDA streams, hooks, VBx/KMeans/oracle clustering,
+and renaming labels after a reference annotation (labels are always
+SPEAKER_00, ...).
 """
 
 from __future__ import annotations
@@ -25,15 +37,19 @@ from typing import Any, Dict, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..core.annotation import Annotation
-from ..core.inference import Inference, chunk_views
+from ..core.inference import (Inference, _chunk_grid, chunk_views,
+                              pad_to_grid)
 from ..core.io import Audio
 from ..core.pipeline import Pipeline
 from ..core.segment import SlidingWindow, SlidingWindowFeature
 from ..ops.diarize_fused import (fused_count_stats, fused_reconstruct,
                                  make_embedding_masks)
+from ..ops.fbank import fbank_num_frames, whole_fbank
+from ..utils.runtime import device_flag
 from .clustering import AgglomerativeClustering
 from .utils.diarization import SpeakerDiarizationMixin, set_num_speakers
 
@@ -51,9 +67,17 @@ class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
     """Segmentation + embedding + clustering speaker diarization.
 
     ``segmentation`` is a PyanNet-like powerset model and ``embedding`` a
-    WeSpeakerResNet34-like model (``frames`` / ``embed``); both are moved
-    to ``device`` and run in eval mode.
+    WeSpeakerResNet34-like model (``frames`` / ``frames_from_fbank`` /
+    ``embed``); both are moved to ``device`` and run in eval mode.
+    ``counts`` records which embedding path ran (reset it at will).
     """
+
+    # shared-trunk panel geometry, in trunk frames: halo * stride fbank
+    # frames of context on each side cover the trunk's receptive field, so
+    # a panel's core equals the whole-file trunk there
+    TRUNK_PANEL_CORE = 512
+    TRUNK_PANEL_HALO = 64
+    TRUNK_PANEL_BATCH = 8
 
     def __init__(self, segmentation: nn.Module, embedding: nn.Module,
                  segmentation_step: float = 0.1,
@@ -79,6 +103,8 @@ class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
             batch_size=segmentation_batch_size)
         self._audio = Audio(sample_rate=16000)
         self.clustering = AgglomerativeClustering(metric="cosine")
+        self.counts = {"whole_fbank": 0, "trunk_panel_batches": 0,
+                       "chunk_trunk_batches": 0}
 
     def default_parameters(self) -> Dict[str, Any]:
         return {"segmentation": {"min_duration_off": 0.0},
@@ -113,14 +139,138 @@ class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
             + 0.5 * frames.duration) + 1
         return offsets, num_output_frames, window
 
+    # -- embeddings ---------------------------------------------------------
+
+    def _frame_shift_samples(self) -> int:
+        emb = self._embedding
+        return int(emb.sample_rate * emb.frame_shift * 0.001)
+
+    def _shared_fbank(self, step_samples: int) -> bool:
+        """Slice one whole-file fbank per chunk? Exact when chunk starts
+        lie on the fbank frame shift."""
+        shift = self._frame_shift_samples()
+        return shift > 0 and step_samples % shift == 0
+
+    def _shared_trunk(self, step_samples: int, device: torch.device) -> bool:
+        return self._shared_fbank(step_samples) and \
+            device_flag("PYANNOTE_TPU_SHARED_TRUNK", device)
+
+    def _whole_fbank(self, padded: torch.Tensor) -> torch.Tensor:
+        emb = self._embedding
+        self.counts["whole_fbank"] += 1
+        return whole_fbank(padded, num_mel_bins=emb.num_mel_bins,
+                           sample_rate=emb.sample_rate,
+                           frame_length=emb.frame_length,
+                           frame_shift=emb.frame_shift,
+                           window_type=emb.window_type)
+
+    def _fbank_frames_per_chunk(self, window_samples: int) -> int:
+        emb = self._embedding
+        return fbank_num_frames(window_samples, emb.sample_rate,
+                                emb.frame_length, emb.frame_shift)
+
+    def trunk_geometry(self, window_samples: int) -> Dict[str, int]:
+        """Fbank and trunk frames per chunk, and the trunk's time stride,
+        derived from the trunk's shapes."""
+        resnet = self._embedding.resnet
+        frames = self._fbank_frames_per_chunk(window_samples)
+        trunk_frames = resnet.num_frames(frames)
+        stride = 80 // max(1, resnet.num_frames(frames + 80) - trunk_frames)
+        return {"frames_per_chunk": frames,
+                "trunk_frames_per_chunk": trunk_frames, "stride": stride}
+
+    def _num_panel_batches(self, num_fbank_frames: int, stride: int) -> int:
+        trunk_total = -(-num_fbank_frames // stride)
+        num_panels = -(-trunk_total // self.TRUNK_PANEL_CORE)
+        return -(-num_panels // self.TRUNK_PANEL_BATCH)
+
+    def prepare(self, feats: torch.Tensor, num_real: int,
+                window_samples: int) -> torch.Tensor:
+        """Sliding-window CMN + halo and tail padding of a (T, mel)
+        whole-file fbank.
+
+        Each frame is centered by the mean over a chunk-length window
+        around it, clipped to the ``num_real`` frames of real audio (kaldi
+        apply-cmvn-sliding, center=true); frames past ``num_real`` become
+        0. The result is zero-padded by ``halo * stride`` frames in front
+        and up to whole panel batches behind.
+        """
+        geometry = self.trunk_geometry(window_samples)
+        stride = geometry["stride"]
+        T = feats.shape[0]
+        idx = torch.arange(T, device=feats.device)
+        mask = (idx < num_real)[:, None]
+        # float64 running sums (a float32 one over an hour of frames loses
+        # ~1e-3 of the window means to rounding), along the innermost
+        # axis of a (mel, T) copy: a scan along the outer axis of (T, mel)
+        # takes a CUDA thread per column through all T frames
+        csum = F.pad(torch.cumsum(torch.where(mask, feats, 0.0).T.to(
+            torch.float64, memory_format=torch.contiguous_format), dim=1),
+            (1, 0))                                         # (mel, T + 1)
+        half = geometry["frames_per_chunk"] // 2
+        lo = torch.clamp(idx - half, min=0)
+        hi = torch.clamp(idx + half, max=max(num_real, 1))
+        hi = torch.maximum(hi, lo + 1)
+        mean = ((csum[:, hi] - csum[:, lo]) / (hi - lo)).T.to(feats.dtype)
+        centered = (feats - mean) * mask
+        halo = self.TRUNK_PANEL_HALO * stride
+        total = (self._num_panel_batches(T, stride) * self.TRUNK_PANEL_BATCH
+                 * self.TRUNK_PANEL_CORE) * stride + 2 * halo
+        return F.pad(centered, (0, 0, halo, total - halo - T))
+
+    def compute_trunk(self, padded: torch.Tensor, num_real_frames: int,
+                      window_samples: int) -> torch.Tensor:
+        """The whole-file trunk of a (1, samples) grid-padded waveform:
+        (>= ceil(T / stride), D) trunk frames, in panel batches."""
+        stride = self.trunk_geometry(window_samples)["stride"]
+        core, halo = self.TRUNK_PANEL_CORE, self.TRUNK_PANEL_HALO
+        pbatch = self.TRUNK_PANEL_BATCH
+        feats = self._whole_fbank(padded)
+        x = self.prepare(feats, num_real_frames, window_samples)
+        # (panels, mel, (core + 2 halo) * stride) views, one per core
+        panels = x.unfold(0, (core + 2 * halo) * stride, core * stride)
+        parts = []
+        for b in range(0, panels.shape[0], pbatch):
+            out = self._embedding.frames_from_fbank(
+                panels[b:b + pbatch].transpose(1, 2), centered=True)
+            parts.append(out[:, halo:halo + core])
+            self.counts["trunk_panel_batches"] += 1
+        trunk = torch.cat(parts) if len(parts) > 1 else parts[0]
+        return trunk.reshape(-1, trunk.shape[-1])
+
+    def _whole_trunk(self, waveform: torch.Tensor) -> torch.Tensor:
+        """``compute_trunk`` of a (1, samples) waveform on the
+        segmentation's chunk grid."""
+        emb = self._embedding
+        window_samples = round(self._segmentation.duration * emb.sample_rate)
+        step_samples = round(self._segmentation.step * emb.sample_rate)
+        num_real_frames = fbank_num_frames(
+            waveform.shape[1], emb.sample_rate, emb.frame_length,
+            emb.frame_shift)
+        return self.compute_trunk(
+            pad_to_grid(waveform, window_samples, step_samples),
+            num_real_frames, window_samples)
+
+    def _start_shared_trunk(self, waveform: torch.Tensor
+                            ) -> Optional[torch.Tensor]:
+        """Queue the whole-file trunk on the device, or None off the
+        shared-trunk path. It depends on the waveform only, so it can run
+        before the segmentation scores reach the host."""
+        step_samples = round(self._segmentation.step
+                             * self._embedding.sample_rate)
+        if not self._shared_trunk(step_samples, waveform.device):
+            return None
+        return self._whole_trunk(waveform)
+
     @torch.inference_mode()
     def get_embeddings(self, waveform: torch.Tensor,
                        binarized: SlidingWindowFeature,
-                       exclude_overlap: bool = False) -> np.ndarray:
+                       exclude_overlap: bool = False,
+                       trunk: Optional[torch.Tensor] = None) -> np.ndarray:
         """(num_chunks, num_speakers, dimension) embeddings on the host.
 
-        The ResNet trunk runs once per chunk; per-speaker masks drive only
-        the statistics pooling.
+        ``trunk`` is the whole-file trunk queued by ``_start_shared_trunk``
+        (computed here when it is None on the shared-trunk path).
         """
         scores = binarized.data
         num_chunks, num_frames, _ = scores.shape
@@ -128,19 +278,53 @@ class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
         # smallest input still giving one pooled frame: one fbank window
         # widened by the trunk's 8x time reduction
         window = int(emb.sample_rate * emb.frame_length * 0.001)
-        shift = int(emb.sample_rate * emb.frame_shift * 0.001)
+        shift = self._frame_shift_samples()
         duration = binarized.sliding_window.duration
         min_num_frames = math.ceil(num_frames * (window + 7 * shift)
                                    / (duration * emb.sample_rate))
         masks = make_embedding_masks(scores, exclude_overlap,
                                      min_num_frames)          # (C, S, F)
-        chunks = chunk_views(
-            waveform, round(duration * emb.sample_rate),
-            round(binarized.sliding_window.step * emb.sample_rate))
+        window_samples = round(duration * emb.sample_rate)
+        step_samples = round(binarized.sliding_window.step * emb.sample_rate)
+        starts, _ = _chunk_grid(waveform.shape[1], window_samples,
+                                step_samples)
+        assert len(starts) == num_chunks
+        padded = pad_to_grid(waveform, window_samples, step_samples)
+        device = waveform.device
         B = self.embedding_batch_size
-        out = [emb.embed(emb.frames(chunks[b:b + B].contiguous()),
-                         masks[b:b + B])
-               for b in range(0, num_chunks, B)]
+
+        if self._shared_trunk(step_samples, device):
+            if trunk is None:
+                trunk = self._whole_trunk(waveform)
+            geometry = self.trunk_geometry(window_samples)
+            first = torch.from_numpy(
+                starts // shift // geometry["stride"]).to(device)
+            offsets = torch.arange(geometry["trunk_frames_per_chunk"],
+                                   device=device)
+
+            def batch(b):
+                frames = trunk[first[b:b + B, None] + offsets]
+                return emb.embed(frames, masks[b:b + B])
+        elif self._shared_fbank(step_samples):
+            feats = self._whole_fbank(padded)
+            first = torch.from_numpy(starts // shift).to(device)
+            offsets = torch.arange(
+                self._fbank_frames_per_chunk(window_samples), device=device)
+
+            def batch(b):
+                self.counts["chunk_trunk_batches"] += 1
+                chunk_feats = feats[first[b:b + B, None] + offsets]
+                return emb.embed(emb.frames_from_fbank(chunk_feats),
+                                 masks[b:b + B])
+        else:
+            chunks = chunk_views(padded, window_samples, step_samples)
+
+            def batch(b):
+                self.counts["chunk_trunk_batches"] += 1
+                return emb.embed(emb.frames(chunks[b:b + B].contiguous()),
+                                 masks[b:b + B])
+
+        out = [batch(b) for b in range(0, num_chunks, B)]
         return torch.cat(out).cpu().numpy()
 
     # -- apply --------------------------------------------------------------
@@ -156,6 +340,8 @@ class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
         waveform = torch.from_numpy(waveform).to(self.device)
 
         segmentations = self._segmentation.slide(waveform, sample_rate)
+        # queued behind segmentation, before the count's host sync
+        trunk = self._start_shared_trunk(waveform)
         scores = segmentations.data                           # (C, F, S)
         num_chunks = scores.shape[0]
         offsets, num_output_frames, window = self._aggregation_grid(
@@ -176,7 +362,7 @@ class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
 
         embeddings = self.get_embeddings(
             waveform, segmentations,
-            exclude_overlap=self.embedding_exclude_overlap)
+            exclude_overlap=self.embedding_exclude_overlap, trunk=trunk)
         hard_clusters, _, centroids = self.clustering(
             embeddings, clean_frames, num_frames=scores.shape[1],
             num_clusters=num_speakers, min_clusters=min_speakers,

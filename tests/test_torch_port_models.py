@@ -4,7 +4,11 @@ Each test builds the JAX model from a seed, perturbs its norms so they
 matter, carries the weights across with ``utils/convert.py``, feeds both
 sides the same numpy inputs and compares. Tolerances: SincNet and PyanNet
 2e-4 (as the JAX package's torch-replica test), fbank 1e-3 (log-mel
-through another rfft), WeSpeaker 2e-3 (conv summation order).
+through another rfft), WeSpeaker 2e-3 (conv summation order). The bf16
+trunk against the JAX default bf16 trunk: frames within 2e-2 of the
+frames' largest magnitude (a few bf16 roundings, 2^-8 relative each, that
+oneDNN and XLA place differently) and 2e-3 in the mean; and the port's
+bf16 error against the float32 trunk at most 2x the JAX bf16 error.
 """
 
 import numpy as np
@@ -82,23 +86,33 @@ class SmallWeSpeaker(BaseWeSpeakerResNet):
     bf16 trunk even on the CPU)."""
 
     NUM_BLOCKS = SMALL_BLOCKS
+    COMPUTE_DTYPE = jnp.float32
 
     def build_module(self):
         return WeSpeakerModule(num_blocks=SMALL_BLOCKS,
                                m_channels=SMALL_CHANNELS,
-                               compute_dtype=jnp.float32)
+                               compute_dtype=self.COMPUTE_DTYPE)
 
 
-def jax_wespeaker(seed=0):
-    model = SmallWeSpeaker()
+class SmallWeSpeakerBF16(SmallWeSpeaker):
+    """The same ResNet with the JAX module's default bf16 trunk."""
+
+    COMPUTE_DTYPE = jnp.bfloat16
+
+
+def jax_wespeaker(seed=0, klass=SmallWeSpeaker):
+    model = klass()
     model.build(jax.random.PRNGKey(seed))
     model.params = perturb(jax.tree_util.tree_map(np.asarray, model.params),
                            np.random.default_rng(seed))
     return model
 
 
-def torch_wespeaker_from(model):
-    port = TorchWeSpeaker(num_blocks=SMALL_BLOCKS, m_channels=SMALL_CHANNELS)
+def torch_wespeaker_from(model, compute_dtype=torch.float32):
+    """The port's WeSpeaker with ``model``'s weights; float32 by default,
+    as ``SmallWeSpeaker`` pins the JAX side."""
+    port = TorchWeSpeaker(num_blocks=SMALL_BLOCKS, m_channels=SMALL_CHANNELS,
+                          compute_dtype=compute_dtype)
     port.load_reference_state_dict(wespeaker_state_dict(model.params))
     return port.eval()
 
@@ -160,6 +174,42 @@ def test_wespeaker_frames_and_masked_embeddings_match_jax():
                                atol=2e-3)
     assert ours.shape == expected.shape == (3, 3, 256)
     np.testing.assert_allclose(ours, expected, atol=2e-3)
+
+
+def test_wespeaker_bf16_trunk_matches_jax_default_bf16():
+    """The port's default bf16 trunk against the JAX module's default bf16
+    trunk, both held to the float32 trunk."""
+    port = torch_wespeaker_from(jax_wespeaker(seed=9), torch.bfloat16)
+    assert TorchWeSpeaker().compute_dtype == torch.bfloat16   # the default
+    wav = _wave(3, 2.0, seed=10)
+    masks = np.random.default_rng(11).uniform(size=(3, 2, 117)
+                                              ).astype(np.float32)
+    outputs = {}
+    for name, klass in (("f32", SmallWeSpeaker),
+                        ("bf16", SmallWeSpeakerBF16)):
+        model = jax_wespeaker(seed=9, klass=klass)
+        params = jax.tree_util.tree_map(jnp.asarray, model.params)
+        frames = model.module.apply(params, jnp.asarray(wav),
+                                    method=WeSpeakerModule.frames)
+        outputs[name] = (np.asarray(frames), np.asarray(model.module.apply(
+            params, frames, jnp.asarray(masks),
+            method=WeSpeakerModule.embed)))
+    with torch.no_grad():
+        frames = port.frames(torch.from_numpy(wav))
+        ours = (frames.numpy(),
+                port.embed(frames, torch.from_numpy(masks)).numpy())
+    assert frames.dtype == torch.float32
+    for k in (0, 1):
+        f32, bf16, port_bf16 = outputs["f32"][k], outputs["bf16"][k], ours[k]
+        scale = np.abs(f32).max()
+        assert np.abs(port_bf16 - bf16).max() <= 2e-2 * scale
+        assert np.abs(port_bf16 - bf16).mean() <= 2e-3 * scale
+        # rounding order of XLA and oneDNN aside: as far from float32 as
+        # the JAX bf16 trunk is
+        for reduce in (np.max, np.mean):
+            jax_err = reduce(np.abs(bf16 - f32))
+            assert jax_err > 0                       # bf16 really ran
+            assert reduce(np.abs(port_bf16 - f32)) <= 2 * jax_err
 
 
 def test_pyannet_converter_equals_export():

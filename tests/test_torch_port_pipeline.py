@@ -145,6 +145,7 @@ def test_port_imports_no_jax():
         "pyannote_audio_tpu_torch.utils.build",
         "pyannote_audio_tpu_torch.utils.convert",
         "pyannote_audio_tpu_torch.utils.receptive_field",
+        "pyannote_audio_tpu_torch.utils.runtime",
         "pyannote_audio_tpu_torch.utils.signal",
     ]
     code = ("import importlib, sys\n"

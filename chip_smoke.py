@@ -7,16 +7,22 @@ Phases, each fatal on failure:
      limit; TF32 is switched off for matmuls and convolutions;
   2. build every kernel of the path from the sources in this checkout;
   3. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes and at ragged ones, with kernel and plain times;
+     main path's shapes and at ragged ones, in each LSTM precision
+     ("default", "high", "highest"), with kernel and plain times, the
+     bound of each mode, and cuDNN's torch.nn.LSTM over the same layer
+     beside the port's projection + kernel (a yardstick only);
   4. the exact path (the accelerator gates PYANNOTE_TPU_SEG_BF16,
-     _SHARED_SINC and _SHARED_TRUNK forced to "0", a float32 trunk):
+     _SHARED_SINC and _SHARED_TRUNK forced to "0", a float32 trunk,
+     PYANNOTE_TPU_LSTM_PRECISION=highest):
      SpeakerDiarization with full-width PyanNet and WeSpeaker ResNet34
      (seeded random weights) at bench.py's settings, held against the
      same pipeline on the CPU on a 30 s file, then timed with its stages
      on a synthetic PCM16 WAV file of 3 minutes;
   5. the accelerator path at its defaults on the card (bf16 SincNet and
-     trunk, the shared whole-file sinc front-end, fbank and trunk): each
-     shared module held against its exact counterpart at full width, then
+     trunk, the shared whole-file sinc front-end, fbank and trunk, the
+     LSTM's bf16 products): each shared module held against its exact
+     counterpart at full width, and the "default" LSTM precision against
+     "highest" on PyanNet's log-probs (check (f)), then
      timed with its stages on files of 10 and 3 minutes, with the LSTM
      kernel's launch count and the path counters proving which path ran,
      and the peak device memory.
@@ -52,7 +58,12 @@ BATCH_SIZE = 256
 PARAMS = {"segmentation": {"min_duration_off": 0.0},
           "clustering": {"method": "centroid", "threshold": 0.6,
                          "min_cluster_size": 1}}
-KERNEL_ATOL = 1e-4
+# kernel vs plain version in the same precision, at every shape: float32
+# sums in another order ("highest" as before; "high" about 12x the 8e-7
+# measured on an H100); in "default" an h that lands one bf16 step apart
+# where two float32 sums round differently, damped by the recurrence
+# (about 4x the 2.7e-4 measured)
+KERNEL_ATOL = {"default": 1e-3, "high": 1e-5, "highest": 1e-4}
 # the same pipeline on the CPU (plain LSTM, CPU convolutions) on a short
 # file: float32 sums in another order through 589 recurrent steps
 REFERENCE_LOGP_ATOL = 1e-3
@@ -71,6 +82,9 @@ SHARED_FBANK_ATOL = 1e-3
 PANEL_F32_ATOL = 1e-3
 PANEL_BF16_RTOL, PANEL_BF16_ATOL = 5e-2, 6e-2
 SHARED_TRUNK_MIN_COS, SHARED_TRUNK_MEAN_COS = 0.7, 0.85
+# (f) the LSTM's bf16 products against float32 on whole PyanNet log-probs:
+# the bound of bf16 SincNet against float32
+LSTM_DEFAULT_LOGP_ATOL = 2e-2
 
 
 def log(message: str) -> None:
@@ -162,24 +176,60 @@ def phase_build() -> None:
             log("  " + line.strip())
 
 
+def layer_inputs(device, T, B, D_in, H, D, seed=0):
+    """xw as the main path makes it (x @ W_ih^T + b, x ~ N(0, 1)) and
+    W_hh, torch.nn.LSTM's init; also x, W_ih and b."""
+    gen = torch.Generator().manual_seed(seed)
+    bound = H ** -0.5
+    x = torch.randn(T, B, D_in, generator=gen)
+    w_ih = (torch.rand(D * 4 * H, D_in, generator=gen) * 2 - 1) * bound
+    b = (torch.rand(D * 4 * H, generator=gen) * 2 - 1) * 2 * bound
+    w_hh = (torch.rand(D, 4 * H, H, generator=gen) * 2 - 1) * bound
+    x, w_ih, b, w_hh = (t.to(device) for t in (x, w_ih, b, w_hh))
+    return (x @ w_ih.t() + b).contiguous(), w_hh, (x, w_ih, b)
+
+
+def lstm_bound(T, B, H, D, precision, packed_bytes) -> dict:
+    """Least time of one launch on an H100 SXM at 700 W: bytes (xw read,
+    out written, packed W_hh read, once each) over 3.35 TB/s against the
+    recurrent product's operations (2*T*B*D*4H*H, three bf16 passes for
+    "high") over 989 TFLOP/s bf16 or 67 TFLOP/s float32."""
+    moved = 4 * T * B * D * 4 * H + 4 * T * B * D * H + packed_bytes
+    flops = 2 * T * B * D * 4 * H * H * (3 if precision == "high" else 1)
+    rate = 67e12 if precision == "highest" else 989e12
+    bytes_ms, ops_ms = moved / 3.35e12 * 1e3, flops / rate * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def library_lstm_ms(device, T, B, D_in, H) -> dict:
+    """torch.nn.LSTM (cuDNN) over the same layer, whole: float32 with TF32
+    off, then fp16 and bf16 where cuDNN takes them (None where not).
+    The yardstick only: the port never calls cuDNN's LSTM."""
+    lstm = torch.nn.LSTM(D_in, H, bidirectional=True).to(device)
+    x = torch.randn(T, B, D_in, device=device)
+    times = {}
+    with torch.inference_mode():
+        for name, dtype in (("float32", torch.float32),
+                            ("float16", torch.float16),
+                            ("bfloat16", torch.bfloat16)):
+            layer, xd = lstm.to(dtype), x.to(dtype)
+            layer.flatten_parameters()  # one cuDNN weight buffer
+            try:
+                times[name] = cuda_ms(lambda: layer(xd), runs=10)
+            except RuntimeError as err:
+                log(f"cuDNN LSTM in {name}: not taken ({err})")
+                times[name] = None
+    return times
+
+
 def phase_kernels(device: torch.device) -> dict:
-    """LSTM kernel vs its plain version; returns the kernel's record."""
+    """LSTM kernel vs its plain version in each precision; returns the
+    kernel's record (its main-path fields are the "default" mode's)."""
     from pyannote_audio_tpu_torch.ops.lstm import \
         lstm_bidirectional_recurrence_plain
-    from pyannote_audio_tpu_torch.ops.lstm_kernel import \
-        lstm_bidirectional_recurrence
-
-    gen = torch.Generator().manual_seed(0)
-
-    def layer_inputs(T, B, D_in, H, D):
-        """xw as the main path makes it: x @ W_ih^T + b, x ~ N(0, 1)."""
-        bound = H ** -0.5
-        x = torch.randn(T, B, D_in, generator=gen)
-        w_ih = (torch.rand(D * 4 * H, D_in, generator=gen) * 2 - 1) * bound
-        b = (torch.rand(D * 4 * H, generator=gen) * 2 - 1) * 2 * bound
-        w_hh = (torch.rand(D, 4 * H, H, generator=gen) * 2 - 1) * bound
-        x, w_ih, b, w_hh = (t.to(device) for t in (x, w_ih, b, w_hh))
-        return (x @ w_ih.t() + b).contiguous(), w_hh
+    from pyannote_audio_tpu_torch.ops.lstm_kernel import (
+        lstm_bidirectional_recurrence, prepare_recurrent_weights)
 
     # PyanNet on 10 s chunks: T = 589 frames, B = every batch size of the
     # main path (256 and each file's tail), H = 128; layer 0 reads
@@ -188,38 +238,74 @@ def phase_kernels(device: torch.device) -> dict:
               for B in sorted(set(segmentation_batches()), reverse=True)
               for layer, D_in in enumerate((60, 256))]
     shapes += [("B=1 T=1 H=8", 1, 1, 5, 8, 2),
-              ("H=96", 33, 4, 60, 96, 2),
-              ("B=3", 40, 3, 60, 128, 2),
-              ("H=8 one direction", 17, 5, 60, 8, 1)]
-    worst = 0.0
+               ("H=96", 33, 4, 60, 96, 2),
+               ("B=3", 40, 3, 60, 128, 2),
+               ("H=8 one direction", 17, 5, 60, 8, 1),
+               ("H=10 (4-byte copies)", 21, 9, 60, 10, 2),
+               ("H=256 B=20", 33, 20, 60, 256, 2)]
+    worst = dict.fromkeys(KERNEL_ATOL, 0.0)
     for name, T, B, D_in, H, D in shapes:
-        xw, w_hh = layer_inputs(T, B, D_in, H, D)
-        out = lstm_bidirectional_recurrence(xw, w_hh)
-        torch.cuda.synchronize()
-        ref = lstm_bidirectional_recurrence_plain(xw, w_hh)
-        err = (out - ref).abs().max().item()
-        worst = max(worst, err)
-        log(f"lstm_recurrence {name}: xw {tuple(xw.shape)} -> "
-            f"{tuple(out.shape)}, max_abs_err {err:.3e}")
-        if not err <= KERNEL_ATOL:
-            raise AssertionError(f"LSTM kernel disagrees with its plain "
-                                 f"version at {name}: {err} > {KERNEL_ATOL}")
+        xw, w_hh, _ = layer_inputs(device, T, B, D_in, H, D)
+        for precision, limit in KERNEL_ATOL.items():
+            out = lstm_bidirectional_recurrence(xw, w_hh, precision)
+            torch.cuda.synchronize()
+            ref = lstm_bidirectional_recurrence_plain(xw, w_hh, precision)
+            err = (out - ref).abs().max().item()
+            worst[precision] = max(worst[precision], err)
+            log(f"lstm_recurrence {precision:8s} {name}: xw "
+                f"{tuple(xw.shape)} -> {tuple(out.shape)}, max_abs_err "
+                f"{err:.3e} (limit {limit})")
+            if not (torch.isfinite(out).all() and err <= limit):
+                raise AssertionError(
+                    f"LSTM kernel ({precision}) disagrees with its plain "
+                    f"version at {name}: {err} > {limit}")
 
-    xw, w_hh = layer_inputs(589, 256, 256, 128, 2)
-    plain_ms = cuda_ms(lambda: lstm_bidirectional_recurrence_plain(xw, w_hh),
-                       runs=5)
-    kernel_ms = cuda_ms(lambda: lstm_bidirectional_recurrence(xw, w_hh),
-                        runs=20)
-    plain_ms_2 = cuda_ms(
-        lambda: lstm_bidirectional_recurrence_plain(xw, w_hh), runs=5)
-    log(f"lstm_recurrence at (589, 256, 1024) -> (589, 256, 256): kernel "
-        f"{kernel_ms:.3f} ms, plain {plain_ms:.3f} / {plain_ms_2:.3f} ms "
-        f"(median of 20 and of 5 runs, before and after)")
+    T, B, D_in, H, D = 589, 256, 256, 128, 2
+    xw, w_hh, (x, w_ih, b) = layer_inputs(device, T, B, D_in, H, D)
+    modes = {}
+    for precision in KERNEL_ATOL:
+        prepared = prepare_recurrent_weights(w_hh, precision)
+        kernel_ms = cuda_ms(lambda: lstm_bidirectional_recurrence(
+            xw, w_hh, precision, prepared), runs=20)
+        plain_ms = cuda_ms(lambda: lstm_bidirectional_recurrence_plain(
+            xw, w_hh, precision), runs=3, warmup=1)
+        kernel_ms_2 = cuda_ms(lambda: lstm_bidirectional_recurrence(
+            xw, w_hh, precision, prepared), runs=20)
+        bound = lstm_bound(T, B, H, D, precision,
+                           prepared.packed.numel()
+                           * prepared.packed.element_size())
+        modes[precision] = dict(ms=min(kernel_ms, kernel_ms_2),
+                                plain_ms=plain_ms,
+                                max_abs_err=worst[precision], **bound)
+        log(f"lstm_recurrence {precision} at (589, 256, 1024) -> (589, 256, "
+            f"256): kernel {kernel_ms:.3f} / {kernel_ms_2:.3f} ms (median "
+            f"of 20, before and after the plain), plain {plain_ms:.3f} ms "
+            f"(median of 3); bound {bound['bound_ms']:.4f} ms "
+            f"({bound['bound_by']})")
+
+    # the whole layer, like for like with cuDNN's LSTM: the port's hoisted
+    # projection (float32 matmul) + the kernel at the main path's "default"
+    prepared = prepare_recurrent_weights(w_hh, "default")
+    projection_ms = cuda_ms(lambda: x @ w_ih.t() + b, runs=20)
+    layer_ms = cuda_ms(lambda: lstm_bidirectional_recurrence(
+        (x @ w_ih.t() + b).contiguous(), w_hh, "default", prepared),
+        runs=20)
+    library = library_lstm_ms(device, T, B, D_in, H)
+    log(f"layer (589, 256, 256) -> (589, 256, 256), bidirectional H=128: "
+        f"port projection {projection_ms:.3f} ms + kernel (default) = "
+        f"{layer_ms:.3f} ms; cuDNN torch.nn.LSTM "
+        + ", ".join(f"{k} {'%.3f ms' % v if v is not None else 'n/a'}"
+                    for k, v in library.items()))
+    main = modes["default"]
     return {"name": "lstm_recurrence", "route": "cuda",
             "source": "pyannote_audio_tpu_torch/csrc/lstm_recurrence.cu",
             "replaces": "pyannote_audio_tpu/ops/pallas_lstm.py:100",
-            "launches": None, "max_abs_err": worst, "ms": kernel_ms,
-            "plain_ms": min(plain_ms, plain_ms_2)}
+            "launches": None, "max_abs_err": main["max_abs_err"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": library["float32"], "modes": modes,
+            "layer_ms": layer_ms, "projection_ms": projection_ms,
+            "library": library}
 
 
 def build_pipeline(segmentation, embedding, device):
@@ -476,8 +562,33 @@ def read_counts(pipeline) -> dict:
                 lstm_launches=lstm_bidirectional_recurrence.launches)
 
 
+@contextlib.contextmanager
+def lstm_precision_env(value):
+    """PYANNOTE_TPU_LSTM_PRECISION set to ``value`` (None: unset), then
+    restored."""
+    name = "PYANNOTE_TPU_LSTM_PRECISION"
+    saved = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = saved
+
+
 def phase_exact(device: torch.device, workdir: Path) -> None:
-    """The exact path: gates off, float32 trunk, held against the CPU."""
+    """The exact path: gates off, float32 trunk and LSTM, held against
+    the CPU."""
+    with lstm_precision_env("highest"):
+        run_exact(device, workdir)
+
+
+def run_exact(device: torch.device, workdir: Path) -> None:
     set_gates("0")
     segmentation, embedding = make_models(torch.float32)
     cpu_pipeline = build_pipeline(copy.deepcopy(segmentation),
@@ -626,6 +737,29 @@ def check_shared_trunk(pipeline, waveform: torch.Tensor) -> None:
                              "exact path's")
 
 
+def check_lstm_precision(pipeline, waveform: torch.Tensor) -> None:
+    """(f) PyanNet log-probs with the LSTM at "default" (bf16 products)
+    against "highest" (float32), the other gates at their defaults."""
+    inference = pipeline._segmentation
+    powerset, inference._powerset = inference._powerset, None
+    try:
+        with lstm_precision_env("highest"):
+            exact = inference.slide(waveform, SAMPLE_RATE).data
+        with lstm_precision_env("default"):
+            bf16 = inference.slide(waveform, SAMPLE_RATE).data
+    finally:
+        inference._powerset = powerset
+    err = (bf16 - exact).abs().max().item()
+    flips = (bf16.argmax(-1) != exact.argmax(-1)).float().mean().item()
+    log(f"(f) PyanNet log-probs, LSTM precision default vs highest on "
+        f"{len(exact)} chunks: max_abs_err {err:.3e} (limit "
+        f"{LSTM_DEFAULT_LOGP_ATOL}), powerset argmax flips at {flips:.4%} "
+        f"of chunk frames")
+    if not (torch.isfinite(bf16).all() and err <= LSTM_DEFAULT_LOGP_ATOL):
+        raise AssertionError("the default LSTM precision is too far from "
+                             "float32")
+
+
 def panel_batches(pipeline) -> int:
     """Trunk panel batches the files of FILE_MINUTES take."""
     from pyannote_audio_tpu_torch.core.inference import _chunk_grid
@@ -654,6 +788,7 @@ def phase_accelerator(device: torch.device, workdir: Path) -> int:
         check_shared_fbank(pipeline, short)
         check_panels(pipeline, long)
         check_shared_trunk(pipeline, short)
+        check_lstm_precision(pipeline, short)
     del short, long
 
     batches = len(segmentation_batches())

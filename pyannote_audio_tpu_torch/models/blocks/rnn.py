@@ -5,8 +5,11 @@ torch.nn.LSTM's names and layout (``weight_ih_l{i}[_reverse]``, ...), so
 reference checkpoints load verbatim. Each layer hoists both directions'
 input projections into one matmul, then runs
 ``ops.lstm_kernel.lstm_bidirectional_recurrence``: one kernel launch per
-layer for CUDA tensors, the plain PyTorch recurrence for CPU tensors. Any
-hidden size works (the JAX module's ``H % 128`` gate is a TPU lane rule).
+layer for CUDA tensors, the plain PyTorch recurrence for CPU tensors. The
+recurrent product runs at ``utils.runtime.lstm_precision`` (the JAX
+package's PYANNOTE_TPU_LSTM_PRECISION on a CUDA device, float32 on the
+CPU). The kernel takes any hidden size up to 256 (the JAX module's
+``H % 128`` gate is a TPU lane rule); the CPU path takes any.
 """
 
 from __future__ import annotations
@@ -16,7 +19,9 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ...ops.lstm_kernel import lstm_bidirectional_recurrence
+from ...ops.lstm_kernel import (lstm_bidirectional_recurrence,
+                                prepare_recurrent_weights)
+from ...utils.runtime import lstm_precision
 
 
 class LSTM(nn.Module):
@@ -42,6 +47,9 @@ class LSTM(nn.Module):
                         name + suffix, nn.Parameter(torch.empty(shape)))
             in_dim = H * len(self._suffixes())
         self.reset_parameters(generator)
+        # per layer: (key, W_hh packed for the kernel), rebuilt when the
+        # weights change in place, move, or the precision changes
+        self._prepared = {}
 
     def _suffixes(self):
         return ("", "_reverse") if self.bidirectional else ("",)
@@ -55,6 +63,7 @@ class LSTM(nn.Module):
                     - bound)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        precision = lstm_precision(x.device)
         h = x.transpose(0, 1)                                 # (T, B, D)
         for i in range(self.num_layers):
             names = [f"l{i}{s}" for s in self._suffixes()]
@@ -66,5 +75,20 @@ class LSTM(nn.Module):
             w_hh = torch.stack([getattr(self, f"weight_hh_{n}")
                                 for n in names])
             xw = torch.matmul(h, w_ih.t()) + bias          # (T, B, D*4H)
-            h = lstm_bidirectional_recurrence(xw.contiguous(), w_hh)
+            prepared = None
+            if x.device.type == "cuda":
+                prepared = self._prepared_weights(i, names, w_hh, precision)
+            h = lstm_bidirectional_recurrence(xw.contiguous(), w_hh,
+                                              precision, prepared)
         return h.transpose(0, 1)
+
+    def _prepared_weights(self, layer, names, w_hh, precision):
+        """Layer ``layer``'s W_hh packed for the kernel, cached on the
+        parameters' versions and device and on the precision."""
+        key = (tuple(getattr(self, f"weight_hh_{n}")._version
+                     for n in names), w_hh.device, precision)
+        cached = self._prepared.get(layer)
+        if cached is None or cached[0] != key:
+            cached = (key, prepare_recurrent_weights(w_hh, precision))
+            self._prepared[layer] = cached
+        return cached[1]

@@ -5,9 +5,11 @@ Counterpart of pyannote_audio_tpu/ops/lstm.py. The input projection
 recurrence into one matmul; the loop carries only the (B, H) state and
 does one (B, H) x (H, 4H) product per step. Gate order i, f, g, o and the
 double bias follow torch.nn.LSTM, so reference checkpoints load weight
-for weight. Runs in float32; on a CUDA device the matmuls need TF32 off
+for weight. State, gates and output are float32. The recurrent product
+takes the JAX package's three precisions (``recurrent_product``); on a
+CUDA device the matmuls need TF32 off
 (``torch.backends.cuda.matmul.allow_tf32 = False``, torch's default) to
-match the JAX reference, which pins them to HIGHEST.
+compute them exactly.
 """
 
 from __future__ import annotations
@@ -17,12 +19,41 @@ from typing import Dict, List
 import torch
 
 
+def split_bf16(a: torch.Tensor):
+    """a -> (a_hi, a_lo), both bf16 values held in float32: a_hi = bf16(a)
+    and a_lo = bf16(a - a_hi), each rounded to nearest even."""
+    hi = a.to(torch.bfloat16).float()
+    return hi, (a - hi).to(torch.bfloat16).float()
+
+
+def recurrent_product(h: torch.Tensor, w_hh_t: torch.Tensor,
+                      precision: str = "highest") -> torch.Tensor:
+    """h (B, H) @ w_hh_t (H, 4H) in one of the JAX package's precisions.
+
+    "highest": float32. "default": h and W_hh rounded to bf16, products
+    summed in float32 (a bf16 x bf16 product is exact in float32).
+    "high" (bf16_3x): hi.hi + hi.lo + lo.hi of the bf16 splits.
+    """
+    if precision == "highest":
+        return h @ w_hh_t
+    if precision == "default":
+        return h.to(torch.bfloat16).float() @ w_hh_t.to(torch.bfloat16).float()
+    if precision == "high":
+        h_hi, h_lo = split_bf16(h)
+        w_hi, w_lo = split_bf16(w_hh_t)
+        return h_hi @ w_hi + h_hi @ w_lo + h_lo @ w_hi
+    raise ValueError(f"unknown LSTM precision {precision!r}")
+
+
 def lstm_recurrence(xw: torch.Tensor, w_hh: torch.Tensor,
-                    reverse: bool = False) -> torch.Tensor:
+                    reverse: bool = False,
+                    precision: str = "highest") -> torch.Tensor:
     """(T, B, 4H) hoisted inputs + (4H, H) weights -> (T, B, H) hidden states.
 
-    Counterpart of ``lstm_cell_scan``: zero initial state; ``reverse``
-    walks time backwards and writes ``out[t]`` at the original index.
+    Counterpart of ``lstm_cell_scan`` (``precision="highest"``) and of
+    ``pallas_lstm_cell`` at PYANNOTE_TPU_LSTM_PRECISION=``precision``:
+    zero initial state; ``reverse`` walks time backwards and writes
+    ``out[t]`` at the original index. xw is added after the product.
     """
     T, B, H4 = xw.shape
     H = H4 // 4
@@ -31,7 +62,7 @@ def lstm_recurrence(xw: torch.Tensor, w_hh: torch.Tensor,
     c = xw.new_zeros((B, H))
     out = xw.new_empty((T, B, H))
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
-        gates = xw[t] + h @ w_hh_t
+        gates = xw[t] + recurrent_product(h, w_hh_t, precision)
         i, f, g, o = gates.chunk(4, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h = torch.sigmoid(o) * torch.tanh(c)
@@ -40,7 +71,9 @@ def lstm_recurrence(xw: torch.Tensor, w_hh: torch.Tensor,
 
 
 def lstm_bidirectional_recurrence_plain(xw: torch.Tensor,
-                                        w_hh: torch.Tensor) -> torch.Tensor:
+                                        w_hh: torch.Tensor,
+                                        precision: str = "highest"
+                                        ) -> torch.Tensor:
     """(T, B, D*4H) + (D, 4H, H) -> (T, B, D*H), direction 1 reversed.
 
     The plain version of ``ops.lstm_kernel.lstm_bidirectional_recurrence``:
@@ -50,7 +83,7 @@ def lstm_bidirectional_recurrence_plain(xw: torch.Tensor,
     D, H4, _ = w_hh.shape
     return torch.cat([
         lstm_recurrence(xw[..., d * H4:(d + 1) * H4], w_hh[d],
-                        reverse=d == 1)
+                        reverse=d == 1, precision=precision)
         for d in range(D)], dim=-1)
 
 

@@ -69,6 +69,8 @@ class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
     ``segmentation`` is a PyanNet-like powerset model and ``embedding`` a
     WeSpeakerResNet34-like model (``frames`` / ``frames_from_fbank`` /
     ``embed``); both are moved to ``device`` and run in eval mode.
+    ``device`` is the CUDA card by default; without one the constructor
+    raises, and ``device="cpu"`` runs the exact path on the CPU.
     ``counts`` records which embedding path ran (reset it at will).
     """
 
@@ -85,7 +87,12 @@ class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
                  clustering: str = "AgglomerativeClustering",
                  embedding_batch_size: int = 32,
                  segmentation_batch_size: int = 32,
-                 device: Union[str, torch.device] = "cpu"):
+                 device: Union[str, torch.device] = "cuda"):
+        if torch.device(device).type == "cuda" and \
+                not torch.cuda.is_available():
+            raise RuntimeError("SpeakerDiarization runs on a CUDA device by "
+                               "default and none is available: pass "
+                               "device=\"cpu\" to run on the CPU")
         if clustering != "AgglomerativeClustering":
             raise ValueError("only AgglomerativeClustering is ported")
         if not segmentation.specifications.powerset:

@@ -11,6 +11,8 @@ from typing import Union
 
 import torch
 
+LSTM_PRECISIONS = ("default", "high", "highest")
+
 
 def device_flag(name: str, device: Union[str, torch.device]) -> bool:
     """Resolve a PYANNOTE_TPU_* gate for work on ``device``.
@@ -23,3 +25,20 @@ def device_flag(name: str, device: Union[str, torch.device]) -> bool:
     if value is not None:
         return value == "1"
     return torch.device(device).type == "cuda"
+
+
+def lstm_precision(device: Union[str, torch.device]) -> str:
+    """Precision of the LSTM recurrent product for work on ``device``.
+
+    Counterpart of ``_kernel_precision`` in the JAX package's
+    ops/pallas_lstm.py: PYANNOTE_TPU_LSTM_PRECISION is "default" (h and
+    W_hh rounded to bf16, products summed in float32), "high" (bf16_3x)
+    or "highest" (float32); unset means "default", and any other value
+    raises. On the CPU the answer is "highest" whatever the gate says,
+    because the JAX package runs its float32 scan there.
+    """
+    name = os.environ.get("PYANNOTE_TPU_LSTM_PRECISION", "default")
+    if name not in LSTM_PRECISIONS:
+        raise ValueError(f"PYANNOTE_TPU_LSTM_PRECISION={name!r}: expected "
+                         f"one of {LSTM_PRECISIONS}")
+    return name if torch.device(device).type == "cuda" else "highest"

@@ -85,7 +85,7 @@ def port_pipeline(seg, emb, compute_dtype=torch.float32, duration=2.0):
     """The port's pipeline on the CPU, with test-sized trunk panels."""
     pipeline = SpeakerDiarization(
         torch_pyannet_from(seg), torch_wespeaker_from(emb, compute_dtype),
-        segmentation_batch_size=4, embedding_batch_size=4)
+        segmentation_batch_size=4, embedding_batch_size=4, device="cpu")
     assert pipeline._segmentation.duration == duration
     for name, value in PANELS.items():
         setattr(pipeline, name, value)
@@ -391,7 +391,7 @@ def gated_outputs(request, corpus):
         port = SpeakerDiarization(torch_pyannet_from(seg),
                                   torch_wespeaker_from(emb),
                                   segmentation_batch_size=16,
-                                  embedding_batch_size=16)
+                                  embedding_batch_size=16, device="cpu")
         jax_pipeline = JaxSpeakerDiarization(
             segmentation=seg, embedding=emb,
             clustering="AgglomerativeClustering",
@@ -497,7 +497,8 @@ def embeddings(corpus):
             port = SpeakerDiarization(
                 torch_pyannet_from(seg), torch_wespeaker_from(
                     emb, torch.float32 if dtype == "f32" else torch.bfloat16),
-                segmentation_batch_size=16, embedding_batch_size=16)
+                segmentation_batch_size=16, embedding_batch_size=16,
+                device="cpu")
             for pipeline in (port, jax_pipeline):
                 for key, value in PANELS.items():
                     setattr(pipeline, key, value)

@@ -135,10 +135,18 @@ def test_wrapper_refuses_mixed_devices():
         lstm_kernel.lstm_bidirectional_recurrence(xw, w_hh)
 
 
+# kernel vs plain version in the same precision on the card (chip_smoke.py's
+# bounds): float32 sums in another order; in "default" an h that rounds one
+# bf16 step apart (damped by the recurrence) as well
+CARD_ATOL = {"default": 1e-3, "high": 1e-5, "highest": 1e-4}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["default", "high", "highest"])
 @pytest.mark.parametrize("T,B,H,D", [(589, 256, 128, 2), (1, 1, 8, 2),
-                                     (7, 3, 96, 2), (5, 2, 300, 1)])
-def test_kernel_matches_plain_on_card(T, B, H, D):
+                                     (7, 3, 96, 2), (5, 2, 256, 1),
+                                     (6, 9, 10, 2)])
+def test_kernel_matches_plain_on_card(T, B, H, D, precision):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     g = torch.Generator().manual_seed(T + B)
@@ -146,8 +154,20 @@ def test_kernel_matches_plain_on_card(T, B, H, D):
     w_hh = ((torch.rand(D, 4 * H, H, generator=g) * 2 - 1)
             / H ** 0.5).cuda()
     before = lstm_kernel.lstm_bidirectional_recurrence.launches
-    ours = lstm_kernel.lstm_bidirectional_recurrence(xw, w_hh)
-    expected = lstm_bidirectional_recurrence_plain(xw, w_hh)
+    ours = lstm_kernel.lstm_bidirectional_recurrence(xw, w_hh, precision)
+    expected = lstm_bidirectional_recurrence_plain(xw, w_hh, precision)
     torch.cuda.synchronize()
     assert lstm_kernel.lstm_bidirectional_recurrence.launches == before + 1
-    assert (ours - expected).abs().max().item() < 1e-4
+    assert (ours - expected).abs().max().item() < CARD_ATOL[precision]
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_what_does_not_fit_on_chip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    xw = torch.zeros(2, 1, 4 * 300, device="cuda")
+    w_hh = torch.zeros(1, 4 * 300, 300, device="cuda")
+    before = lstm_kernel.lstm_bidirectional_recurrence.launches
+    with pytest.raises(ValueError, match="256"):
+        lstm_kernel.lstm_bidirectional_recurrence(xw, w_hh, "default")
+    assert lstm_kernel.lstm_bidirectional_recurrence.launches == before

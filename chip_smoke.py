@@ -20,12 +20,23 @@ Phases, each fatal on failure:
      on a synthetic PCM16 WAV file of 3 minutes;
   5. the accelerator path at its defaults on the card (bf16 SincNet and
      trunk, the shared whole-file sinc front-end, fbank and trunk, the
-     LSTM's bf16 products): each shared module held against its exact
-     counterpart at full width, and the "default" LSTM precision against
-     "highest" on PyanNet's log-probs (check (f)), then
-     timed with its stages on files of 10 and 3 minutes, with the LSTM
-     kernel's launch count and the path counters proving which path ran,
-     and the peak device memory.
+     conv-fbank, the LSTM's bf16 products): each shared module held
+     against its exact counterpart at full width, the "default" LSTM
+     precision against "highest" on PyanNet's log-probs (check (f)), and
+     the fbank's spectra (composed conv, DFT matmul, cuFFT) timed against
+     each other; then files of 10 and 3 minutes through ``apply_batch``,
+     with the LSTM kernel's launch count and the path counters proving
+     which path ran and the peak device memory, timed through
+     ``apply_batch`` and file by file, and with stage timers;
+  6. serving: (g) the 10-minute file in forced 3-minute slices against
+     whole-file buffers; (h) a 150-minute file under the automatic slice
+     plan (3 slices) against the same file forced whole, with both peaks
+     and walls; (i) ``apply_batch`` on bench.py's 60/20/10-minute mix
+     plus the 10 and 3 minute files against ``apply`` file by file, with
+     the reconstruction on one stream and on a second one, walls, peaks,
+     host time in ``_stage`` and ``_finalize``, path counters and LSTM
+     launches; (j) ``_stage`` of one file, whole and in slices, under
+     ``torch.cuda.set_sync_debug_mode("error")``.
 
 The line before the last is a JSON object describing each kernel (its
 launch count is the accelerator path's); the last line is
@@ -53,7 +64,17 @@ SAMPLE_RATE = 16000
 FILE_MINUTES = (10.0, 3.0)
 EXACT_MINUTES = (3.0,)
 GATES = ("PYANNOTE_TPU_SEG_BF16", "PYANNOTE_TPU_SHARED_SINC",
-         "PYANNOTE_TPU_SHARED_TRUNK")
+         "PYANNOTE_TPU_SHARED_TRUNK", "PYANNOTE_TPU_CONV_FBANK")
+# phase 6: bench.py's 60/20/10-minute mix plus the two files of phase 5;
+# the long file that the automatic slice plan cuts into 3 slices; the
+# forced slice length of check (g)
+SERVING_MINUTES = (60.0, 20.0, 10.0) + FILE_MINUTES
+LONG_MINUTES = 150.0
+FORCED_SLICE_MINUTES = "3"
+# the JAX package's plan_slices for 150 min at its defaults (6.0 GB
+# budget, 20 s halo): (a, b) sample bounds, chunks i0:i1
+LONG_PLAN = [(0, 58064000, 0, 3600), (57280000, 115664000, 3600, 7200),
+             (114880000, 144000000, 7200, 8991)]
 BATCH_SIZE = 256
 PARAMS = {"segmentation": {"min_duration_off": 0.0},
           "clustering": {"method": "centroid", "threshold": 0.6,
@@ -85,6 +106,21 @@ SHARED_TRUNK_MIN_COS, SHARED_TRUNK_MEAN_COS = 0.7, 0.85
 # (f) the LSTM's bf16 products against float32 on whole PyanNet log-probs:
 # the bound of bf16 SincNet against float32
 LSTM_DEFAULT_LOGP_ATOL = 2e-2
+# each fbank power spectrum (composed conv, DFT matmul, cuFFT) against a
+# float64 fbank on the golden input: the JAX package's golden fbank bound
+# (tests/test_fbank.py)
+FBANK_SPECTRA_ATOL = 2e-3
+# (g), (h): sliced runs against whole-file ones. Slices give cuDNN other
+# shapes, so bf16 sums may round in another order: every powerset flip
+# must be a near tie (its margin within twice the log-prob error), the
+# hard clusters equal outside the chunks a flip touches, reconstructed
+# frames differing only where such a chunk feeds them, segment
+# boundaries within 0.05 s when nothing flipped, and the embeddings on
+# one segmentation at cosine > 0.999 over the active (chunk, speaker)
+# pairs (tests/test_longfile.py's bound). (i): apply_batch runs the same
+# programs as apply, so its results must be equal.
+SLICED_BOUNDARY_TOL = 0.05
+SLICED_EMBEDDING_MIN_COS = 0.999
 
 
 def log(message: str) -> None:
@@ -336,6 +372,7 @@ def traced_run(pipeline, file: dict):
     def cluster_(*args, **kwargs):
         out = cluster(*args, **kwargs)
         seen["clusters"] = np.array(out[0])
+        seen["embeddings"] = np.array(args[0])
         return out
 
     def to_annotation_(binarized, **kwargs):
@@ -508,25 +545,39 @@ def stage_timer(pipeline, seconds: dict):
                 setattr(owner, attr, value)
 
 
-def timed_passes(pipeline, files: list, minutes: float, label: str) -> dict:
-    """One wall-clock pass (nothing synchronised inside), then one pass
-    with stage timers; prints both and returns the stage table."""
+def wall_seconds(fn) -> float:
+    """Host-clock seconds of ``fn()``, the card synchronised at both
+    ends."""
     torch.cuda.synchronize()
     start = time.perf_counter()
-    pipeline([dict(f) for f in files], max_speakers=4)
+    fn()
     torch.cuda.synchronize()
-    wall = time.perf_counter() - start
+    return time.perf_counter() - start
+
+
+def run_batch(pipeline, files: list) -> list:
+    return pipeline([dict(f) for f in files], max_speakers=4)
+
+
+def run_one_by_one(pipeline, files: list) -> list:
+    return [pipeline(dict(f), max_speakers=4) for f in files]
+
+
+def timed_passes(pipeline, files: list, minutes: float, label: str) -> dict:
+    """Wall-clock passes (nothing synchronised inside) through
+    ``apply_batch`` and file by file, then one pass file by file with
+    stage timers; prints them and returns the stage table."""
+    wall = wall_seconds(lambda: run_batch(pipeline, files))
+    sequential = wall_seconds(lambda: run_one_by_one(pipeline, files))
     seconds = {}
     with stage_timer(pipeline, seconds):
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        pipeline([dict(f) for f in files], max_speakers=4)
-        torch.cuda.synchronize()
-        staged = time.perf_counter() - start
+        staged = wall_seconds(lambda: run_one_by_one(pipeline, files))
     per_hour = 60.0 / minutes
-    log(f"{label}: {wall:.3f} s for {minutes:g} min of audio = "
-        f"{wall * per_hour:.3f} s per audio-hour (staged pass "
-        f"{staged:.3f} s = {staged * per_hour:.3f} s per audio-hour)")
+    log(f"{label}: {wall:.3f} s for {minutes:g} min of audio through "
+        f"apply_batch = {wall * per_hour:.3f} s per audio-hour; file by "
+        f"file {sequential:.3f} s = {sequential * per_hour:.3f} s per "
+        f"audio-hour (stage-timed pass {staged:.3f} s = "
+        f"{staged * per_hour:.3f} s per audio-hour)")
     for name in STAGES:
         log(f"  {name:24s} {seconds.get(name, 0.0):8.3f} s")
     log(f"  {'other (host glue)':24s} "
@@ -563,22 +614,29 @@ def read_counts(pipeline) -> dict:
 
 
 @contextlib.contextmanager
-def lstm_precision_env(value):
-    """PYANNOTE_TPU_LSTM_PRECISION set to ``value`` (None: unset), then
+def environ(values: dict):
+    """Environment variables set to ``values`` (None: unset), then
     restored."""
-    name = "PYANNOTE_TPU_LSTM_PRECISION"
-    saved = os.environ.get(name)
-    if value is None:
-        os.environ.pop(name, None)
-    else:
-        os.environ[name] = value
+    saved = {name: os.environ.get(name) for name in values}
+    for name, value in values.items():
+        if value is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = value
     try:
         yield
     finally:
-        if saved is None:
-            os.environ.pop(name, None)
-        else:
-            os.environ[name] = saved
+        for name, value in saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+
+
+def lstm_precision_env(value):
+    """PYANNOTE_TPU_LSTM_PRECISION set to ``value`` (None: unset), then
+    restored."""
+    return environ({"PYANNOTE_TPU_LSTM_PRECISION": value})
 
 
 def phase_exact(device: torch.device, workdir: Path) -> None:
@@ -760,6 +818,68 @@ def check_lstm_precision(pipeline, waveform: torch.Tensor) -> None:
                              "float32")
 
 
+FBANK_ROUTES = {"cufft": {"PYANNOTE_TPU_CONV_FBANK": "0"},
+                "conv": {"PYANNOTE_TPU_CONV_FBANK": "1"},
+                "dft_matmul": {"PYANNOTE_TPU_CONV_FBANK": "0",
+                               "PYANNOTE_TPU_DFT_FBANK": "1"}}
+
+
+def fbank_float64(samples: np.ndarray) -> np.ndarray:
+    """Kaldi log-mel fbank (hamming window) of a 1-D float array, in
+    float64 on the host: the JAX package's golden recipe
+    (tests/test_fbank.py), vectorized over frames."""
+    from pyannote_audio_tpu_torch.ops.fbank import _window, kaldi_mel_banks
+    frames = np.lib.stride_tricks.sliding_window_view(
+        samples.astype(np.float64), 400)[::160]
+    frames = frames - frames.mean(axis=-1, keepdims=True)
+    frames = np.concatenate([frames[:, :1] * 0.03,
+                             frames[:, 1:] - 0.97 * frames[:, :-1]], axis=-1)
+    power = np.abs(np.fft.rfft(frames * _window("hamming", 400), n=512)) ** 2
+    mel = power @ kaldi_mel_banks(80, 512, SAMPLE_RATE).astype(np.float64)
+    return np.log(np.maximum(mel, 1.1920928955078125e-07))
+
+
+def check_fbank_spectra(waveform: torch.Tensor) -> dict:
+    """The fbank through each power spectrum (composed conv, DFT matmul,
+    cuFFT's rfft): each held to the golden bound against a float64
+    reference on 60 s of the golden input (white noise at 0.1); then the
+    whole-file fbank of a (1, samples) waveform timed in turns, with each
+    spectrum's distance from cuFFT's printed."""
+    from pyannote_audio_tpu_torch.ops.fbank import whole_fbank
+    noise = (0.1 * np.random.default_rng(3).standard_normal(
+        (1, 60 * SAMPLE_RATE))).astype(np.float32)
+    reference = fbank_float64(noise[0] * 32768.0)
+    noise = torch.from_numpy(noise).to(waveform.device)
+    feats, times = {}, {name: [] for name in FBANK_ROUTES}
+    for name, values in FBANK_ROUTES.items():
+        with environ(values):
+            golden = whole_fbank(noise).cpu().numpy()
+        err = np.abs(golden - reference).max()
+        log(f"fbank spectrum {name}: {golden.shape} frames of the golden "
+            f"input vs float64, max_abs_err {err:.3e} (limit "
+            f"{FBANK_SPECTRA_ATOL})")
+        if not (np.isfinite(golden).all() and err <= FBANK_SPECTRA_ATOL):
+            raise AssertionError(f"the {name} fbank spectrum is off the "
+                                 f"golden bound")
+    for _ in range(2):                      # in turns, twice
+        for name, values in FBANK_ROUTES.items():
+            with environ(values):
+                feats[name] = whole_fbank(waveform)
+                times[name].append(cuda_ms(lambda: whole_fbank(waveform),
+                                           runs=10))
+    minutes = waveform.shape[1] / SAMPLE_RATE / 60
+    log(f"whole-file fbank of {minutes:g} min, {tuple(feats['conv'].shape)}"
+        f" frames, ms (median of 10, two rounds in turns): " + ", ".join(
+            f"{name} {' / '.join('%.3f' % t for t in ts)}"
+            for name, ts in times.items()))
+    log("  distance from cuFFT's on this file (its near-silent stretches "
+        "leave mel bins with little energy, where float32 sums of another "
+        "order differ most): " + ", ".join(
+            f"{name} {(feats[name] - feats['cufft']).abs().max().item():.3e}"
+            for name in ("conv", "dft_matmul")))
+    return times
+
+
 def panel_batches(pipeline) -> int:
     """Trunk panel batches the files of FILE_MINUTES take."""
     from pyannote_audio_tpu_torch.core.inference import _chunk_grid
@@ -774,9 +894,9 @@ def panel_batches(pipeline) -> int:
     return total
 
 
-def phase_accelerator(device: torch.device, workdir: Path) -> int:
-    """The accelerator path at its defaults; returns the LSTM kernel's
-    launch count on it."""
+def phase_accelerator(device: torch.device, workdir: Path) -> tuple:
+    """The accelerator path at its defaults; returns its pipeline (phase 6
+    goes on with it) and the LSTM kernel's launch count on it."""
     set_gates(None)
     segmentation, embedding = make_models(torch.bfloat16)
     pipeline = build_pipeline(segmentation, embedding, device)
@@ -789,6 +909,7 @@ def phase_accelerator(device: torch.device, workdir: Path) -> int:
         check_panels(pipeline, long)
         check_shared_trunk(pipeline, short)
         check_lstm_precision(pipeline, short)
+        check_fbank_spectra(long)
     del short, long
 
     batches = len(segmentation_batches())
@@ -812,7 +933,300 @@ def phase_accelerator(device: torch.device, workdir: Path) -> int:
         raise AssertionError("the accelerator path did not run as "
                              "expected (a per-chunk fallback?)")
     timed_passes(pipeline, files, sum(FILE_MINUTES), "accelerator path")
-    return counts["lstm_launches"]
+    return pipeline, counts["lstm_launches"]
+
+
+def logprobs(pipeline, waveform: np.ndarray) -> torch.Tensor:
+    """PyanNet's (C, F, 7) log-probabilities over a host waveform, in the
+    slice plan that the environment sets."""
+    inference = pipeline._segmentation
+    powerset, inference._powerset = inference._powerset, None
+    try:
+        with torch.inference_mode():
+            return inference.slide(waveform, SAMPLE_RATE, cache={}).data
+    finally:
+        inference._powerset = powerset
+
+
+def cosines(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return np.sum(a * b, axis=-1) / (np.linalg.norm(a, axis=-1)
+                                     * np.linalg.norm(b, axis=-1) + 1e-9)
+
+
+def check_same_diarization(label: str, ours, theirs, logp_ours,
+                           logp_theirs, frames) -> None:
+    """Hold a traced run (``ours``: sliced) to another (``theirs``:
+    whole-file) by the near-tie rule of the SLICED_* constants."""
+    (out_a, a), (out_b, b) = ours, theirs
+    err = (logp_ours - logp_theirs).abs().max().item()
+    flips = logp_ours.argmax(-1) != logp_theirs.argmax(-1)      # (C, F)
+    top = torch.topk(logp_theirs, 2, dim=-1).values
+    margins = (top[..., 0] - top[..., 1])[flips]
+    worst = margins.max().item() if margins.numel() else 0.0
+    touched = flips.any(-1).cpu().numpy()
+    num_flips = int(flips.sum().item())
+    log(f"{label}: log-prob max_abs_err {err:.3e}; {num_flips} of "
+        f"{flips.numel()} chunk frames flip their powerset class, largest "
+        f"margin {worst:.3e} (limit {2 * err:.3e}, twice the error); "
+        f"{int(touched.sum())} of {len(touched)} chunks touched")
+    if worst > 2 * err:
+        raise AssertionError(f"{label}: a powerset flip is not a near tie")
+    differ = (a["scores"] != b["scores"]).any(axis=(1, 2))
+    if differ[~touched].any():
+        raise AssertionError(f"{label}: hard scores differ in chunks no "
+                             f"flip touches")
+    if not np.array_equal(a["clusters"][~touched], b["clusters"][~touched]):
+        raise AssertionError(f"{label}: hard clusters differ outside the "
+                             f"touched chunks")
+    offsets, _, _ = output_offsets(a, frames)
+    fed = set()
+    for c in np.flatnonzero(touched):
+        fed.update(range(int(offsets[c]), int(offsets[c])
+                         + a["scores"].shape[1]))
+    for name, x, y in zip(("normal", "exclusive"), a["binary"],
+                          b["binary"]):
+        rows = np.flatnonzero((x != y).any(-1)) if x.shape == y.shape \
+            else None
+        if rows is None or not set(rows.tolist()) <= fed:
+            raise AssertionError(f"{label}: {name} reconstruction differs "
+                                 f"beyond the frames touched chunks feed")
+        log(f"  {name} reconstruction: {len(rows)} of {len(x)} output "
+            f"frames differ, none beyond the touched chunks' frames")
+    active = (a["scores"].sum(axis=1) > 0) & (b["scores"].sum(axis=1) > 0)
+    active[touched] = False
+    cos = cosines(a["embeddings"][active], b["embeddings"][active])
+    log(f"  embeddings: cosine min {cos.min():.6f} over {len(cos)} active "
+        f"(chunk, speaker) pairs of untouched chunks (limit > "
+        f"{SLICED_EMBEDDING_MIN_COS})")
+    if not (len(cos) and cos.min() > SLICED_EMBEDDING_MIN_COS):
+        raise AssertionError(f"{label}: embeddings too far apart")
+    ta = list(out_a.speaker_diarization.itertracks(yield_label=True))
+    tb = list(out_b.speaker_diarization.itertracks(yield_label=True))
+    same = len(ta) == len(tb) and all(
+        la == lb and abs(sa.start - sb.start) <= SLICED_BOUNDARY_TOL
+        and abs(sa.end - sb.end) <= SLICED_BOUNDARY_TOL
+        for (sa, _, la), (sb, _, lb) in zip(ta, tb))
+    log(f"  {len(ta)} vs {len(tb)} segments, labels "
+        f"{out_a.speaker_diarization.labels()} vs "
+        f"{out_b.speaker_diarization.labels()}; boundaries within "
+        f"{SLICED_BOUNDARY_TOL} s: {same}")
+    if not ta or (num_flips == 0 and not same):
+        raise AssertionError(f"{label}: the Annotations differ")
+
+
+def output_offsets(seen: dict, frames):
+    """Per-chunk output-frame offsets of a traced run's chunk grid."""
+    from pyannote_audio_tpu_torch.pipelines.speaker_diarization import \
+        SpeakerDiarization
+    return SpeakerDiarization._aggregation_grid(
+        seen["window"], frames, len(seen["scores"]))
+
+
+def peak_and_wall(device, fn):
+    """(peak device memory in bytes, wall seconds) of ``fn()``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    wall = wall_seconds(fn)
+    return torch.cuda.max_memory_allocated(device), wall
+
+
+def check_forced_slices(pipeline, waveform: np.ndarray) -> None:
+    """(g) The 10-minute file in forced 3-minute slices against whole-file
+    buffers."""
+    file = {"waveform": waveform, "sample_rate": SAMPLE_RATE,
+            "uri": "ten_minutes"}
+    frames = pipeline._segmentation.model.receptive_field
+    with environ({"PYANNOTE_TPU_SEGMENT_MINUTES": "0"}):
+        whole = traced_run(pipeline, file)
+        logp_whole = logprobs(pipeline, waveform)
+    with environ({"PYANNOTE_TPU_SEGMENT_MINUTES": FORCED_SLICE_MINUTES}):
+        plan = pipeline._plan(waveform.shape[1])
+        reset_counts(pipeline)
+        sliced = traced_run(pipeline, file)
+        counts = read_counts(pipeline)
+        logp_sliced = logprobs(pipeline, waveform)
+    log(f"(g) 10 min in {FORCED_SLICE_MINUTES}-minute slices: "
+        f"{[(sl.a, sl.b, sl.i0, sl.i1) for sl in plan]}; counts {counts}")
+    if plan is None or counts["whole_conv"] != len(plan) or \
+            counts["whole_fbank"] != len(plan):
+        raise AssertionError("(g) the slice plan did not run")
+    check_same_diarization("(g) sliced vs whole", sliced, whole,
+                           logp_sliced, logp_whole, frames)
+
+
+def check_long_file(pipeline, device) -> dict:
+    """(h) A 150-minute file under the automatic slice plan against the
+    same file forced whole: plan, peaks, walls and results."""
+    waveform = synth(LONG_MINUTES, seed=5)[None]
+    file = {"waveform": waveform, "sample_rate": SAMPLE_RATE,
+            "uri": "long"}
+    frames = pipeline._segmentation.model.receptive_field
+    runs = {}
+    for label, minutes in (("sliced (auto)", None), ("whole", "0")):
+        with environ({"PYANNOTE_TPU_SEGMENT_MINUTES": minutes}):
+            plan = pipeline._plan(waveform.shape[1])
+            pipeline(dict(file), max_speakers=4)              # warm
+            peak, wall = peak_and_wall(
+                device, lambda: pipeline(dict(file), max_speakers=4))
+            runs[label] = {"plan": plan, "peak": peak, "wall": wall,
+                           "traced": traced_run(pipeline, file),
+                           "logp": logprobs(pipeline, waveform)}
+        log(f"(h) {LONG_MINUTES:g} min, {label}: plan "
+            f"{None if plan is None else [(s.a, s.b, s.i0, s.i1) for s in plan]}"
+            f"; peak device memory {peak / 2**30:.3f} GiB "
+            f"(torch.cuda.max_memory_allocated), wall {wall:.3f} s = "
+            f"{wall * 60.0 / LONG_MINUTES:.3f} s per audio-hour")
+    sliced, whole = runs["sliced (auto)"], runs["whole"]
+    got = [(s.a, s.b, s.i0, s.i1) for s in sliced["plan"] or []]
+    if got != LONG_PLAN or whole["plan"] is not None:
+        raise AssertionError(f"(h) slice plan {got} != {LONG_PLAN}")
+    log(f"(h) peak sliced {sliced['peak'] / 2**30:.3f} GiB vs whole "
+        f"{whole['peak'] / 2**30:.3f} GiB (limit: lower)")
+    if not sliced["peak"] < whole["peak"]:
+        raise AssertionError("(h) slicing did not lower the peak")
+    check_same_diarization("(h) sliced vs whole", sliced["traced"],
+                           whole["traced"], sliced["logp"], whole["logp"],
+                           frames)
+    return {k: {"peak": v["peak"], "wall": v["wall"]}
+            for k, v in runs.items()}
+
+
+@contextlib.contextmanager
+def host_timers(pipeline, seconds: dict):
+    """Host-clock seconds in ``_stage``, in ``_finalize`` and, inside it,
+    waiting for the staged copies (nothing synchronised)."""
+    stage, finalize = pipeline._stage, pipeline._finalize
+
+    def timed_stage(*args, **kwargs):
+        start = time.perf_counter()
+        out = stage(*args, **kwargs)
+        seconds["stage"] += time.perf_counter() - start
+        return out
+
+    def timed_finalize(staged):
+        start = time.perf_counter()
+        if staged["event"] is not None:
+            staged["event"].synchronize()
+        seconds["wait"] += time.perf_counter() - start
+        out = finalize(staged)
+        seconds["finalize"] += time.perf_counter() - start
+        return out
+    seconds.update(stage=0.0, wait=0.0, finalize=0.0)
+    pipeline._stage, pipeline._finalize = timed_stage, timed_finalize
+    try:
+        yield seconds
+    finally:
+        del pipeline._stage, pipeline._finalize
+
+
+@contextlib.contextmanager
+def reconstruction_stream(pipeline, on: bool):
+    """With ``on``, ``_finalize``'s reconstruction runs on a second CUDA
+    stream, ordered after the file's staged copies by their event: the
+    variant measured beside the one stream the pipeline uses, where the
+    reconstruction queues behind the files staged after it."""
+    if not on:
+        yield
+        return
+    stream = torch.cuda.Stream()
+    reconstruct = pipeline._reconstruct
+
+    def on_side_stream(staged, *args):
+        stream.wait_event(staged["event"])
+        with torch.cuda.stream(stream):
+            return reconstruct(staged, *args)
+    pipeline._reconstruct = on_side_stream
+    try:
+        yield
+    finally:
+        del pipeline._reconstruct
+
+
+def check_batch(pipeline, device, workdir: Path) -> dict:
+    """(i) apply_batch on the serving mix against apply file by file."""
+    from pyannote_audio_tpu_torch.pipelines.utils.hook import TimingHook
+    files = write_files(workdir, SERVING_MINUTES)
+    minutes = sum(SERVING_MINUTES)
+    results, walls, peaks, counts = {}, {}, {}, {}
+    modes = (("file by file", False, run_one_by_one),
+             ("apply_batch, one stream", False, run_batch),
+             ("apply_batch, reconstruction stream", True, run_batch))
+    for _ in range(2):
+        for label, side, run in modes:
+            def call(label=label, run=run):
+                results[label] = run(pipeline, files)
+            with reconstruction_stream(pipeline, side):
+                reset_counts(pipeline)
+                peak, wall = peak_and_wall(device, call)
+            counts[label] = read_counts(pipeline)
+            walls.setdefault(label, []).append(wall)
+            peaks[label] = peak
+    for label, _, _ in modes:
+        log(f"(i) {label}: {minutes:g} min in "
+            f"{' / '.join('%.3f' % w for w in walls[label])} s = "
+            f"{' / '.join('%.3f' % (w * 60 / minutes) for w in walls[label])}"
+            f" s per audio-hour; peak {peaks[label] / 2**30:.3f} GiB; "
+            f"counts {counts[label]}")
+    reference = results["file by file"]
+    for label, _, _ in modes[1:]:
+        if counts[label] != counts["file by file"]:
+            raise AssertionError(f"(i) {label} ran other work than file "
+                                 f"by file: {counts[label]}")
+        for f, x, y in zip(files, results[label], reference):
+            if not (x.speaker_diarization == y.speaker_diarization
+                    and x.exclusive_speaker_diarization
+                    == y.exclusive_speaker_diarization
+                    and np.array_equal(x.speaker_embeddings,
+                                       y.speaker_embeddings)):
+                raise AssertionError(f"(i) {label} differs from apply on "
+                                     f"{f['uri']}")
+    check_outputs(files, reference)
+    log("(i) apply_batch's Annotations and centroids equal apply's on "
+        "every file, in both stream modes")
+    seconds = {}
+    dicts = [dict(f) for f in files]
+    with host_timers(pipeline, seconds), TimingHook() as timing:
+        wall = wall_seconds(lambda: pipeline(dicts, max_speakers=4,
+                                             hook=timing))
+    log(f"(i) apply_batch host time: _stage {seconds['stage']:.3f} s, "
+        f"_finalize {seconds['finalize']:.3f} s (of which waiting for the "
+        f"staged copies {seconds['wait']:.3f} s), in a {wall:.3f} s pass")
+    if not all("segmentation" in f.get("timing", {}) for f in dicts):
+        raise AssertionError("(i) TimingHook lost a file")
+    log(f"(i) TimingHook through apply_batch: {dicts[-1]['timing']}")
+    return {"walls": walls, "peaks": peaks, "host": seconds}
+
+
+def check_no_sync(pipeline, path: str) -> None:
+    """(j) ``_stage`` queues a file's device program without a
+    synchronizing call, whole and in slices."""
+    for label, minutes in (("whole", "0"), ("in 1-minute slices", "1")):
+        with environ({"PYANNOTE_TPU_SEGMENT_MINUTES": minutes}):
+            file = {"audio": path, "uri": "sync_debug"}
+            pipeline._decode_into(file, False)
+            pipeline._finalize(pipeline._stage(file, max_speakers=4))
+            file = {"audio": path, "uri": "sync_debug"}
+            pipeline._decode_into(file, False)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                staged = pipeline._stage(file, max_speakers=4)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            out = pipeline._finalize(staged)
+        log(f"(j) _stage of the 3-minute file {label} under "
+            f"set_sync_debug_mode(\"error\"): no synchronizing call; "
+            f"{len(out.speaker_diarization)} segments")
+
+
+def phase_serving(pipeline, device, workdir: Path) -> None:
+    """Phase 6: long files in slices, apply_batch, and staging without a
+    host sync, at the accelerator path's defaults."""
+    set_gates(None)
+    check_forced_slices(pipeline, synth(FILE_MINUTES[0], seed=0)[None])
+    check_long_file(pipeline, device)
+    check_batch(pipeline, device, workdir)
+    check_no_sync(pipeline, write_files(workdir, FILE_MINUTES)[1]["audio"])
 
 
 def main() -> int:
@@ -826,7 +1240,8 @@ def main() -> int:
     record = phase_kernels(device)
     with tempfile.TemporaryDirectory() as tmp:
         phase_exact(device, Path(tmp))
-        record["launches"] = phase_accelerator(device, Path(tmp))
+        pipeline, record["launches"] = phase_accelerator(device, Path(tmp))
+        phase_serving(pipeline, device, Path(tmp))
     print(json.dumps({"kernels": [record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """Sliding-window batched inference.
 
-Counterpart of pyannote_audio_tpu/core/inference.py (``_chunk_grid`` and
-the batched ``slide``) for the diarization path: the waveform is moved to
-the model's device once, chunks are strided views of it, each batch runs
+Counterpart of pyannote_audio_tpu/core/inference.py (``_chunk_grid``, the
+device-waveform cache, ``_slide_scores``, the batched ``slide`` and its
+long-file slices, ``preload``) for the diarization path: the waveform is
+uploaded once per file, chunks are strided views of it, each batch runs
 the model eagerly, and powerset outputs are decoded to multilabel scores.
 The result stays chunk-level and on the device (the JAX package's
 ``skip_aggregation=True`` path); the last chunk is zero-padded and a
@@ -15,11 +16,20 @@ file, then per chunk its conv frames and its raw mean and population
 variance. The PYANNOTE_TPU_SHARED_SINC gate selects it (by default on a
 CUDA device, off on the CPU), and it needs every chunk start on the conv
 stride; otherwise the chunks run one by one, as in the JAX package.
+
+Files past the device-memory budget run in halo'd slices
+(core/longfile.py): each slice is uploaded and run on its own, with its
+chunk starts translated, and the per-chunk scores are concatenated.
+
+Uploads to a CUDA device go through page-locked host memory with
+``non_blocking=True``: a copy from pageable memory would make the host
+wait for all the work already queued on the stream.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from collections.abc import MutableMapping
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +37,9 @@ from torch import nn
 
 from ..ops.powerset import Powerset
 from ..utils.runtime import device_flag
+from .io import Audio
+from .longfile import (plan_slices, retained_upload_bytes_ok,
+                       slice_uploads)
 from .segment import SlidingWindow, SlidingWindowFeature
 
 
@@ -64,11 +77,120 @@ def chunk_views(waveform: torch.Tensor, window_size: int,
         1, window_size, step_size).transpose(0, 1)
 
 
+def _progression(starts: np.ndarray, unit: int) -> Tuple[int, int]:
+    """(first start, step) of chunk starts that are evenly spaced, as the
+    chunk grid and its translation into a slice are; a single chunk gets
+    the step ``unit``."""
+    first = int(starts[0])
+    if len(starts) == 1:
+        return first, unit
+    step = int(starts[1] - starts[0])
+    if step <= 0 or np.any(np.diff(starts) != step):
+        raise ValueError("chunk starts must be evenly spaced")
+    return first, step
+
+
+def chunks_at(buffer: torch.Tensor, starts: np.ndarray,
+              window_size: int) -> torch.Tensor:
+    """(channel, samples) buffer -> (len(starts), channel, window) strided
+    views of the chunks starting at ``starts``."""
+    first, step = _progression(starts, 1)
+    return buffer[:, first:].unfold(1, window_size, step)[
+        :, :len(starts)].transpose(0, 1)
+
+
+def _waveform_fingerprint(waveform: np.ndarray) -> tuple:
+    """Content key of the device-buffer caches (the JAX package's recipe):
+    shape, dtype, a float64 checksum of every sample, a strided abs-sum
+    (sign flips) and the two end samples. ``_upload_waveform_cached`` and
+    ``longfile.slice_uploads`` share it, so both caches agree on what is
+    the same audio."""
+    n = waveform.shape[-1]
+    stride = max(1, n // 4096)
+    probe = (float(waveform.sum(dtype=np.float64)),
+             float(np.abs(waveform[0, ::stride]).sum(dtype=np.float64)),
+             float(waveform[0, 0]), float(waveform[0, n - 1]))
+    return (waveform.shape, str(waveform.dtype), probe)
+
+
+def pinned(array: np.ndarray) -> torch.Tensor:
+    """A copy of a host array in page-locked memory, from which a copy to
+    a CUDA device does not make the host wait. An empty pinned tensor is
+    filled by numpy: inside the pipeline, ``Tensor.pin_memory()`` of a
+    whole waveform was the slowest host step of a file-by-file pass
+    (PERF.md). Needs a CUDA runtime."""
+    array = np.ascontiguousarray(array)
+    out = torch.empty(array.shape, dtype=torch.from_numpy(array).dtype,
+                      pin_memory=True)
+    out.numpy()[...] = array
+    return out
+
+
+def pin_waveform(waveform: np.ndarray) -> np.ndarray:
+    """A float32 copy of a host waveform in page-locked memory, as a numpy
+    view of a pinned tensor (which the view keeps alive)."""
+    return pinned(np.asarray(waveform, dtype=np.float32)).numpy()
+
+
+def to_device(array: np.ndarray, device) -> torch.Tensor:
+    """A small host array as a tensor on ``device``. To a CUDA device it
+    goes through page-locked memory and does not make the host wait; the
+    caching host allocator keeps the pinned block until the copy ran."""
+    if torch.device(device).type != "cuda":
+        return torch.from_numpy(np.ascontiguousarray(array))
+    return pinned(array).to(device, non_blocking=True)
+
+
+def _upload_waveform(waveform, device,
+                     padded_len: Optional[int] = None) -> torch.Tensor:
+    """A (channel, samples) float32 host array, or a tensor, as a tensor
+    on ``device``, zero-padded to ``padded_len`` samples.
+
+    To a CUDA device the samples go from page-locked memory (the array's
+    own when it is a ``pin_waveform`` view, else a pinned copy) with
+    ``non_blocking=True``. A pinned view's array must outlive the copy:
+    the pipelines keep it in the file dict until the file is finalized.
+    """
+    device = torch.device(device)
+    if isinstance(waveform, torch.Tensor):
+        out = waveform.to(device)
+    else:
+        array = np.ascontiguousarray(waveform, dtype=np.float32)
+        out = torch.from_numpy(array)
+        if device.type == "cuda":
+            if not out.is_pinned():
+                out = pinned(array)
+            out = out.to(device, non_blocking=True)
+    if padded_len is not None and padded_len > out.shape[1]:
+        out = torch.nn.functional.pad(out, (0, padded_len - out.shape[1]))
+    return out
+
+
+def _upload_waveform_cached(waveform, cache, device) -> torch.Tensor:
+    """The file's waveform on ``device``, uploaded once per file.
+
+    The segmentation and embedding stages share the buffer through the
+    file dict (``cache``) under ``_device_waveform``, keyed by the
+    waveform's fingerprint and the device: a reused dict whose waveform
+    was replaced or changed uploads afresh. A tensor is used as it is.
+    """
+    if isinstance(waveform, torch.Tensor) or cache is None:
+        return _upload_waveform(waveform, device)
+    key = _waveform_fingerprint(waveform) + (str(torch.device(device)),)
+    hit = cache.get("_device_waveform")
+    if hit is not None and hit[0] == key:
+        return hit[1]
+    buf = _upload_waveform(waveform, device)
+    if isinstance(cache, MutableMapping):
+        cache["_device_waveform"] = (key, buf)
+    return buf
+
+
 class Inference:
     """Run a segmentation model over a file with a sliding window.
 
     ``model`` is a frame-resolution ``nn.Module`` with ``specifications``
-    (e.g. PyanNet), on the device the waveforms will be on.
+    (e.g. PyanNet); waveforms run on the device of its parameters.
     """
 
     def __init__(self, model: nn.Module, duration: Optional[float] = None,
@@ -83,8 +205,14 @@ class Inference:
         self._powerset = Powerset(len(spec.classes),
                                   spec.powerset_max_classes) \
             if spec.powerset else None
-        # whole-file front-end convs run: one per file on the shared path
+        self.audio = Audio(sample_rate=getattr(model, "sample_rate", 16000))
+        # whole-file front-end convs run: one per file (or slice) on the
+        # shared path
         self.counts = {"whole_conv": 0}
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
 
     def _shared_frontend(self, window_size: int, step_size: int,
                          device: torch.device) -> bool:
@@ -99,54 +227,139 @@ class Inference:
         return self._powerset.to_multilabel(out) \
             if self._powerset is not None else out
 
-    @torch.inference_mode()
-    def slide(self, waveform: torch.Tensor,
-              sample_rate: int) -> SlidingWindowFeature:
-        """(channel, samples) waveform on the device -> chunk-level scores.
+    def _slide_scores(self, device_waveform: torch.Tensor,
+                      starts: np.ndarray, window_size: int, shared: bool,
+                      hook: Optional[Callable] = None, hook_base: int = 0,
+                      hook_total: int = 0) -> torch.Tensor:
+        """Batched forwards over the chunks at ``starts`` (evenly spaced
+        sample offsets) of one uploaded (slice of a) waveform; returns the
+        (len(starts), frames, classes) scores on the device.
 
-        Returns a SlidingWindowFeature whose data is a (num_chunks,
-        frames_per_chunk, num_classes) tensor on the device.
+        ``hook(completed=, total=)`` follows each batch, counted from
+        ``hook_base`` chunks out of ``hook_total`` (a slice's place in its
+        file).
+        """
+        model = self.model
+        if shared:
+            try:
+                conv_whole = model.precompute_frontend(device_waveform)
+            except torch.cuda.OutOfMemoryError as exception:
+                raise MemoryError(
+                    "the whole-file front-end conv buffer does not fit in "
+                    "device memory for this file length; set "
+                    "PYANNOTE_TPU_SHARED_SINC=0 to fall back to per-chunk "
+                    "forwards.") from exception
+            self.counts["whole_conv"] += 1
+            # a chunk's samples start at s, its conv frames at s / stride
+            stride = model.frontend_stride
+            first, step = _progression(starts, stride)
+            raw = chunks_at(device_waveform, starts, window_size)[:, 0]
+            frames = conv_whole[0][:, first // stride:].unfold(
+                1, model.frontend_num_frames(window_size),
+                step // stride)[:, :len(starts)].transpose(0, 1)
+        else:
+            chunks = chunks_at(device_waveform, starts, window_size)
+        B = self.batch_size
+        num_chunks = len(starts)
+        outputs = []
+        for b in range(0, num_chunks, B):
+            try:
+                if shared:
+                    var, mean = torch.var_mean(raw[b:b + B], dim=-1,
+                                               correction=0)
+                    out = model.forward_from_frontend(frames[b:b + B],
+                                                      mean, var)
+                else:
+                    out = model(chunks[b:b + B].contiguous())
+            except torch.cuda.OutOfMemoryError as exception:
+                message = (f"batch_size ({self.batch_size: d}) is probably "
+                           f"too large. Try with a smaller value until "
+                           f"memory error disappears.")
+                if shared:
+                    message += (" The shared front-end also holds a "
+                                "whole-file conv buffer that batch_size "
+                                "cannot shrink; PYANNOTE_TPU_SHARED_SINC=0 "
+                                "reverts to per-chunk forwards.")
+                raise MemoryError(message) from exception
+            outputs.append(self._convert(out))
+            if hook is not None:
+                hook(completed=hook_base + min(b + B, num_chunks),
+                     total=hook_total or num_chunks)
+        return torch.cat(outputs) if len(outputs) > 1 else outputs[0]
+
+    @torch.inference_mode()
+    def slide(self, waveform, sample_rate: int,
+              hook: Optional[Callable] = None,
+              cache=None) -> SlidingWindowFeature:
+        """(channel, samples) waveform -> chunk-level scores.
+
+        ``waveform`` is a float32 host array, uploaded through ``cache``
+        (the file dict, shared with later stages), or a tensor already on
+        the model's device. Files past the memory budget run slice by
+        slice (core/longfile.py). Returns a SlidingWindowFeature whose
+        data is a (num_chunks, frames_per_chunk, num_classes) tensor on
+        the device. ``hook(completed=, total=)`` follows each batch.
         """
         window_size = round(self.duration * sample_rate)
         step_size = round(self.step * sample_rate)
-        padded = pad_to_grid(waveform, window_size, step_size)
-        B = self.batch_size
-        if waveform.shape[0] == 1 and self._shared_frontend(
-                window_size, step_size, waveform.device):
-            outputs = self._slide_shared(padded, window_size, step_size)
+        num_samples = waveform.shape[1]
+        starts, _ = _chunk_grid(num_samples, window_size, step_size)
+        device = self.device
+        shared = waveform.shape[0] == 1 and self._shared_frontend(
+            window_size, step_size, device)
+        plan = plan_slices(num_samples, window_size, step_size, sample_rate,
+                           starts)
+        if plan is not None and len(plan) > 1:
+            get_upload, release_upload = slice_uploads(
+                cache, waveform, plan, sample_rate, starts, window_size,
+                device)
+            # the scores feed the embedding stage, which reuses the slice
+            # uploads, but only while all of them together stay a small
+            # share of the budget; past it each slice goes as it came
+            keep_for_later = retained_upload_bytes_ok(num_samples)
+            parts = []
+            for k, sl in enumerate(plan):
+                parts.append(self._slide_scores(
+                    get_upload(k), starts[sl.i0:sl.i1] - sl.a, window_size,
+                    shared, hook=hook, hook_base=sl.i0,
+                    hook_total=len(starts)))
+                if not keep_for_later:
+                    release_upload(k)
+            scores = torch.cat(parts)
         else:
-            chunks = chunk_views(padded, window_size, step_size)
-            outputs = [self._convert(self.model(chunks[b:b + B].contiguous()))
-                       for b in range(0, chunks.shape[0], B)]
-        scores = torch.cat(outputs) if len(outputs) > 1 else outputs[0]
+            buffer = pad_to_grid(
+                _upload_waveform_cached(waveform, cache, device),
+                window_size, step_size)
+            scores = self._slide_scores(buffer, starts, window_size, shared,
+                                        hook=hook, hook_total=len(starts))
         return SlidingWindowFeature(
             scores, SlidingWindow(start=0.0, duration=self.duration,
                                   step=self.step))
 
-    def _slide_shared(self, padded: torch.Tensor, window_size: int,
-                      step_size: int) -> list:
-        """Batched forwards from one front-end conv over the (1, samples)
-        grid-padded waveform."""
-        model = self.model
-        try:
-            conv_whole = model.precompute_frontend(padded)
-        except torch.cuda.OutOfMemoryError as exception:
-            raise MemoryError(
-                "the whole-file front-end conv buffer does not fit in "
-                "device memory for this file length; set "
-                "PYANNOTE_TPU_SHARED_SINC=0 to fall back to per-chunk "
-                "forwards.") from exception
-        self.counts["whole_conv"] += 1
-        # strided views: chunk c's samples start at c * step, its conv
-        # frames at c * step / stride
-        raw = padded[0].unfold(0, window_size, step_size)      # (C, window)
-        frames = conv_whole[0].unfold(
-            1, model.frontend_num_frames(window_size),
-            step_size // model.frontend_stride).transpose(0, 1)
-        B = self.batch_size
-        outputs = []
-        for b in range(0, raw.shape[0], B):
-            var, mean = torch.var_mean(raw[b:b + B], dim=-1, correction=0)
-            out = model.forward_from_frontend(frames[b:b + B], mean, var)
-            outputs.append(self._convert(out))
-        return outputs
+    def preload(self, file) -> None:
+        """Start the upload of a file's waveform early (into the file
+        dict's cache, where ``slide`` finds it). A file past the memory
+        budget warms only its first slice: a whole-file buffer is what its
+        slice plan avoids. Does nothing for an immutable mapping."""
+        if not isinstance(file, MutableMapping):
+            return
+        waveform, sample_rate = self.audio(file)
+        window_size = round(self.duration * sample_rate)
+        step_size = round(self.step * sample_rate)
+        starts, _ = _chunk_grid(waveform.shape[-1], window_size, step_size)
+        plan = plan_slices(waveform.shape[-1], window_size, step_size,
+                           sample_rate, starts)
+        if plan is not None and len(plan) > 1:
+            get_upload, _ = slice_uploads(file, waveform, plan, sample_rate,
+                                          starts, window_size, self.device)
+            get_upload(0)
+            return
+        _upload_waveform_cached(waveform, file, self.device)
+
+    def __call__(self, file, hook: Optional[Callable] = None
+                 ) -> SlidingWindowFeature:
+        """``slide`` over a whole file (a path or a mapping), uploads
+        cached in the file dict."""
+        waveform, sample_rate = self.audio(file)
+        cache = file if isinstance(file, MutableMapping) else None
+        return self.slide(waveform, sample_rate, hook=hook, cache=cache)

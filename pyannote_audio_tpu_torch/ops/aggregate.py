@@ -30,8 +30,14 @@ def overlap_add(scores: torch.Tensor, frame_offsets: torch.Tensor,
     x = torch.where(valid, scores, torch.zeros_like(scores)) * w
     idx = (frame_offsets.to(torch.int64)[:, None]
            + torch.arange(frames, device=scores.device)[None]).reshape(-1)
-    keep = (idx >= 0) & (idx < num_output_frames)
-    idx, x, w = idx[keep], x.reshape(-1, C)[keep], w.reshape(-1, C)[keep]
+    # frames outside the grid add zeros at a clamped index (a boolean
+    # mask would make the host wait for the device to count them)
+    keep = ((idx >= 0) & (idx < num_output_frames))[:, None]
+    idx = idx.clamp(0, max(num_output_frames - 1, 0))
+    x = torch.where(keep, x.reshape(-1, C), torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
+    w = torch.where(keep, w.reshape(-1, C), torch.zeros((), dtype=w.dtype,
+                                                       device=w.device))
     out_sum = scores.new_zeros((num_output_frames, C)).index_add_(0, idx, x)
     out_w = scores.new_zeros((num_output_frames, C)).index_add_(0, idx, w)
     return out_sum, out_w

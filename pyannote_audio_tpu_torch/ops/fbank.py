@@ -7,14 +7,34 @@ Counterpart of pyannote_audio_tpu/ops/fbank.py's exact path
 float-eps floor, then the WeSpeaker per-chunk mean subtraction.
 ``whole_fbank`` is the uncentered whole-file fbank that the diarization
 pipeline slices per chunk (the JAX pipeline's ``_make_whole_fbank_fn``).
+
+The power spectrum takes one of the JAX package's three routes:
+
+- the composed conv (PYANNOTE_TPU_CONV_FBANK, by default on a CUDA
+  device, off on the CPU): DC removal, preemphasis, window and the real
+  DFT are linear maps of a frame, so they compose into one (window,
+  2 x bins) kernel, built in float64; the spectrum is then one float32
+  convolution of stride ``shift`` over the waveform, with no framed
+  copy of it;
+- the DFT as two float32 matmuls over the frames (PYANNOTE_TPU_DFT_FBANK
+  = "1", opt-in; the conv gate wins when both are on);
+- the rfft of the zero-padded frames (cuFFT on the card), otherwise.
+
+The conv and the matmuls are library calls, as in the JAX package, which
+computes them outside any Pallas kernel; they run in float32 with TF32 off
+(the JAX package's ``Precision.HIGHEST``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import os
 
 import numpy as np
 import torch
+
+from ..utils.runtime import device_flag
 
 EPSILON = 1.1920928955078125e-07  # float32 machine epsilon, kaldi's log floor
 
@@ -69,6 +89,70 @@ def _window(window_type: str, length: int) -> np.ndarray:
     return w.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _conv_dft_kernel_np(window_size: int, padded: int, window_type: str,
+                        remove_dc_offset: bool,
+                        preemphasis_coefficient: float) -> np.ndarray:
+    """(window_size, 2*(padded//2+1)) composed frame -> [re | im] matrix.
+
+    For a frame column vector f: out = C^T W P A f, with A the DC removal,
+    P the preemphasis (kaldi's edge: the first sample is its own left
+    neighbour), W = diag(window), C the real-DFT basis. As a row-vector
+    kernel K = A^T P^T W C, composed in float64.
+    """
+    n = window_size
+    A = np.eye(n)
+    if remove_dc_offset:
+        A = A - np.full((n, n), 1.0 / n)
+    P = np.eye(n)
+    if preemphasis_coefficient != 0.0:
+        c = float(preemphasis_coefficient)
+        P[np.arange(1, n), np.arange(0, n - 1)] = -c
+        P[0, 0] = 1.0 - c
+    w = _window(window_type, n).astype(np.float64)
+    k = np.arange(padded // 2 + 1)
+    angle = 2.0 * np.pi * np.outer(np.arange(n), k) / padded
+    C = np.concatenate([np.cos(angle), -np.sin(angle)], axis=1)
+    K = A.T @ P.T @ (w[:, None] * C)
+    return K.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _dft_basis_np(window_size: int, padded: int) -> np.ndarray:
+    """(window_size, 2*(padded//2+1)) [cos | -sin] real-DFT basis; rows
+    past the window, which would meet zero padding, are left out."""
+    k = np.arange(padded // 2 + 1)
+    angle = 2.0 * np.pi * np.outer(np.arange(window_size), k) / padded
+    return np.concatenate([np.cos(angle), -np.sin(angle)],
+                          axis=1).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(make, args: tuple, device: torch.device) -> torch.Tensor:
+    """``make(*args)``, a numpy constant, as a tensor on ``device``,
+    made once per device; to a CUDA device from page-locked memory, so
+    that the copy does not make the host wait."""
+    host = torch.from_numpy(make(*args))
+    if device.type == "cuda":
+        return host.pin_memory().to(device, non_blocking=True)
+    return host
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """TF32 off for cuDNN convolutions and CUDA matmuls (the JAX package's
+    ``Precision.HIGHEST``), restored afterwards."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
 def fbank_num_frames(num_samples: int, sample_rate: int = 16000,
                      frame_length: float = 25.0,
                      frame_shift: float = 10.0) -> int:
@@ -93,20 +177,38 @@ def fbank(waveform: torch.Tensor, sample_rate: int = 16000,
     if num_frames == 0:
         return waveform.new_zeros(batch_shape + (0, num_mel_bins))
     x = waveform.reshape(-1, waveform.shape[-1])
-    frames = x.unfold(-1, window_size, window_shift)[:, :num_frames]
-    frames = frames - frames.mean(dim=-1, keepdim=True)
-    if preemphasis_coefficient != 0.0:
-        frames = torch.cat(
-            [frames[..., :1] - preemphasis_coefficient * frames[..., :1],
-             frames[..., 1:] - preemphasis_coefficient * frames[..., :-1]],
-            dim=-1)
-    frames = frames * torch.from_numpy(
-        _window(window_type, window_size)).to(frames.device)
-    spectrum = torch.fft.rfft(frames, n=padded, dim=-1)
-    power = spectrum.real.square() + spectrum.imag.square()
-    banks = torch.from_numpy(kaldi_mel_banks(
-        num_mel_bins, padded, sample_rate)).to(power.device)
-    mel = torch.matmul(power, banks)
+    device = x.device
+    bins = padded // 2 + 1
+    with _no_tf32():
+        if device_flag("PYANNOTE_TPU_CONV_FBANK", device):
+            kernel = _constant(_conv_dft_kernel_np, (
+                window_size, padded, window_type, True,
+                float(preemphasis_coefficient)), device)  # (window, 2 bins)
+            out = torch.nn.functional.conv1d(
+                x[:, None, :], kernel.T[:, None, :],
+                stride=window_shift)[:, :, :num_frames]
+            power = (out[:, :bins].square()
+                     + out[:, bins:].square()).transpose(1, 2)
+        else:
+            frames = x.unfold(-1, window_size, window_shift)[:, :num_frames]
+            frames = frames - frames.mean(dim=-1, keepdim=True)
+            if preemphasis_coefficient != 0.0:
+                frames = torch.cat(
+                    [frames[..., :1]
+                     - preemphasis_coefficient * frames[..., :1],
+                     frames[..., 1:]
+                     - preemphasis_coefficient * frames[..., :-1]], dim=-1)
+            frames = frames * _constant(_window, (window_type, window_size),
+                                        device)
+            if os.environ.get("PYANNOTE_TPU_DFT_FBANK", "0") == "1":
+                out = torch.matmul(frames, _constant(
+                    _dft_basis_np, (window_size, padded), device))
+                power = out[..., :bins].square() + out[..., bins:].square()
+            else:
+                spectrum = torch.fft.rfft(frames, n=padded, dim=-1)
+                power = spectrum.real.square() + spectrum.imag.square()
+        mel = torch.matmul(power, _constant(
+            kaldi_mel_banks, (num_mel_bins, padded, sample_rate), device))
     out = torch.log(torch.clamp(mel, min=EPSILON))
     return out.reshape(batch_shape + (num_frames, num_mel_bins))
 

@@ -36,6 +36,8 @@ class Powerset:
         self.max_set_size = max_set_size
         self.mapping = torch.from_numpy(
             build_powerset_mapping(num_classes, max_set_size))
+        # one copy per device, so that decoding queues no host copy
+        self._mapping_on = {}
 
     @property
     def num_powerset_classes(self) -> int:
@@ -48,7 +50,13 @@ class Powerset:
         hard: argmax (first maximum on ties) then lookup, exact 0/1.
         soft: exp(log-probs) @ mapping, the marginal probability per class.
         """
-        mapping = self.mapping.to(powerset.device)
+        mapping = self._mapping_on.get(powerset.device)
+        if mapping is None:
+            mapping = self.mapping
+            if powerset.device.type == "cuda":
+                mapping = mapping.pin_memory().to(powerset.device,
+                                                  non_blocking=True)
+            self._mapping_on[powerset.device] = mapping
         if soft:
             return torch.exp(powerset) @ mapping
         return mapping[torch.argmax(powerset, dim=-1)]

@@ -19,21 +19,33 @@ The embedding stage takes one of the JAX package's three paths:
 - per chunk: fbank and trunk per chunk, the reference semantics.
 
 The two shared paths need chunk starts on the 160-sample fbank shift.
-Everything up to the embeddings stays on ``device``; clustering runs on
-the host, then reconstruction runs on the device again. Files are
-processed one after another. Not ported yet: bounded-memory long files,
-pipelined batches on CUDA streams, hooks, VBx/KMeans/oracle clustering,
-and renaming labels after a reference annotation (labels are always
-SPEAKER_00, ...).
+
+``apply`` is ``_finalize(_stage(file))``. ``_stage`` queues a file's whole
+device program (segmentation, the early shared trunk, count and
+statistics, masks and embeddings) and starts the copies of its small
+results into page-locked host memory, with no host sync; ``_finalize``
+waits for them, clusters on the host, reconstructs on the device and
+builds the Annotations. ``apply_batch`` stages up to ``stage_ahead``
+files ahead of the one it finalizes while worker threads decode the next
+ones, so host work overlaps the device's. Files past the device-memory
+budget run in halo'd slices (core/longfile.py). Hooks see every stage,
+under the JAX package's step names.
+
+Not ported yet: VBx/KMeans/oracle clustering, and renaming labels after a
+reference annotation (labels are always SPEAKER_00, ...).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import textwrap
+import threading
 import warnings
+from collections import deque
 from dataclasses import dataclass
-from typing import Any, Dict, Iterator, Optional, Tuple, Union
+from typing import (Any, Callable, Dict, Iterator, List, Optional, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -41,10 +53,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.annotation import Annotation
-from ..core.inference import (Inference, _chunk_grid, chunk_views,
-                              pad_to_grid)
+from ..core.inference import (Inference, _chunk_grid,
+                              _upload_waveform_cached, chunks_at,
+                              pad_to_grid, to_device)
 from ..core.io import Audio
-from ..core.pipeline import Pipeline
+from ..core.longfile import Slice, plan_slices, slice_uploads
+from ..core.pipeline import Pipeline, _evict
 from ..core.segment import SlidingWindow, SlidingWindowFeature
 from ..ops.diarize_fused import (fused_count_stats, fused_reconstruct,
                                  make_embedding_masks)
@@ -73,6 +87,9 @@ class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
     raises, and ``device="cpu"`` runs the exact path on the CPU.
     ``counts`` records which embedding path ran (reset it at will).
     """
+
+    # apply_batch streams its own decode
+    STREAMS_DECODE = True
 
     # shared-trunk panel geometry, in trunk frames: halo * stride fbank
     # frames of context on each side cover the trunk's receptive field, so
@@ -258,26 +275,49 @@ class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
             pad_to_grid(waveform, window_samples, step_samples),
             num_real_frames, window_samples)
 
-    def _start_shared_trunk(self, waveform: torch.Tensor
-                            ) -> Optional[torch.Tensor]:
-        """Queue the whole-file trunk on the device, or None off the
-        shared-trunk path. It depends on the waveform only, so it can run
-        before the segmentation scores reach the host."""
+    def _plan(self, num_samples: int) -> Optional[List[Slice]]:
+        """The file's slice plan (core/longfile.py) on the segmentation's
+        chunk grid, or None when it takes whole-file buffers."""
+        sample_rate = self._embedding.sample_rate
+        window_samples = round(self._segmentation.duration * sample_rate)
+        step_samples = round(self._segmentation.step * sample_rate)
+        starts, _ = _chunk_grid(num_samples, window_samples, step_samples)
+        plan = plan_slices(num_samples, window_samples, step_samples,
+                           sample_rate, starts)
+        return plan if plan is not None and len(plan) > 1 else None
+
+    def _start_shared_trunk(self, waveform) -> Optional[torch.Tensor]:
+        """Queue the whole-file trunk of a (1, samples) waveform on the
+        device, or None off the shared-trunk path and for a file that runs
+        in slices (``get_embeddings`` then runs a trunk per slice). It
+        depends on the waveform only, so it can run before the
+        segmentation scores reach the host."""
         step_samples = round(self._segmentation.step
                              * self._embedding.sample_rate)
-        if not self._shared_trunk(step_samples, waveform.device):
+        if not self._shared_trunk(step_samples, self.device) or \
+                self._plan(waveform.shape[1]) is not None:
             return None
-        return self._whole_trunk(waveform)
+        return self._whole_trunk(_upload_waveform_cached(waveform, None,
+                                                         self.device))
 
     @torch.inference_mode()
-    def get_embeddings(self, waveform: torch.Tensor,
-                       binarized: SlidingWindowFeature,
+    def get_embeddings(self, waveform, binarized: SlidingWindowFeature,
                        exclude_overlap: bool = False,
-                       trunk: Optional[torch.Tensor] = None) -> np.ndarray:
-        """(num_chunks, num_speakers, dimension) embeddings on the host.
+                       trunk: Optional[torch.Tensor] = None,
+                       hook: Optional[Callable] = None, cache=None,
+                       defer_fetch: bool = False):
+        """(num_chunks, num_speakers, dimension) embeddings.
 
-        ``trunk`` is the whole-file trunk queued by ``_start_shared_trunk``
-        (computed here when it is None on the shared-trunk path).
+        ``waveform`` is the file's (1, samples) float32 host array,
+        uploaded through ``cache`` (the file dict), or a tensor on the
+        device. ``trunk`` is the whole-file trunk queued by
+        ``_start_shared_trunk`` (computed here when it is None on the
+        shared-trunk path). A file past the memory budget runs in slices:
+        each slice's front-end (trunk, fbank or chunks) is computed from
+        its own upload and released after its batches. Returns a host
+        array, or the device tensor with ``defer_fetch``. ``hook`` gets
+        ``("embeddings", None, total=batches, completed=...)`` before the
+        first batch and after each.
         """
         scores = binarized.data
         num_chunks, num_frames, _ = scores.shape
@@ -293,86 +333,288 @@ class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
                                      min_num_frames)          # (C, S, F)
         window_samples = round(duration * emb.sample_rate)
         step_samples = round(binarized.sliding_window.step * emb.sample_rate)
-        starts, _ = _chunk_grid(waveform.shape[1], window_samples,
-                                step_samples)
+        num_samples = waveform.shape[1]
+        starts, _ = _chunk_grid(num_samples, window_samples, step_samples)
         assert len(starts) == num_chunks
-        padded = pad_to_grid(waveform, window_samples, step_samples)
-        device = waveform.device
+        device = self.device
         B = self.embedding_batch_size
 
-        if self._shared_trunk(step_samples, device):
-            if trunk is None:
-                trunk = self._whole_trunk(waveform)
+        shared_trunk = self._shared_trunk(step_samples, device)
+        if shared_trunk:
             geometry = self.trunk_geometry(window_samples)
-            first = torch.from_numpy(
-                starts // shift // geometry["stride"]).to(device)
-            offsets = torch.arange(geometry["trunk_frames_per_chunk"],
-                                   device=device)
+            stride = geometry["stride"]
+            width = geometry["trunk_frames_per_chunk"]
 
-            def batch(b):
-                frames = trunk[first[b:b + B, None] + offsets]
-                return emb.embed(frames, masks[b:b + B])
+            def input_for(buffer, num_real_samples):
+                return self.compute_trunk(buffer, fbank_num_frames(
+                    num_real_samples, emb.sample_rate, emb.frame_length,
+                    emb.frame_shift), window_samples)
+
+            def translate(chunk_starts):
+                return chunk_starts // shift // stride
+
+            def batch(frames, masks):
+                return emb.embed(frames, masks)
         elif self._shared_fbank(step_samples):
-            feats = self._whole_fbank(padded)
-            first = torch.from_numpy(starts // shift).to(device)
-            offsets = torch.arange(
-                self._fbank_frames_per_chunk(window_samples), device=device)
+            width = self._fbank_frames_per_chunk(window_samples)
 
-            def batch(b):
+            def input_for(buffer, num_real_samples):
+                return self._whole_fbank(buffer)
+
+            def translate(chunk_starts):
+                return chunk_starts // shift
+
+            def batch(feats, masks):
                 self.counts["chunk_trunk_batches"] += 1
-                chunk_feats = feats[first[b:b + B, None] + offsets]
-                return emb.embed(emb.frames_from_fbank(chunk_feats),
-                                 masks[b:b + B])
+                return emb.embed(emb.frames_from_fbank(feats), masks)
         else:
-            chunks = chunk_views(padded, window_samples, step_samples)
+            translate = None
 
-            def batch(b):
+            def input_for(buffer, num_real_samples):
+                return buffer
+
+            def batch(chunks, masks):
                 self.counts["chunk_trunk_batches"] += 1
-                return emb.embed(emb.frames(chunks[b:b + B].contiguous()),
-                                 masks[b:b + B])
+                return emb.embed(emb.frames(chunks.contiguous()), masks)
 
-        out = [batch(b) for b in range(0, num_chunks, B)]
-        return torch.cat(out).cpu().numpy()
+        # groups of (input thunk, slice-local chunk starts, first global
+        # chunk): one for the whole file, or one per slice of a long
+        # file; masks are indexed by global chunk either way
+        plan = self._plan(num_samples)
+        if plan is None:
+            def whole_input():
+                if trunk is not None and shared_trunk:
+                    return trunk
+                return input_for(pad_to_grid(
+                    _upload_waveform_cached(waveform, cache, device),
+                    window_samples, step_samples), num_samples)
+            groups = [(whole_input, starts, 0)]
+            release_upload = None
+        else:
+            get_upload, release_upload = slice_uploads(
+                cache, waveform, plan, emb.sample_rate, starts,
+                window_samples, device)
+
+            def slice_group(k):
+                sl = plan[k]
+
+                def make_input():
+                    buffer = get_upload(k)
+                    return input_for(buffer, min(sl.b - sl.a,
+                                                 buffer.shape[1]))
+                return make_input, starts[sl.i0:sl.i1] - sl.a, sl.i0
+            groups = [slice_group(k) for k in range(len(plan))]
+
+        num_batches = sum(math.ceil(len(g[1]) / B) for g in groups)
+        if hook is not None:
+            hook("embeddings", None, total=num_batches, completed=0)
+        out = []
+        for gi, (make_input, group_starts, chunk0) in enumerate(groups):
+            source = make_input()
+            if translate is None:
+                views = chunks_at(source, group_starts, window_samples)
+            else:
+                first = to_device(translate(group_starts), device)
+                offsets = torch.arange(width, device=device)
+            for b in range(0, len(group_starts), B):
+                e = min(b + B, len(group_starts))
+                if translate is None:
+                    inputs = views[b:e]
+                else:
+                    inputs = source[first[b:e, None] + offsets]
+                out.append(batch(inputs, masks[chunk0 + b:chunk0 + e]))
+                if hook is not None:
+                    hook("embeddings", None, total=num_batches,
+                         completed=len(out))
+            if release_upload is not None:
+                # the queued work holds its buffers until it has run
+                release_upload(gi)
+        embeddings = torch.cat(out) if len(out) > 1 else out[0]
+        return embeddings if defer_fetch else embeddings.cpu().numpy()
 
     # -- apply --------------------------------------------------------------
 
+    def preload(self, file) -> None:
+        """Start a file's upload early (the segmentation's
+        ``Inference.preload``: the whole waveform, or a long file's first
+        slice). ``apply_batch`` orders its uploads itself; this serves the
+        generic batch path and callers that want to warm a file."""
+        self._segmentation.preload(file)
+
+    def _fetch_async(self, tensors: Dict[str, torch.Tensor]):
+        """Start the device -> host copies of ``tensors`` into page-locked
+        host tensors and record an event after them; on the CPU the
+        tensors are the host tensors and there is no event."""
+        if self.device.type != "cuda":
+            return dict(tensors), None
+        host = {}
+        for name, tensor in tensors.items():
+            host[name] = torch.empty(tensor.shape, dtype=tensor.dtype,
+                                     pin_memory=True)
+            host[name].copy_(tensor, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
     @torch.inference_mode()
-    def apply(self, file: Dict, num_speakers: Optional[int] = None,
-              min_speakers: Optional[int] = None,
-              max_speakers: Optional[int] = None) -> DiarizeOutput:
+    def _stage(self, file: Dict, num_speakers: Optional[int] = None,
+               min_speakers: Optional[int] = None,
+               max_speakers: Optional[int] = None,
+               hook: Optional[Callable] = None, **kwargs) -> Dict[str, Any]:
+        """Queue a file's device program without a host sync.
+
+        Segmentation, the early shared trunk, the fused count and
+        statistics, the pooling masks and the embeddings are queued on the
+        current stream, then the copies of the count, the statistics and
+        the embeddings into page-locked host memory and an event after
+        them. ``_finalize`` does the host half.
+        """
+        if kwargs:
+            warnings.warn(f"Ignoring unexpected keyword arguments: "
+                          f"{', '.join(kwargs)}")
+        hook = self.setup_hook(file, hook=hook)
         num_speakers, min_speakers, max_speakers = set_num_speakers(
             num_speakers=num_speakers, min_speakers=min_speakers,
             max_speakers=max_speakers)
         waveform, sample_rate = self._audio(file)
-        waveform = torch.from_numpy(waveform).to(self.device)
+        # a whole file is uploaded once, here, and shared by the stages;
+        # a long file's slices are uploaded by the stages themselves
+        source = waveform if self._plan(waveform.shape[1]) is not None \
+            else _upload_waveform_cached(waveform, file, self.device)
 
-        segmentations = self._segmentation.slide(waveform, sample_rate)
-        # queued behind segmentation, before the count's host sync
-        trunk = self._start_shared_trunk(waveform)
+        segmentations = self._segmentation.slide(
+            source, sample_rate, cache=file,
+            hook=functools.partial(hook, "segmentation", None))
+        hook("segmentation", segmentations)
+        # queued behind segmentation, before anything the host waits for
+        trunk = self._start_shared_trunk(source)
         scores = segmentations.data                           # (C, F, S)
-        num_chunks = scores.shape[0]
         offsets, num_output_frames, window = self._aggregation_grid(
             segmentations.sliding_window,
-            self._segmentation.model.receptive_field, num_chunks)
-        offsets_dev = torch.from_numpy(offsets).to(self.device)
+            self._segmentation.model.receptive_field, scores.shape[0])
+        offsets_dev = to_device(offsets, self.device)
         count, speaker_frames, clean_frames = fused_count_stats(
             scores, offsets_dev, num_output_frames)
-        count = count.cpu().numpy()
-        speaker_frames = speaker_frames.cpu().numpy()
-        clean_frames = clean_frames.cpu().numpy()
+        embeddings = self.get_embeddings(
+            source, segmentations,
+            exclude_overlap=self.embedding_exclude_overlap, trunk=trunk,
+            hook=hook, cache=file, defer_fetch=True)
+        host, event = self._fetch_async({
+            "count": count, "speaker_frames": speaker_frames,
+            "clean_frames": clean_frames, "embeddings": embeddings})
+        return {"file": file, "hook": hook, "num_speakers": num_speakers,
+                "min_speakers": min_speakers, "max_speakers": max_speakers,
+                # the host waveform stays referenced until the file is
+                # finalized: a pinned one is what its upload reads
+                "waveform": waveform, "scores": scores,
+                "offsets": offsets_dev,
+                "num_output_frames": num_output_frames, "window": window,
+                "host": host, "event": event}
 
-        if np.nanmax(count) == 0:
+    def apply(self, file: Dict, num_speakers: Optional[int] = None,
+              min_speakers: Optional[int] = None,
+              max_speakers: Optional[int] = None,
+              hook: Optional[Callable] = None, **kwargs) -> DiarizeOutput:
+        return self._finalize(self._stage(
+            file, num_speakers=num_speakers, min_speakers=min_speakers,
+            max_speakers=max_speakers, hook=hook, **kwargs))
+
+    def apply_batch(self, files: List[Dict],
+                    hook: Optional[Callable] = None, stage_ahead: int = 2,
+                    **kwargs) -> List[DiarizeOutput]:
+        """Pipelined apply over a list of files.
+
+        Up to ``stage_ahead`` files are staged (their device programs
+        queued) before the oldest one is finalized, so the host's
+        clustering and annotation of a file overlap the device work of the
+        next ones. Worker threads decode up to ``stage_ahead + 1`` files
+        ahead of staging, host work only (read, downmix, page-locked
+        copy); every CUDA call stays on this thread. A finalized file's
+        device buffers, and the waveform this machinery decoded, are
+        dropped.
+        """
+        if not files:
+            return []
+        decode_threads: Dict[int, threading.Thread] = {}
+        window = stage_ahead + 1
+
+        def start_prefetch(j: int) -> None:
+            if 0 < j < len(files) and j not in decode_threads:
+                t = threading.Thread(target=self._decode_into,
+                                     args=(files[j], False), daemon=True)
+                t.start()
+                decode_threads[j] = t
+
+        for j in range(1, min(window + 1, len(files))):
+            start_prefetch(j)
+        staged: deque = deque()
+        results = []
+        try:
+            # file 0 is on the critical path either way
+            self._decode_into(files[0], False)
+            for i, file in enumerate(files):
+                t = decode_threads.pop(i, None)
+                if t is not None:
+                    t.join()
+                elif i > 0:
+                    self._decode_into(file, False)
+                start_prefetch(i + window)
+                staged.append(self._stage(file, hook=hook, **kwargs))
+                if len(staged) > stage_ahead:
+                    results.append(self._finalize_and_release(
+                        staged.popleft()))
+            while staged:
+                results.append(self._finalize_and_release(staged.popleft()))
+        finally:
+            for t in decode_threads.values():
+                t.join()
+        return results
+
+    def _finalize_and_release(self, staged: Dict[str, Any]) -> DiarizeOutput:
+        """``_finalize``, then drop the file's device buffers and, for a
+        dict this machinery decoded, its host waveform (the batch list
+        keeps every dict alive)."""
+        out = self._finalize(staged)
+        _evict(staged["file"])
+        return out
+
+    def _reconstruct(self, staged: Dict[str, Any], hard_clusters: np.ndarray,
+                     count: np.ndarray, num_clusters: int) -> np.ndarray:
+        """(2, frames, clusters) float32: the normal and the exclusive
+        discrete diarization, computed on the device."""
+        binary, exclusive = fused_reconstruct(
+            staged["scores"], to_device(hard_clusters, self.device),
+            staged["offsets"], to_device(count, self.device),
+            num_clusters, staged["num_output_frames"])
+        return torch.stack([binary, exclusive]).cpu().numpy().astype(
+            np.float32)
+
+    @torch.inference_mode()
+    def _finalize(self, staged: Dict[str, Any]) -> DiarizeOutput:
+        """Host half of ``apply``: wait for the staged copies, cluster,
+        reconstruct, annotate."""
+        file, hook = staged["file"], staged["hook"]
+        min_speakers = staged["min_speakers"]
+        max_speakers = staged["max_speakers"]
+        if staged["event"] is not None:
+            staged["event"].synchronize()
+        host = {name: tensor.numpy()
+                for name, tensor in staged["host"].items()}
+        count = SlidingWindowFeature(host["count"], staged["window"])
+        hook("speaker_counting", count)
+
+        if np.nanmax(count.data) == 0:
             # silent file
             return DiarizeOutput(
                 Annotation(uri=file["uri"]), Annotation(uri=file["uri"]),
                 np.zeros((0, self._embedding.dimension)))
 
-        embeddings = self.get_embeddings(
-            waveform, segmentations,
-            exclude_overlap=self.embedding_exclude_overlap, trunk=trunk)
+        embeddings = host["embeddings"]
+        hook("embeddings", embeddings)
         hard_clusters, _, centroids = self.clustering(
-            embeddings, clean_frames, num_frames=scores.shape[1],
-            num_clusters=num_speakers, min_clusters=min_speakers,
+            embeddings, host["clean_frames"],
+            num_frames=staged["scores"].shape[1],
+            num_clusters=staged["num_speakers"], min_clusters=min_speakers,
             max_clusters=max_speakers)
 
         num_different_speakers = int(np.max(hard_clusters)) + 1
@@ -386,23 +628,23 @@ class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
                 short for {min_speakers} speakers.
                 """))
 
-        cnt = np.minimum(count, max_speakers).astype(np.int8).reshape(-1)
+        cnt = np.minimum(count.data, max_speakers).astype(np.int8).reshape(-1)
         hard_clusters = np.asarray(hard_clusters, dtype=np.int64)
-        hard_clusters[speaker_frames == 0] = -2             # inactive
+        hard_clusters[host["speaker_frames"] == 0] = -2      # inactive
         num_clusters = max(int(hard_clusters.max()) + 1,
                            int(cnt.max()) if len(cnt) else 0, 1)
-        binary, exclusive = fused_reconstruct(
-            scores, torch.from_numpy(hard_clusters).to(self.device),
-            offsets_dev, torch.from_numpy(cnt).to(self.device),
-            num_clusters, num_output_frames)
+        binary, exclusive = self._reconstruct(staged, hard_clusters, cnt,
+                                              num_clusters)
+        window = staged["window"]
+        discrete = SlidingWindowFeature(binary, window)
+        hook("discrete_diarization", discrete)
 
         min_duration_off = self.segmentation.min_duration_off
-        diarization, exclusive_diarization = (
-            self.to_annotation(
-                SlidingWindowFeature(b.cpu().numpy().astype(np.float32),
-                                     window),
-                min_duration_off=min_duration_off)
-            for b in (binary, exclusive))
+        diarization = self.to_annotation(discrete,
+                                         min_duration_off=min_duration_off)
+        exclusive_diarization = self.to_annotation(
+            SlidingWindowFeature(exclusive, window),
+            min_duration_off=min_duration_off)
 
         mapping = {label: expected for label, expected in
                    zip(diarization.labels(), self.classes())}

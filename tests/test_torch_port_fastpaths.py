@@ -13,7 +13,9 @@ Tolerances:
   relative) of the JAX one, log-probabilities within 5e-2 and the port
   no further from float32 than 2x the JAX bf16 error;
 - fbank 1e-3 (log-mel through another rfft), the whole-file slices
-  equal to the per-chunk fbank within 1e-5; CMN ``prepare`` within 1e-5
+  equal to the per-chunk fbank within 1e-5; the composed-conv and
+  DFT-matmul spectra within the golden bound 2e-3 of the rfft fbank and
+  of the JAX package's on the same route; CMN ``prepare`` within 1e-5
   of a float64 CMN, and of JAX's up to JAX's own float32 error;
 - float32 trunk 2e-3 (conv summation order); bf16 trunk as the step-0
   bound of tests/test_torch_port_models.py (2e-2 of the frames' scale,
@@ -58,7 +60,7 @@ SR = 16000
 
 
 def set_gates(mp, **values):
-    """Set the port's gates (and the JAX-only conv-fbank gate off)."""
+    """Set the gates (and the conv-fbank gate off on both sides)."""
     mp.setenv("PYANNOTE_TPU_CONV_FBANK", "0")
     for name in GATES:
         mp.setenv(name, values.get(name.split("_TPU_")[1].lower(), "0"))
@@ -237,6 +239,24 @@ def test_shared_slide_out_of_memory_raises(monkeypatch):
         _port_slide(port, _wave(5.5, seed=17), 0.5)
 
 
+@pytest.mark.parametrize("shared_sinc", ["0", "1"])
+def test_batch_out_of_memory_raises(monkeypatch, shared_sinc):
+    """A CUDA out-of-memory in a per-chunk batch raises the JAX package's
+    MemoryError text, with the shared front-end's hint on that path."""
+    set_gates(monkeypatch, shared_sinc=shared_sinc)
+    port = torch_pyannet_from(jax_pyannet(seed=16))
+
+    def out_of_memory(*args):
+        raise torch.cuda.OutOfMemoryError("CUDA out of memory")
+    monkeypatch.setattr(port, "forward", out_of_memory)
+    monkeypatch.setattr(port, "forward_from_frontend", out_of_memory)
+    with pytest.raises(MemoryError, match="batch_size \\( 8\\) is probably") \
+            as raised:
+        _port_slide(port, _wave(5.5, seed=17), 0.5)
+    assert ("PYANNOTE_TPU_SHARED_SINC=0" in str(raised.value)) == \
+        (shared_sinc == "1")
+
+
 # -- ops/fbank.py -------------------------------------------------------------------
 
 def test_whole_fbank_slices_match_per_chunk_and_jax():
@@ -256,6 +276,56 @@ def test_whole_fbank_slices_match_per_chunk_and_jax():
     slices = torch.stack([feats[s // 160:s // 160 + per_chunk.shape[1]]
                           for s in starts])
     np.testing.assert_allclose(slices.numpy(), per_chunk.numpy(), atol=1e-5)
+
+
+FBANK_ROUTES = {"conv": {"PYANNOTE_TPU_CONV_FBANK": "1"},
+                "dft": {"PYANNOTE_TPU_CONV_FBANK": "0",
+                        "PYANNOTE_TPU_DFT_FBANK": "1"}}
+
+
+@pytest.mark.parametrize("window_type", ["povey", "hamming"])
+@pytest.mark.parametrize("route", list(FBANK_ROUTES))
+def test_fbank_spectra_match_rfft_and_jax(monkeypatch, route, window_type):
+    """The composed-conv and DFT-matmul power spectra, gates forced on, on
+    the golden input (white noise at 0.1, in the x32768 scale) and a batch
+    of it: against the port's rfft fbank and the JAX package's fbank on
+    the same route, within the JAX package's golden bound 2e-3
+    (tests/test_fbank.py); the batch against each item within 1e-4."""
+    from pyannote_audio_tpu.ops.fbank import fbank_impl as jax_fbank
+    rng = np.random.default_rng(25)
+    wav = (0.1 * rng.standard_normal((2, 16000))).astype(np.float32) \
+        * np.float32(32768.0)
+    monkeypatch.delenv("PYANNOTE_TPU_DFT_FBANK", raising=False)
+    monkeypatch.setenv("PYANNOTE_TPU_CONV_FBANK", "0")
+    rfft = fbank(torch.from_numpy(wav), window_type=window_type).numpy()
+    for name, value in FBANK_ROUTES[route].items():
+        monkeypatch.setenv(name, value)
+    expected = np.asarray(jax_fbank(jnp.asarray(wav),
+                                    window_type=window_type))
+
+    def no_rfft(*args, **kwargs):
+        raise AssertionError("the rfft ran")
+    monkeypatch.setattr(torch.fft, "rfft", no_rfft)
+    ours = fbank(torch.from_numpy(wav), window_type=window_type).numpy()
+    one = fbank(torch.from_numpy(wav[1]), window_type=window_type).numpy()
+    assert ours.shape == expected.shape == (2, 98, 80)
+    np.testing.assert_allclose(ours, rfft, atol=2e-3)
+    np.testing.assert_allclose(ours, expected, atol=2e-3)
+    np.testing.assert_allclose(ours[1], one, atol=1e-4)
+
+
+def test_fbank_rfft_is_the_cpu_default(monkeypatch):
+    """Unset, the conv-fbank gate is off on the CPU (on on a CUDA device,
+    ``device_flag``), so the CPU keeps the rfft."""
+    monkeypatch.delenv("PYANNOTE_TPU_CONV_FBANK", raising=False)
+    monkeypatch.delenv("PYANNOTE_TPU_DFT_FBANK", raising=False)
+    calls = []
+    rfft = torch.fft.rfft
+    monkeypatch.setattr(torch.fft, "rfft",
+                        lambda *a, **k: calls.append(1) or rfft(*a, **k))
+    fbank(torch.from_numpy(_wave(0.5, seed=26)))
+    assert calls == [1]
+    assert device_flag("PYANNOTE_TPU_CONV_FBANK", "cuda")
 
 
 # -- pipelines/speaker_diarization.py: the shared trunk ------------------------------

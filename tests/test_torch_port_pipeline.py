@@ -125,6 +125,7 @@ def test_port_imports_no_jax():
         "pyannote_audio_tpu_torch.core.annotation",
         "pyannote_audio_tpu_torch.core.inference",
         "pyannote_audio_tpu_torch.core.io",
+        "pyannote_audio_tpu_torch.core.longfile",
         "pyannote_audio_tpu_torch.core.model",
         "pyannote_audio_tpu_torch.core.pipeline",
         "pyannote_audio_tpu_torch.core.segment",
@@ -142,8 +143,10 @@ def test_port_imports_no_jax():
         "pyannote_audio_tpu_torch.pipelines.clustering",
         "pyannote_audio_tpu_torch.pipelines.speaker_diarization",
         "pyannote_audio_tpu_torch.pipelines.utils.diarization",
+        "pyannote_audio_tpu_torch.pipelines.utils.hook",
         "pyannote_audio_tpu_torch.utils.build",
         "pyannote_audio_tpu_torch.utils.convert",
+        "pyannote_audio_tpu_torch.utils.flops",
         "pyannote_audio_tpu_torch.utils.receptive_field",
         "pyannote_audio_tpu_torch.utils.runtime",
         "pyannote_audio_tpu_torch.utils.signal",

@@ -1,19 +1,22 @@
 """Profile one pass of the port's accelerator path on one card.
 
-    python3 tools/profile_accelerator_pass.py
+    python3 tools/profile_accelerator_pass.py [--batch]
 
 Builds the pipeline that ``chip_smoke.py`` drives (full-width PyanNet and
 WeSpeaker ResNet34, seeded random weights, batch 256, the accelerator
 gates at their defaults) on its synthetic files of 10 and 3 minutes, runs
-two warm passes, then one pass under ``torch.profiler``. Prints the card's
-name and power limit, the pass's wall time (host clock, card synchronised
-at both ends), the card's busy time (the union of kernel and copy
-intervals), the idle share, the LSTM recurrence kernel's time and launch
-count, and the 12 kernels that took the most time.
+two warm passes, then one pass under ``torch.profiler``: the files one by
+one through ``apply``, or with ``--batch`` as one list through the
+pipelined ``apply_batch``. Prints the card's name and power limit, the pass's wall time (host clock, card synchronised at both ends),
+the card's busy time (the union of kernel and copy intervals), the idle
+share, the LSTM recurrence kernel's time and launch count, the 12
+kernels that took the most time, and the 10 host operations and CUDA
+runtime calls with the most self time on the host.
 """
 
 from __future__ import annotations
 
+import argparse
 import subprocess
 import sys
 import tempfile
@@ -41,6 +44,10 @@ def busy_microseconds(intervals) -> float:
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--batch", action="store_true",
+                        help="one list through apply_batch")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
@@ -53,16 +60,17 @@ def main() -> int:
     chip_smoke.set_gates(None)
     segmentation, embedding = chip_smoke.make_models(torch.bfloat16)
     pipeline = chip_smoke.build_pipeline(segmentation, embedding, device)
+    run = chip_smoke.run_batch if args.batch else chip_smoke.run_one_by_one
     with tempfile.TemporaryDirectory() as tmp:
         files = chip_smoke.write_files(Path(tmp), chip_smoke.FILE_MINUTES)
         for _ in range(2):
-            pipeline([dict(f) for f in files], max_speakers=4)
+            run(pipeline, files)
         torch.cuda.synchronize()
         activities = [torch.profiler.ProfilerActivity.CPU,
                       torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=activities) as prof:
             start = time.perf_counter()
-            pipeline([dict(f) for f in files], max_speakers=4)
+            run(pipeline, files)
             torch.cuda.synchronize()
             wall = time.perf_counter() - start
     intervals, by_name, counts = [], defaultdict(float), defaultdict(int)
@@ -78,7 +86,8 @@ def main() -> int:
     busy = busy_microseconds(intervals) / 1e3
     lstm = [name for name in by_name if "lstm_recurrence" in name]
     minutes = sum(chip_smoke.FILE_MINUTES)
-    print(f"accelerator pass on {minutes:g} min of audio: wall "
+    mode = "apply_batch" if args.batch else "apply, file by file"
+    print(f"accelerator pass ({mode}) on {minutes:g} min of audio: wall "
           f"{wall * 1e3:.3f} ms, card busy {busy:.3f} ms, idle share "
           f"{1 - busy / (wall * 1e3):.3f}")
     print(f"LSTM recurrence kernel: "
@@ -87,6 +96,12 @@ def main() -> int:
           f"({sum(by_name[n] for n in lstm) / 1e3 / busy:.1%} of busy)")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  {us / 1e3:9.3f} ms {counts[name]:6d}x  {name[:100]}")
+    print("host: the 10 operations and runtime calls with the most self "
+          "time on the host")
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    for event in host[:10]:
+        print(f"  {event.self_cpu_time_total / 1e3:9.3f} ms "
+              f"{event.count:6d}x  {event.key[:100]}")
     return 0
 
 

@@ -4,7 +4,8 @@
 
 Phases, each fatal on failure:
   1. environment: torch and CUDA versions, the card's name and power
-     limit; TF32 is switched off for matmuls and convolutions;
+     limit, and torch's TF32 flags, left at their defaults (the port
+     pins float32 at its own float32 sites);
   2. build every kernel of the path from the sources in this checkout;
   3. each kernel against its plain PyTorch version on the card, at the
      main path's shapes and at ragged ones, in each LSTM precision
@@ -36,12 +37,25 @@ Phases, each fatal on failure:
      the reconstruction on one stream and on a second one, walls, peaks,
      host time in ``_stage`` and ``_finalize``, path counters and LSTM
      launches; (j) ``_stage`` of one file, whole and in slices, under
-     ``torch.cuda.set_sync_debug_mode("error")``.
+     ``torch.cuda.set_sync_debug_mode("error")``;
+  7. (k) the exact path under torch's default TF32 flags, after
+     ``torch.set_float32_matmul_precision("high")``, held to the CPU
+     (and, as a measurement, the same with the port's pinning lifted);
+     (l) the community-1 shape: a snapshot (full-width PyanNet and
+     ResNet34 reference checkpoints written by
+     ``utils.convert.write_reference_checkpoint``, a seeded synthetic
+     PLDA 256 -> 128) loaded by ``Pipeline.from_pretrained`` from a
+     config dict with VBx clustering, moved with ``.to("cuda")``; 10 + 3
+     min through ``apply_batch`` and file by file, the serving list
+     through ``apply_batch`` with VBx's host time beside AHC's, the
+     KMeans fallback (``num_speakers=2``), label mapping onto a synthetic
+     annotation with ``get_metric()``, and the device VBx and KMeans
+     (PYANNOTE_TPU_DEVICE_VBX / _KMEANS) against their host versions.
 
 The line before the last is a JSON object describing each kernel (its
-launch count is the accelerator path's); the last line is
-{"ok": true, "device": {...}}. Without a CUDA device the script exits
-non-zero and prints no result.
+``launches`` is the accelerator path's; ``launches_per_path`` has every
+path's); the last line is {"ok": true, "device": {...}}. Without a CUDA
+device the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -196,10 +210,11 @@ def phase_environment() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout
     card = card.strip().splitlines()[0]
     log(card)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    log("TF32 off for matmuls (torch.backends.cuda.matmul.allow_tf32) and "
-        "convolutions (torch.backends.cudnn.allow_tf32)")
+    log(f"torch's TF32 flags at their defaults: "
+        f"torch.backends.cuda.matmul.allow_tf32 = "
+        f"{torch.backends.cuda.matmul.allow_tf32}, "
+        f"torch.backends.cudnn.allow_tf32 = "
+        f"{torch.backends.cudnn.allow_tf32}")
     return card
 
 
@@ -390,21 +405,15 @@ def traced_run(pipeline, file: dict):
     return out, seen
 
 
-def check_against_cpu(pipeline, cpu_pipeline, device) -> None:
-    """The card's pipeline against the same weights on the CPU, on 30 s.
-
-    PyanNet's log-probabilities are held on every chunk of the file, the
-    embeddings on 8 chunks. Float32 sums in another order can flip the
-    powerset argmax where two classes tie within the log-prob error; each
-    such flip must be a near tie, the hard clusters must be equal, and the
-    reconstructed speaker frames may differ only at the output frames
-    that a flip feeds. Without a flip, both Annotations must have the same
-    tracks with boundaries within one frame.
-    """
+def card_vs_cpu(pipeline, cpu_pipeline, device, wav: np.ndarray,
+                label: str, check: bool = True):
+    """PyanNet's log-probabilities on every chunk of ``wav`` and the
+    embeddings of 8 chunks, on the card and on the CPU; printed, and held
+    to REFERENCE_LOGP_ATOL / REFERENCE_EMBEDDING_RTOL when ``check``.
+    Returns (logp, logp_ref, logp_err, emb_err)."""
     from pyannote_audio_tpu_torch.core.inference import chunk_views
-    wav = synth(0.5, seed=7)[None]
-    waveform = torch.from_numpy(wav)
-    chunks = chunk_views(waveform, 10 * SAMPLE_RATE, SAMPLE_RATE)
+    chunks = chunk_views(torch.from_numpy(wav), 10 * SAMPLE_RATE,
+                         SAMPLE_RATE)
     seg_gpu = pipeline._segmentation.model
     seg_cpu = cpu_pipeline._segmentation.model
     emb_gpu, emb_cpu = pipeline._embedding, cpu_pipeline._embedding
@@ -420,17 +429,38 @@ def check_against_cpu(pipeline, cpu_pipeline, device) -> None:
                                 masks)
     logp_err = (logp - logp_ref).abs().max().item()
     emb_err = ((emb - emb_ref).abs().max() / emb_ref.abs().max()).item()
-    log(f"card vs CPU: PyanNet log-prob max_abs_err {logp_err:.3e} on "
+    log(f"{label}: PyanNet log-prob max_abs_err {logp_err:.3e} on "
         f"{len(chunks)} chunks (limit {REFERENCE_LOGP_ATOL}), embedding "
         f"max relative err {emb_err:.3e} on 8 chunks (limit "
         f"{REFERENCE_EMBEDDING_RTOL})")
+    if not check:
+        return logp, logp_ref, logp_err, emb_err
     if not (logp.shape == (len(chunks), 589, 7)
             and torch.isfinite(logp).all()
             and logp_err <= REFERENCE_LOGP_ATOL):
-        raise AssertionError("PyanNet on the card disagrees with the CPU")
+        raise AssertionError(f"{label}: PyanNet on the card disagrees with "
+                             f"the CPU")
     if not (emb.shape == (8, 3, 256) and torch.isfinite(emb).all()
             and emb_err <= REFERENCE_EMBEDDING_RTOL):
-        raise AssertionError("ResNet34 on the card disagrees with the CPU")
+        raise AssertionError(f"{label}: ResNet34 on the card disagrees "
+                             f"with the CPU")
+    return logp, logp_ref, logp_err, emb_err
+
+
+def check_against_cpu(pipeline, cpu_pipeline, device) -> None:
+    """The card's pipeline against the same weights on the CPU, on 30 s.
+
+    PyanNet's log-probabilities are held on every chunk of the file, the
+    embeddings on 8 chunks. Float32 sums in another order can flip the
+    powerset argmax where two classes tie within the log-prob error; each
+    such flip must be a near tie, the hard clusters must be equal, and the
+    reconstructed speaker frames may differ only at the output frames
+    that a flip feeds. Without a flip, both Annotations must have the same
+    tracks with boundaries within one frame.
+    """
+    wav = synth(0.5, seed=7)[None]
+    logp, logp_ref, logp_err, _ = card_vs_cpu(pipeline, cpu_pipeline,
+                                              device, wav, "card vs CPU")
 
     file = {"waveform": wav, "sample_rate": SAMPLE_RATE, "uri": "short"}
     out, ours = traced_run(pipeline, file)
@@ -448,7 +478,7 @@ def check_against_cpu(pipeline, cpu_pipeline, device) -> None:
     if not np.array_equal(ours["clusters"], theirs["clusters"]):
         raise AssertionError(f"hard clusters differ: {ours['clusters']} "
                              f"vs {theirs['clusters']}")
-    frames = seg_gpu.receptive_field
+    frames = pipeline._segmentation.model.receptive_field
     offsets, _, _ = pipeline._aggregation_grid(
         ours["window"], frames, len(ours["scores"]))
     fed = {int(offsets[c] + f) for c, f in flips}
@@ -643,7 +673,7 @@ def phase_exact(device: torch.device, workdir: Path) -> None:
     """The exact path: gates off, float32 trunk and LSTM, held against
     the CPU."""
     with lstm_precision_env("highest"):
-        run_exact(device, workdir)
+        return run_exact(device, workdir)
 
 
 def run_exact(device: torch.device, workdir: Path) -> None:
@@ -671,6 +701,7 @@ def run_exact(device: torch.device, workdir: Path) -> None:
         raise AssertionError(f"the exact path ran other work than "
                              f"expected: {counts} != {expected}")
     timed_passes(pipeline, files, sum(EXACT_MINUTES), "exact path")
+    return counts["lstm_launches"]
 
 
 def check_shared_sinc(pipeline, waveform: torch.Tensor) -> None:
@@ -1229,6 +1260,381 @@ def phase_serving(pipeline, device, workdir: Path) -> None:
     check_no_sync(pipeline, write_files(workdir, FILE_MINUTES)[1]["audio"])
 
 
+# -- phase 7 ------------------------------------------------------------------
+
+# the modules that pin float32 at their sites, and the names they import
+PINNED_SITES = (("pyannote_audio_tpu_torch.models.blocks.rnn",
+                 "exact_float32"),
+                ("pyannote_audio_tpu_torch.ops.lstm", "exact_float32"),
+                ("pyannote_audio_tpu_torch.ops.fbank", "exact_float32"),
+                ("pyannote_audio_tpu_torch.models.blocks.sincnet",
+                 "exact_float32_if"),
+                ("pyannote_audio_tpu_torch.models.embedding.wespeaker",
+                 "exact_float32_if"))
+
+
+@contextlib.contextmanager
+def pinning_lifted():
+    """The port's float32 pinning replaced by a no-op at every site: the
+    exact path as it ran before the sites were pinned (a measurement
+    only)."""
+    import importlib
+    saved = []
+    for module_name, name in PINNED_SITES:
+        module = importlib.import_module(module_name)
+        saved.append((module, name, getattr(module, name)))
+        setattr(module, name, lambda *args: contextlib.nullcontext())
+    try:
+        yield
+    finally:
+        for module, name, value in saved:
+            setattr(module, name, value)
+
+
+def phase_default_flags(device: torch.device) -> None:
+    """(k) The exact path with torch's TF32 flags at their defaults, after
+    ``torch.set_float32_matmul_precision("high")`` as a process that wants
+    TF32 elsewhere sets it, held to the CPU; then the same with the
+    pinning lifted, printed as a measurement."""
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.set_float32_matmul_precision("high")
+    try:
+        with lstm_precision_env("highest"):
+            set_gates("0")
+            segmentation, embedding = make_models(torch.float32)
+            cpu_pipeline = build_pipeline(copy.deepcopy(segmentation),
+                                          copy.deepcopy(embedding), "cpu")
+            pipeline = build_pipeline(segmentation, embedding, device)
+            wav = synth(0.5, seed=7)[None]
+            log(f"(k) TF32 flags: cudnn.allow_tf32 "
+                f"{torch.backends.cudnn.allow_tf32}, cuda.matmul.allow_tf32 "
+                f"{torch.backends.cuda.matmul.allow_tf32} "
+                f"(set_float32_matmul_precision(\"high\"))")
+            card_vs_cpu(pipeline, cpu_pipeline, device, wav,
+                        "(k) exact path under TF32-on flags vs CPU")
+            after = (torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32)
+            if after != (True, True):
+                raise AssertionError(f"(k) the pinned sites left the flags "
+                                     f"at {after}")
+            with pinning_lifted():
+                card_vs_cpu(pipeline, cpu_pipeline, device, wav,
+                            "(k) measurement, pinning lifted (TF32 on)",
+                            check=False)
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+        set_gates(None)
+
+
+PLDA_DIM, PLDA_LDA_DIM = 256, 128
+COMMUNITY_PARAMS = {"segmentation": {"min_duration_off": 0.0},
+                    "clustering": {"threshold": 0.6, "Fa": 0.07,
+                                   "Fb": 0.8}}
+# the device VBx EM (float32, 20 iterations) against the host one
+# (float64, early stop): responsibilities, priors and centroids within
+# 1e-4 (the CPU tests' bound, tests/test_torch_port_vbx.py), the same
+# speakers kept and the same VBx hard clusters (gamma's argmax). The
+# pipeline's per-chunk Hungarian assignment may differ only where two
+# assignments tie within 1e-4 of summed scores: the float32 centroids
+# move the scores by about 1e-7, which decides such ties
+DEVICE_VBX_ATOL = 1e-4
+# an AHC cut that splits these random-weight embeddings (centroid-linkage
+# merges span about 0.01-0.13) into many clusters, for VBx to merge
+VBX_SPLIT_THRESHOLD = 0.05
+
+
+def write_community_snapshot(root: Path) -> dict:
+    """A community-1 style snapshot: full-width PyanNet and ResNet34
+    reference checkpoints (make_models' seeded weights, bf16 trunk) and a
+    seeded synthetic PLDA 256 -> 128 (psi > 0); returns the config dict
+    that ``Pipeline.from_pretrained`` takes (no config.yaml is written:
+    the card machine has no PyYAML)."""
+    from pyannote_audio_tpu_torch.utils.convert import \
+        write_reference_checkpoint
+    segmentation, embedding = make_models(torch.bfloat16)
+    write_reference_checkpoint(segmentation.state_dict(), "PyanNet",
+                               segmentation.reference_hparams(),
+                               segmentation.specifications,
+                               root / "segmentation")
+    write_reference_checkpoint(embedding.state_dict(), "WeSpeakerResNet34",
+                               embedding.reference_hparams(), None,
+                               root / "embedding")
+    rng = np.random.default_rng(0)
+    (root / "plda").mkdir(parents=True)
+    np.savez(root / "plda" / "xvec_transform.npz",
+             mean1=rng.standard_normal(PLDA_DIM) * 0.01,
+             mean2=rng.standard_normal(PLDA_LDA_DIM) * 0.01,
+             lda=rng.standard_normal((PLDA_DIM, PLDA_LDA_DIM)) * 0.1)
+    np.savez(root / "plda" / "plda.npz",
+             mu=rng.standard_normal(PLDA_LDA_DIM) * 0.01,
+             tr=np.linalg.qr(rng.standard_normal((PLDA_LDA_DIM,
+                                                  PLDA_LDA_DIM)))[0],
+             psi=np.abs(rng.standard_normal(PLDA_LDA_DIM)) + 0.5)
+    return {"checkpoint": str(root), "version": "4.0.0",
+            "pipeline": {"name": "pyannote.audio.pipelines."
+                                 "SpeakerDiarization",
+                         "params": {"clustering": "VBxClustering",
+                                    "embedding": "$model/embedding",
+                                    "embedding_batch_size": BATCH_SIZE,
+                                    "embedding_exclude_overlap": True,
+                                    "plda": "$model/plda",
+                                    "segmentation": "$model/segmentation",
+                                    "segmentation_batch_size": BATCH_SIZE}},
+            "params": COMMUNITY_PARAMS}
+
+
+@contextlib.contextmanager
+def clustering_timer(pipeline, seconds: dict, inputs: list = None):
+    """Host seconds in ``pipeline.clustering`` (and its inputs kept in
+    ``inputs``)."""
+    clustering = pipeline.clustering
+
+    def timed(*args, **kwargs):
+        start = time.perf_counter()
+        out = clustering(*args, **kwargs)
+        seconds["clustering"] = seconds.get("clustering", 0.0) + \
+            time.perf_counter() - start
+        if inputs is not None:
+            inputs.append((args, kwargs, out))
+        return out
+    pipeline.clustering = timed
+    try:
+        yield seconds
+    finally:
+        pipeline.clustering = clustering
+
+
+def serving_pass(pipeline, files: list) -> dict:
+    """One ``apply_batch`` pass with host seconds in ``_stage``,
+    ``_finalize`` and clustering."""
+    seconds = {}
+    with host_timers(pipeline, seconds), clustering_timer(pipeline, seconds):
+        seconds["wall"] = wall_seconds(lambda: run_batch(pipeline, files))
+    return seconds
+
+
+def vbx_init(clustering, embeddings, clean_frames, num_frames):
+    """What VBxClustering hands the EM: the AHC initialization and the
+    PLDA latent features of the kept embeddings."""
+    from scipy.cluster.hierarchy import fcluster, linkage
+    train, _, _ = clustering.filter_embeddings(embeddings, clean_frames,
+                                               num_frames)
+    normed = train / np.linalg.norm(train, axis=1, keepdims=True)
+    ahc = fcluster(linkage(normed, method="centroid", metric="euclidean"),
+                   clustering.threshold, criterion="distance") - 1
+    return np.unique(ahc, return_inverse=True)[1], clustering.plda(train), \
+        normed
+
+
+def near_tie_gaps(soft: np.ndarray, hard: np.ndarray,
+                  other: np.ndarray) -> list:
+    """For each chunk whose per-chunk assignment ``other`` differs from
+    ``hard``: how much lower ``other`` scores under ``soft`` (the sum of
+    each assigned local speaker's score), i.e. how far from a tie."""
+    def score(c, assignment):
+        return sum(soft[c, s, k] for s, k in enumerate(assignment) if k >= 0)
+    return [score(c, hard[c]) - score(c, other[c])
+            for c in np.flatnonzero((hard != other).any(axis=1))]
+
+
+def check_device_clustering(pipeline, inputs, device) -> None:
+    """The device VBx EM and KMeans against their host versions on the
+    embeddings one file staged: at the config's AHC threshold and at
+    VBX_SPLIT_THRESHOLD, where the AHC initialization has many clusters
+    for VBx to merge."""
+    from pyannote_audio_tpu_torch.ops.kmeans import kmeans
+    from pyannote_audio_tpu_torch.utils.vbx import cluster_vbx
+    clustering = pipeline.clustering
+    (embeddings, clean_frames), kwargs, host_out = inputs
+    threshold = clustering.threshold
+    for split in (threshold, VBX_SPLIT_THRESHOLD):
+        clustering.threshold = split
+        try:
+            ahc, latent, normed = vbx_init(clustering, embeddings,
+                                           clean_frames,
+                                           kwargs["num_frames"])
+            runs = {}
+            for gate in ("0", "1"):
+                with environ({"PYANNOTE_TPU_DEVICE_VBX": gate}):
+                    start = time.perf_counter()
+                    runs[gate] = cluster_vbx(
+                        ahc, latent, clustering.plda.phi, fa=clustering.Fa,
+                        fb=clustering.Fb, max_iters=20, device=device)
+                    runs[gate + "s"] = time.perf_counter() - start
+                    runs[gate + "out"] = clustering(embeddings, clean_frames,
+                                                    **kwargs)
+        finally:
+            clustering.threshold = threshold
+        gamma_err = np.abs(runs["1"][0] - runs["0"][0]).max()
+        pi_err = np.abs(runs["1"][1] - runs["0"][1]).max()
+        kept = [int((runs[g][1] > 1e-7).sum()) for g in ("0", "1")]
+        same_vbx = np.array_equal(runs["1"][0].argmax(1),
+                                  runs["0"][0].argmax(1))
+        (hard, soft, centroids), (hard_dev, _, centroids_dev) = \
+            runs["0out"], runs["1out"]
+        if split == threshold and not np.array_equal(hard, host_out[0]):
+            raise AssertionError("(l) VBx clustering is not reproducible")
+        gaps = near_tie_gaps(soft, hard, hard_dev)
+        centroid_err = np.abs(centroids_dev - centroids).max() \
+            if centroids.shape == centroids_dev.shape else np.inf
+        log(f"(l) device VBx EM (float32, 20 iterations) vs host (float64) "
+            f"at AHC threshold {split} on {latent.shape} latent features "
+            f"from {len(np.unique(ahc))} AHC clusters to {kept[0]} (host) / "
+            f"{kept[1]} (device) speakers: gamma max_abs_err "
+            f"{gamma_err:.3e}, pi {pi_err:.3e} (limit {DEVICE_VBX_ATOL}); "
+            f"VBx hard clusters (gamma argmax) equal: {same_vbx}; centroids "
+            f"max_abs_err {centroid_err:.3e}; pipeline hard clusters differ "
+            f"in {len(gaps)} of {len(hard)} chunks, each at a near tie of "
+            f"the per-chunk assignment (score gap {max(gaps, default=0):.3e},"
+            f" limit {DEVICE_VBX_ATOL}); host {runs['0s'] * 1e3:.1f} ms, "
+            f"device {runs['1s'] * 1e3:.1f} ms")
+        if not (gamma_err <= DEVICE_VBX_ATOL and pi_err <= DEVICE_VBX_ATOL
+                and same_vbx and kept[0] == kept[1]
+                and centroid_err <= DEVICE_VBX_ATOL
+                and max(gaps, default=0.0) <= DEVICE_VBX_ATOL):
+            raise AssertionError("(l) the device VBx disagrees with the "
+                                 "host's")
+    for k in (2, 3, 4):
+        start = time.perf_counter()
+        host = kmeans(normed, k, device="cpu")
+        host_s = time.perf_counter() - start
+        start = time.perf_counter()
+        on_card = kmeans(normed, k, device=device)
+        card_s = time.perf_counter() - start
+        pairs = set(zip(host.tolist(), on_card.tolist()))
+        same = len(pairs) == len({a for a, _ in pairs}) == \
+            len({b for _, b in pairs})
+        log(f"(l) KMeans k={k} on {normed.shape}: card partition equals the "
+            f"CPU's: {same}; CPU {host_s * 1e3:.1f} ms, card "
+            f"{card_s * 1e3:.1f} ms")
+        if not same:
+            raise AssertionError("(l) the device KMeans disagrees with the "
+                                 "CPU's")
+    with environ({"PYANNOTE_TPU_DEVICE_KMEANS": "1"}):
+        out = clustering(embeddings, clean_frames,
+                         **dict(kwargs, num_clusters=2))
+    with environ({"PYANNOTE_TPU_DEVICE_KMEANS": "0"}):
+        ref = clustering(embeddings, clean_frames,
+                         **dict(kwargs, num_clusters=2))
+    pairs = set(zip(out[0].ravel().tolist(), ref[0].ravel().tolist()))
+    if not len(pairs) == len({a for a, _ in pairs}) == \
+            len({b for _, b in pairs}):
+        raise AssertionError("(l) VBx's KMeans fallback on the card "
+                             "disagrees with the CPU's")
+    log("(l) VBx with num_clusters=2 (KMeans fallback), "
+        "PYANNOTE_TPU_DEVICE_KMEANS=1 vs 0: the same hard clusters up to "
+        "relabelling")
+
+
+def synthetic_annotation(minutes: float, seed: int, uri: str):
+    """The speech turns ``synth`` renders, labelled by pitch."""
+    from pyannote_audio_tpu_torch.core.annotation import Annotation
+    from pyannote_audio_tpu_torch.core.segment import Segment
+    names = {140.0: "low", 210.0: "mid", 320.0: "high"}
+    annotation = Annotation(uri=uri)
+    for i, start in enumerate(np.arange(0.0, minutes * 60 - 5.0, 7.0)):
+        f0 = [140.0, 210.0, 320.0][(i + seed) % 3]
+        annotation[Segment(float(start), float(start) + 5.0)] = names[f0]
+    return annotation
+
+
+def on_card(pipeline) -> bool:
+    """Are the pipeline's models and its clustering's device on the
+    card?"""
+    return (pipeline._embedding.resnet.conv1.weight.is_cuda
+            and next(pipeline._segmentation.model.parameters()).is_cuda
+            and torch.device(pipeline.clustering.device).type == "cuda")
+
+
+def phase_community(device: torch.device, workdir: Path,
+                    ahc_pipeline) -> dict:
+    """(l) The community-1 shape on the card; returns its LSTM launches."""
+    from pyannote_audio_tpu_torch import Pipeline
+    from pyannote_audio_tpu_torch.pipelines.clustering import VBxClustering
+    set_gates(None)
+    config = write_community_snapshot(workdir / "community")
+    start = time.perf_counter()
+    pipeline = Pipeline.from_pretrained(config, device="cpu").to("cuda")
+    log(f"(l) Pipeline.from_pretrained(config dict, device=\"cpu\")"
+        f".to(\"cuda\") in {time.perf_counter() - start:.3f} s: "
+        f"{type(pipeline).__name__} with {type(pipeline.clustering).__name__}"
+        f", params {pipeline.parameters(instantiated=True)}")
+    if not (isinstance(pipeline.clustering, VBxClustering)
+            and on_card(pipeline)):
+        raise AssertionError("(l) the snapshot did not load onto the card")
+
+    files = write_files(workdir, FILE_MINUTES)
+    run_batch(pipeline, files)                                  # warm
+    torch.cuda.synchronize()
+    reset_counts(pipeline)
+    inputs = []
+    with clustering_timer(pipeline, {}, inputs):
+        batch = run_batch(pipeline, files)
+    torch.cuda.synchronize()
+    counts = read_counts(pipeline)
+    one_by_one = run_one_by_one(pipeline, files)
+    check_outputs(files, batch)
+    log(f"(l) 10 + 3 min through apply_batch, counts {counts}")
+    if counts["lstm_launches"] <= 0:
+        raise AssertionError("(l) the LSTM kernel did not run on the "
+                             "community-1 path")
+    for f, x, y in zip(files, batch, one_by_one):
+        if not (x.speaker_diarization == y.speaker_diarization
+                and np.array_equal(x.speaker_embeddings,
+                                   y.speaker_embeddings)):
+            raise AssertionError(f"(l) apply_batch differs from apply on "
+                                 f"{f['uri']}")
+    timed_passes(pipeline, files, sum(FILE_MINUTES), "(l) community-1 VBx")
+
+    serving = write_files(workdir, SERVING_MINUTES)
+    passes = {}
+    for label, p in (("VBx", pipeline), ("AHC", ahc_pipeline)):
+        run_batch(p, serving[-2:])                              # warm
+        passes[label] = [serving_pass(p, serving) for _ in range(2)]
+    for label, runs in passes.items():
+        log(f"(l) serving list {sum(SERVING_MINUTES):g} min through "
+            f"apply_batch, {label}: " + "; ".join(
+                f"wall {r['wall']:.3f} s, _stage {r['stage']:.3f} s, "
+                f"_finalize {r['finalize']:.3f} s (clustering "
+                f"{r['clustering']:.3f} s)" for r in runs))
+
+    file = dict(files[1])
+    calls = []
+    kmeans_of = pipeline.clustering._kmeans
+    pipeline.clustering._kmeans = \
+        lambda *args: calls.append(1) or kmeans_of(*args)
+    try:
+        two = pipeline(dict(file), num_speakers=2)
+    finally:
+        del pipeline.clustering._kmeans
+    labels = two.speaker_diarization.labels()
+    log(f"(l) num_speakers=2 on {file['uri']}: labels {labels}, KMeans "
+        f"fallback runs {len(calls)}")
+    if len(labels) != 2 or two.speaker_embeddings.shape != (2, 256) or \
+            len(calls) != 1:
+        raise AssertionError("(l) num_speakers=2 did not take the KMeans "
+                             "fallback to 2 speakers")
+
+    annotation = synthetic_annotation(FILE_MINUTES[1], seed=1,
+                                      uri=file["uri"])
+    mapped = pipeline(dict(file, annotation=annotation))
+    metric = pipeline.get_metric()
+    der = metric(annotation, mapped.speaker_diarization)
+    shared = set(mapped.speaker_diarization.labels()) & set(
+        annotation.labels())
+    log(f"(l) label mapping onto a synthetic annotation "
+        f"{annotation.labels()}: labels {mapped.speaker_diarization.labels()}"
+        f", greedy DER {der:.4f} (random weights)")
+    if not shared or not np.isfinite(der):
+        raise AssertionError("(l) no label was mapped onto the annotation")
+
+    check_device_clustering(pipeline, inputs[0], device)
+    return counts["lstm_launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run",
@@ -1238,10 +1644,18 @@ def main() -> int:
     phase_environment()
     phase_build()
     record = phase_kernels(device)
+    launches = {}
     with tempfile.TemporaryDirectory() as tmp:
-        phase_exact(device, Path(tmp))
-        pipeline, record["launches"] = phase_accelerator(device, Path(tmp))
+        launches["exact"] = phase_exact(device, Path(tmp))
+        pipeline, launches["accelerator"] = phase_accelerator(device,
+                                                              Path(tmp))
         phase_serving(pipeline, device, Path(tmp))
+        phase_default_flags(device)
+        launches["community-1 (VBx)"] = phase_community(device, Path(tmp),
+                                                        pipeline)
+    log(f"lstm_recurrence launches per path: {launches}")
+    record["launches"] = launches["accelerator"]
+    record["launches_per_path"] = launches
     print(json.dumps({"kernels": [record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,10 @@
 """Timeline and Annotation: who-spoke-when containers.
 
 Counterpart of pyannote_audio_tpu/core/annotation.py, cut to what the
-diarization path uses: tracks, labels, ``rename_labels``, ``support`` and
-``itertracks``. Host-side, plain Python.
+diarization path, the oracle segmentation and the DER metric use: tracks,
+labels, ``rename_labels``, ``support``, ``crop``, ``get_overlap``,
+``get_timeline`` and ``itertracks``, and a Timeline with ``gaps``,
+``crop_timeline`` and ``extent``. Host-side, plain Python.
 """
 
 from __future__ import annotations
@@ -21,14 +23,39 @@ class Timeline:
     def __init__(self, segments: Optional[List[Segment]] = None,
                  uri: Optional[str] = None):
         self.uri = uri
+        # ordered set: exact duplicates collapse
         self._segments: List[Segment] = sorted(
             set(s for s in (segments or []) if s))
+        self._seen = set(self._segments)
+        self._dirty = False
+
+    def _sort(self):
+        if self._dirty:
+            self._segments.sort()
+            self._dirty = False
+
+    def add(self, segment: Segment) -> "Timeline":
+        if segment and segment not in self._seen:
+            self._segments.append(segment)
+            self._seen.add(segment)
+            self._dirty = True
+        return self
 
     def __len__(self) -> int:
         return len(self._segments)
 
+    def __bool__(self) -> bool:
+        return len(self._segments) > 0
+
     def __iter__(self) -> Iterator[Segment]:
+        self._sort()
         return iter(self._segments)
+
+    def extent(self) -> Segment:
+        if not self._segments:
+            return Segment(0.0, 0.0)
+        return Segment(min(s.start for s in self._segments),
+                       max(s.end for s in self._segments))
 
     def support(self, collar: float = 0.0) -> "Timeline":
         """Merge overlapping (or within-collar) segments."""
@@ -40,6 +67,39 @@ class Timeline:
             else:
                 merged.append(s)
         return Timeline(merged, uri=self.uri)
+
+    def gaps(self, support: Optional[Union[Segment, "Timeline"]] = None
+             ) -> "Timeline":
+        """The stretches of ``support`` (default: the extent) that no
+        segment covers."""
+        if support is None:
+            support = self.extent()
+        if isinstance(support, Segment):
+            support = Timeline([support], uri=self.uri)
+        out = Timeline(uri=self.uri)
+        for seg in support.support():
+            t = seg.start
+            for s in self.support().crop_timeline(seg):
+                gap = Segment(t, s.start)
+                if gap:
+                    out.add(gap)
+                t = max(t, s.end)
+            gap = Segment(t, seg.end)
+            if gap:
+                out.add(gap)
+        return out
+
+    def crop_timeline(self, focus: Segment) -> "Timeline":
+        """Intersect every segment with ``focus`` (drops empties)."""
+        out = Timeline(uri=self.uri)
+        for s in self:
+            inter = s & focus
+            if inter:
+                out.add(inter)
+        return out
+
+    def __repr__(self) -> str:
+        return f"<Timeline uri={self.uri} segments={len(self)}>"
 
 
 class Annotation:
@@ -62,6 +122,9 @@ class Annotation:
         while f"{prefix}{i}" in existing:
             i += 1
         return f"{prefix}{i}"
+
+    def itersegments(self) -> Iterator[Segment]:
+        return iter(sorted(self._tracks))
 
     def itertracks(self, yield_label: bool = False):
         for segment in sorted(self._tracks):
@@ -91,12 +154,46 @@ class Annotation:
                          self.itertracks(yield_label=True) if lbl == label],
                         uri=self.uri)
 
+    def get_timeline(self) -> Timeline:
+        return Timeline(list(self._tracks), uri=self.uri)
+
+    def get_overlap(self) -> Timeline:
+        """Regions where two or more tracks overlap."""
+        segments = sorted(seg for seg, _ in self.itertracks())
+        overlaps = Timeline(uri=self.uri)
+        for i, s1 in enumerate(segments):
+            for s2 in segments[i + 1:]:
+                if s2.start >= s1.end:
+                    break              # sorted: nothing later overlaps s1
+                inter = s1 & s2
+                if inter:
+                    overlaps.add(inter)
+        return overlaps.support()
+
     def rename_labels(self, mapping: Dict[Label, Label]) -> "Annotation":
         """Copy with labels mapped; labels absent from ``mapping`` stay."""
         out = Annotation(uri=self.uri)
         out._tracks = {seg: {t: mapping.get(lbl, lbl)
                              for t, lbl in tracks.items()}
                        for seg, tracks in self._tracks.items()}
+        return out
+
+    def crop(self, support: Union[Segment, Timeline]) -> "Annotation":
+        """Tracks intersected with ``support`` (intersection mode)."""
+        if isinstance(support, Segment):
+            support = Timeline([support], uri=self.uri)
+        support = support.support()
+        out = Annotation(uri=self.uri)
+        for seg, track, lbl in self.itertracks(yield_label=True):
+            for sup in support:
+                inter = seg & sup
+                if not inter:
+                    continue
+                # distinct source tracks may crop to the same segment
+                if track in out._tracks.get(inter, {}):
+                    out[inter, out.new_track(inter)] = lbl
+                else:
+                    out[inter, track] = lbl
         return out
 
     def support(self, collar: float = 0.0) -> "Annotation":

@@ -29,7 +29,7 @@ wait for all the work already queued on the stream.
 from __future__ import annotations
 
 from collections.abc import MutableMapping
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -213,6 +213,18 @@ class Inference:
     @property
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
+
+    def to(self, device: Union[str, torch.device]) -> "Inference":
+        """Move the model to ``device`` and drop the per-device constants
+        cached for it (the powerset mapping, the LSTM's packed weights)."""
+        self.model.to(device)
+        if self._powerset is not None:
+            self._powerset._mapping_on.clear()
+        for module in self.model.modules():
+            prepared = getattr(module, "_prepared", None)
+            if isinstance(prepared, dict):
+                prepared.clear()
+        return self
 
     def _shared_frontend(self, window_size: int, step_size: int,
                          device: torch.device) -> bool:

@@ -113,6 +113,17 @@ class Audio:
                              "'waveform'")
         return file
 
+    def get_duration(self, file: AudioFile) -> float:
+        """Seconds of audio: of the in-memory waveform, or from the WAV
+        header (nothing is decoded)."""
+        file = self.validate_file(file)
+        if "waveform" in file:
+            return np.asarray(file["waveform"]).shape[1] / file["sample_rate"]
+        with open(file["audio"], "rb") as f:
+            raw = f.read()
+        num_channels, sample_rate, _, size = _parse_pcm16_wav(raw)
+        return size // (2 * num_channels) / sample_rate
+
     def __call__(self, file: AudioFile) -> Tuple[np.ndarray, int]:
         """Decode the whole file -> ((1, time) float32, sample_rate)."""
         file = self.validate_file(file)

@@ -1,17 +1,45 @@
-"""What a model predicts, and its output frames in time.
+"""What a model predicts, its output frames in time, and loading reference
+checkpoints.
 
-Counterpart of the Specifications part of pyannote_audio_tpu/core/model.py.
-The port's models are ``torch.nn.Module``s; ``FrameModel`` adds the frame
-arithmetic that Inference and the diarization pipeline read.
+Counterpart of the Specifications part of pyannote_audio_tpu/core/model.py
+and of its ``Model.from_pretrained`` for reference-layout checkpoints
+(``pytorch_model.bin``: ``state_dict``, ``hyper_parameters`` and the
+``pyannote.audio`` block naming the architecture and its
+specifications). The port's models are ``torch.nn.Module``s;
+``FrameModel`` adds the frame arithmetic that Inference and the
+diarization pipeline read, and ``Model.from_pretrained`` builds one of the
+ported architectures from such a checkpoint.
 """
 
 from __future__ import annotations
 
+import importlib
+import pickle
 from dataclasses import dataclass
+from enum import Enum
 from math import comb
-from typing import List, Optional
+from pathlib import Path
+from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
+
+import torch
+from torch import nn
 
 from .segment import SlidingWindow
+
+CHECKPOINT = "pytorch_model.bin"
+
+
+class Problem(Enum):
+    BINARY_CLASSIFICATION = 0
+    MONO_LABEL_CLASSIFICATION = 1
+    MULTI_LABEL_CLASSIFICATION = 2
+    REPRESENTATION = 3
+    REGRESSION = 4
+
+
+class Resolution(Enum):
+    FRAME = 1
+    CHUNK = 2
 
 
 @dataclass(frozen=True)
@@ -19,12 +47,19 @@ class Specifications:
     """A segmentation model's task: chunk duration and (powerset) classes.
 
     ``powerset_max_classes`` set means a mono-label powerset output over
-    ``classes`` (at most that many active at once).
+    ``classes`` (at most that many active at once). The other fields are
+    the ones a reference checkpoint carries; the port reads them and
+    writes them back, and its pipelines use none of them.
     """
 
     duration: float
     classes: List[str]
     powerset_max_classes: Optional[int] = None
+    problem: Problem = Problem.MONO_LABEL_CLASSIFICATION
+    resolution: Resolution = Resolution.FRAME
+    min_duration: Optional[float] = None
+    warm_up: Tuple[float, float] = (0.0, 0.0)
+    permutation_invariant: bool = False
 
     @property
     def powerset(self) -> bool:
@@ -39,6 +74,38 @@ class Specifications:
     def dimension(self) -> int:
         return self.num_powerset_classes if self.powerset \
             else len(self.classes)
+
+    def to_dict(self) -> Dict[str, Any]:
+        """Plain values, in the JAX package's ``Specifications.to_dict``
+        layout (which both packages' loaders read)."""
+        return {"problem": self.problem.name,
+                "resolution": self.resolution.name,
+                "duration": self.duration, "min_duration": self.min_duration,
+                "warm_up": list(self.warm_up), "classes": list(self.classes),
+                "powerset_max_classes": self.powerset_max_classes,
+                "permutation_invariant": self.permutation_invariant}
+
+    @classmethod
+    def from_checkpoint(cls, specs) -> "Specifications":
+        """From a checkpoint's ``specifications``: a plain dict, or the
+        object that unpickling a reference checkpoint gave."""
+        def get(key, default=None):
+            if isinstance(specs, Mapping):
+                return specs.get(key, default)
+            return getattr(specs, key, default)
+
+        def enum(kind, value):
+            return kind[value.name] if hasattr(value, "name") \
+                else kind[str(value)]
+        return cls(duration=get("duration"), classes=list(get("classes")),
+                   powerset_max_classes=get("powerset_max_classes"),
+                   problem=enum(Problem, get("problem",
+                                             "MONO_LABEL_CLASSIFICATION")),
+                   resolution=enum(Resolution, get("resolution", "FRAME")),
+                   min_duration=get("min_duration"),
+                   warm_up=tuple(get("warm_up") or (0.0, 0.0)),
+                   permutation_invariant=bool(
+                       get("permutation_invariant", False)))
 
 
 class FrameModel:
@@ -59,3 +126,156 @@ class FrameModel:
                              step=step / self.sample_rate,
                              start=(center - (size - 1) / 2)
                              / self.sample_rate)
+
+
+# -- reference checkpoints ----------------------------------------------------
+
+class _PickledObject:
+    """Stand-in for a pickled reference class the port does not model (and
+    for the reference ``Specifications``, read back by
+    ``Specifications.from_checkpoint``)."""
+
+    def __init__(self, *args, **kwargs):
+        self.args = args
+        self.kwargs = kwargs
+
+    def __setstate__(self, state):
+        # a dict, or (dict, slots dict) for classes with __slots__
+        for part in (state if isinstance(state, tuple) else (state,)):
+            if isinstance(part, dict):
+                self.__dict__.update(part)
+
+
+_PICKLED_CLASSES = {
+    ("pyannote.audio.core.task", "Problem"): Problem,
+    ("pyannote.audio.core.task", "Resolution"): Resolution,
+    ("pyannote.audio.core.model", "Problem"): Problem,
+    ("pyannote.audio.core.model", "Resolution"): Resolution,
+}
+
+
+class _ShimUnpickler(pickle.Unpickler):
+    """Maps the reference's pickled ``Problem`` / ``Resolution`` onto the
+    port's enums and any other ``pyannote.audio`` class onto a permissive
+    container; everything else is found as usual."""
+
+    def find_class(self, module, name):
+        if (module, name) in _PICKLED_CLASSES:
+            return _PICKLED_CLASSES[(module, name)]
+        if module == "pyannote.audio" or module.startswith("pyannote.audio."):
+            return _PickledObject
+        return super().find_class(module, name)
+
+
+class _ShimPickleModule:
+    Unpickler = _ShimUnpickler
+    load = staticmethod(lambda f, **kwargs: _ShimUnpickler(f).load())
+
+
+def _pyannet(hparams: Dict[str, Any], specs) -> Dict[str, Any]:
+    sincnet = dict(hparams.get("sincnet") or {})
+    lstm = dict(hparams.get("lstm") or {})
+    linear = dict(hparams.get("linear") or {})
+    kwargs = {"sincnet_stride": sincnet.get("stride", 10),
+              "sample_rate": hparams.get("sample_rate", 16000),
+              "lstm_hidden": lstm.get("hidden_size", 128),
+              "lstm_layers": lstm.get("num_layers", 2),
+              "bidirectional": lstm.get("bidirectional", True),
+              "linear_hidden": linear.get("hidden_size", 128),
+              "linear_layers": linear.get("num_layers", 2)}
+    if specs is not None:
+        kwargs["specifications"] = Specifications.from_checkpoint(specs)
+    return kwargs
+
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _wespeaker(hparams: Dict[str, Any], specs) -> Dict[str, Any]:
+    kwargs = {k: hparams[k] for k in ("sample_rate", "num_mel_bins",
+                                      "frame_length", "frame_shift",
+                                      "window_type", "embed_dim",
+                                      "m_channels") if k in hparams}
+    if "num_blocks" in hparams:
+        kwargs["num_blocks"] = tuple(hparams["num_blocks"])
+    if "compute_dtype" in hparams:
+        kwargs["compute_dtype"] = _DTYPES[hparams["compute_dtype"]]
+    return kwargs
+
+
+# architecture class name -> (module, class, hyper-parameters -> the
+# port's constructor arguments)
+_ARCHITECTURES = {
+    "PyanNet": ("pyannote_audio_tpu_torch.models.segmentation.pyannet",
+                "PyanNet", _pyannet),
+    "WeSpeakerResNet34": ("pyannote_audio_tpu_torch.models.embedding."
+                          "wespeaker", "WeSpeakerResNet34", _wespeaker),
+}
+
+# buffers a reference state dict may carry that the port derives itself
+# (the sinc filterbank's tap grid and window)
+_DERIVED_BUFFERS = (".filterbank.n_", ".filterbank.window_")
+
+
+def _checkpoint_file(checkpoint: Union[str, Path],
+                     subfolder: Optional[str]) -> Path:
+    path = Path(checkpoint)
+    if subfolder:
+        path = path / subfolder
+    if path.is_dir():
+        path = path / CHECKPOINT
+    if not path.is_file():
+        raise ValueError(
+            f"{checkpoint} (subfolder {subfolder!r}) holds no {CHECKPOINT}: "
+            f"this package loads local checkpoints only (it has no hub "
+            f"access)")
+    return path
+
+
+def load_checkpoint(path: Union[str, Path]) -> Dict[str, Any]:
+    """The dict of a reference-layout checkpoint file, with pickled
+    reference classes read through the shim."""
+    return torch.load(path, map_location="cpu", weights_only=False,
+                      pickle_module=_ShimPickleModule)
+
+
+def model_from_checkpoint(checkpoint: Mapping, **overrides) -> nn.Module:
+    """Build the architecture a checkpoint dict names and load its
+    weights; ``overrides`` replace constructor arguments (for example
+    ``compute_dtype=torch.float32``). The module comes back on the CPU in
+    eval mode."""
+    vendor = checkpoint.get("pyannote.audio") or {}
+    name = (vendor.get("architecture") or {}).get("class")
+    if name not in _ARCHITECTURES:
+        raise ValueError(f"architecture {name!r} is not ported yet (ported: "
+                         f"{sorted(_ARCHITECTURES)})")
+    module_name, class_name, to_kwargs = _ARCHITECTURES[name]
+    Klass = getattr(importlib.import_module(module_name), class_name)
+    hparams = {k: v for k, v in (checkpoint.get("hyper_parameters")
+                                 or {}).items() if k != "task"}
+    kwargs = to_kwargs(hparams, vendor.get("specifications"))
+    kwargs.update(overrides)
+    model = Klass(**kwargs)
+    state = {k: v for k, v in checkpoint.get("state_dict", {}).items()
+             if not k.endswith(_DERIVED_BUFFERS)}
+    for key in model.state_dict():
+        if key.endswith("num_batches_tracked"):
+            state.setdefault(key, torch.tensor(0))
+    return model.load_reference_state_dict(state).eval()
+
+
+class Model:
+    """``Model.from_pretrained``, as the JAX package names it."""
+
+    @staticmethod
+    def from_pretrained(checkpoint: Union[str, Path],
+                        subfolder: Optional[str] = None,
+                        **overrides) -> nn.Module:
+        """Load a reference-layout ``pytorch_model.bin``: the file itself,
+        or a directory (``/subfolder``) holding one. ``token``,
+        ``cache_dir`` and ``revision`` are dropped (no hub access)."""
+        for key in ("token", "use_auth_token", "cache_dir", "revision"):
+            overrides.pop(key, None)
+        return model_from_checkpoint(
+            load_checkpoint(_checkpoint_file(checkpoint, subfolder)),
+            **overrides)

@@ -1,61 +1,357 @@
-"""Pipeline base: hyperparameters set by ``instantiate``, hooks, file or
-list input.
+"""Config-driven pipelines: hyperparameters, registries, loading, devices.
 
-Counterpart of the part of pyannote_audio_tpu/core/pipeline.py that the
-diarization path uses. Hyperparameters are plain attributes (a dict value
-becomes an attribute-access dict; a value for a sub-pipeline is passed
-on to its ``instantiate``). A list of files goes to the subclass's
-``apply_batch`` when it has one, else through ``apply`` one file after
-another while a worker thread decodes the next. Config-file loading
-(``from_pretrained``) and hyperparameter search spaces are not ported yet.
+Counterpart of pyannote_audio_tpu/core/pipeline.py. Attribute assignment
+routes declared hyperparameters (``core/parameter.py``), sub-pipelines,
+models (``torch.nn.Module``) and ``Inference`` objects into registries;
+``instantiate`` sets concrete values (a ``ParamDict`` merges, frozen keys
+stay pinned) and ``freeze`` pins them. ``from_pretrained`` builds a
+pipeline from a config dict, a ``config.yaml`` file or a local snapshot
+directory, expanding ``$model/{subfolder}[@revision]`` placeholders; class
+paths that name the reference (``pyannote.audio.``) or the JAX package
+(``pyannote_audio_tpu.``) resolve to this package. There is no hub
+access: an id that is not a local path raises. ``to(device)`` moves every
+registered model and ``Inference``.
+
+A list of files goes to the subclass's ``apply_batch`` when it has one,
+else through ``apply`` one file after another while a worker thread
+decodes the next. ``yaml`` is imported only where a ``.yaml`` file is read
+or written.
 """
 
 from __future__ import annotations
 
 import functools
+import importlib
+import inspect
 import threading
 from collections.abc import Mapping, MutableMapping
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
+from torch import nn
 
-from .inference import pin_waveform
+from .inference import Inference, pin_waveform
 from .io import Audio, AudioFile
+from .parameter import Frozen, ParamDict, Parameter
+
+PIPELINE_CONFIG = "config.yaml"
+
+# class paths of the reference and of the JAX package, which a config may
+# name; both resolve to this package and are never imported
+_FOREIGN_PACKAGES = ("pyannote.audio", "pyannote_audio_tpu")
+_PACKAGE = "pyannote_audio_tpu_torch"
+
+_REGISTRIES = ("_models", "_inferences", "_parameters", "_instantiated",
+               "_pipelines", "_frozen", "_preprocessors")
+
+
+def expand_subfolders(config: Any, model_id: str) -> Any:
+    """Rewrite ``$model/{subfolder}[@revision]`` strings of a config into
+    ``{"checkpoint": model_id, "subfolder": ..., "revision": ...}``
+    dicts, recursively."""
+    if isinstance(config, dict):
+        return {k: expand_subfolders(v, model_id) for k, v in config.items()}
+    if isinstance(config, list):
+        return [expand_subfolders(v, model_id) for v in config]
+    if isinstance(config, str) and config.startswith("$model"):
+        rest = config[len("$model"):]
+        revision = None
+        if "@" in rest:
+            rest, revision = rest.split("@", 1)
+        subfolder = rest.lstrip("/")
+        out: Dict[str, Any] = {"checkpoint": model_id}
+        if subfolder:
+            out["subfolder"] = subfolder
+        if revision:
+            out["revision"] = revision
+        return out
+    return config
+
+
+def port_module_name(module_name: str) -> str:
+    """``pyannote.audio.x`` and ``pyannote_audio_tpu.x`` ->
+    ``pyannote_audio_tpu_torch.x``; any other module name is kept."""
+    for prefix in _FOREIGN_PACKAGES:
+        if module_name == prefix or module_name.startswith(prefix + "."):
+            return _PACKAGE + module_name[len(prefix):]
+    return module_name
+
+
+def get_class_by_name(name: str,
+                      default_module_name: Optional[str] = None) -> type:
+    """Import ``package.module.Class``, reading reference and JAX package
+    paths as this package's."""
+    tokens = name.split(".")
+    if len(tokens) == 1:
+        if default_module_name is None:
+            raise ValueError(f"cannot resolve class name {name!r}")
+        module_name, class_name = default_module_name, name
+    else:
+        module_name, class_name = ".".join(tokens[:-1]), tokens[-1]
+    module = importlib.import_module(port_module_name(module_name))
+    return getattr(module, class_name)
+
+
+def check_device(device: Union[str, torch.device]) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device without a card
+    raises, so that nothing carries on on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("the pipeline runs on a CUDA device by default "
+                           "and none is available: pass device=\"cpu\" to "
+                           "run on the CPU")
+    return device
 
 
 class _DotDict(dict):
-    """Attribute access over an instantiated dict of hyperparameters."""
+    """Attribute access over an instantiated ``ParamDict``."""
 
     __getattr__ = dict.__getitem__
 
+    def __setattr__(self, k, v):
+        self[k] = v
+
 
 class Pipeline:
-    """Base class: ``apply(file, hook=None, **kwargs)`` is the subclass's
-    work."""
+    """Base pipeline: declared hyperparameters, sub-pipelines, models.
+
+    ``apply(file, hook=None, **kwargs)`` is the subclass's work.
+    """
 
     instantiated = False
+
+    def __init__(self):
+        for name in _REGISTRIES:
+            self.__dict__.setdefault(name, {})
+
+    def _registry(self, name: str) -> Dict[str, Any]:
+        return self.__dict__.setdefault(name, {})
+
+    # -- attribute registries -------------------------------------------------
+
+    def __setattr__(self, name: str, value: Any):
+        for registry in ("_models", "_inferences", "_parameters",
+                         "_pipelines", "_instantiated"):
+            self._registry(registry).pop(name, None)
+        if isinstance(value, nn.Module):
+            self._registry("_models")[name] = value
+        elif isinstance(value, Inference):
+            self._registry("_inferences")[name] = value
+        elif isinstance(value, Parameter):
+            self._registry("_parameters")[name] = value
+        elif isinstance(value, Pipeline):
+            self._registry("_pipelines")[name] = value
+        object.__setattr__(self, name, value)
+
+    # -- hyperparameters --------------------------------------------------------
+
+    def parameters(self, instantiated: bool = False) -> Dict[str, Any]:
+        """Flat ``{name: Parameter}`` of this pipeline and its
+        sub-pipelines (``"clustering.threshold"``), or their concrete
+        values with ``instantiated=True``."""
+        own = "_instantiated" if instantiated else "_parameters"
+        params = dict(self._registry(own))
+        for name, sub in self._registry("_pipelines").items():
+            for k, v in sub.parameters(instantiated=instantiated).items():
+                params[f"{name}.{k}"] = v
+        return params
+
+    def instantiate(self, params: Mapping) -> "Pipeline":
+        """Set concrete values for the declared hyperparameters; a dict
+        for a sub-pipeline goes to its ``instantiate``."""
+        for name, value in (params or {}).items():
+            self._instantiate_one(name, value)
+        self.instantiated = True
+        return self
+
+    def _instantiate_one(self, name: str, value: Any):
+        declared = self._registry("_parameters").get(name)
+        if isinstance(declared, ParamDict) and isinstance(value, Mapping):
+            previous = self._registry("_instantiated").get(name) or {}
+            merged = {}
+            for k in declared:
+                # a frozen key stays pinned; a key absent from a partial
+                # dict keeps its current value
+                if isinstance(declared[k], Frozen):
+                    merged[k] = declared[k].value
+                else:
+                    merged[k] = value.get(k, previous.get(k))
+            self._registry("_instantiated")[name] = merged
+            object.__setattr__(self, name, _DotDict(merged))
+        elif declared is not None:
+            if isinstance(declared, Frozen):
+                value = declared.value
+            self._registry("_instantiated")[name] = value
+            object.__setattr__(self, name, value)
+        elif name in self._registry("_pipelines"):
+            self._registry("_pipelines")[name].instantiate(value)
+        else:
+            # undeclared: set it all the same (forward compatibility)
+            object.__setattr__(self, name, value)
+
+    def freeze(self, params: Mapping) -> "Pipeline":
+        """Pin hyperparameters: each declared one becomes ``Frozen``, so a
+        later ``instantiate`` cannot change it."""
+        for name, value in (params or {}).items():
+            if name in self._registry("_pipelines"):
+                self._registry("_pipelines")[name].freeze(value)
+                continue
+            declared = self._registry("_parameters").get(name)
+            if isinstance(declared, ParamDict) and isinstance(value, Mapping):
+                for k, v in value.items():
+                    if k in declared:
+                        declared[k] = Frozen(v)
+            elif declared is not None:
+                self._registry("_parameters")[name] = Frozen(value)
+            self._registry("_frozen")[name] = value
+            self._instantiate_one(name, value)
+        return self
 
     def default_parameters(self) -> Dict[str, Any]:
         raise NotImplementedError(
             f"{type(self).__name__} has no default parameters")
 
-    def instantiate(self, params: Mapping) -> "Pipeline":
-        """Set concrete hyperparameter values; dicts merge into the
-        current ones."""
-        for name, value in params.items():
-            current = getattr(self, name, None)
-            if isinstance(current, Pipeline):
-                current.instantiate(value)
-            elif isinstance(value, Mapping):
-                merged = dict(current) if isinstance(current, Mapping) \
-                    else {}
-                merged.update(value)
-                setattr(self, name, _DotDict(merged))
+    # -- loading ----------------------------------------------------------------
+
+    @classmethod
+    def from_pretrained(cls, checkpoint: Union[Dict, str, Path],
+                        device: Optional[Union[str, torch.device]] = None,
+                        pipeline_params: Optional[Dict] = None,
+                        **hub_kwargs) -> "Pipeline":
+        """Build a pipeline from a config dict, a ``config.yaml`` file or a
+        local snapshot directory holding one.
+
+        A dict's ``checkpoint`` key (default ".") is the root that
+        ``$model/...`` placeholders point into; for a file or directory
+        the root is the directory. ``pipeline_params`` override the
+        config's constructor ``params``; ``device``, where the pipeline
+        class takes one, is passed to its constructor. ``token``,
+        ``cache_dir`` and ``revision`` are accepted for the JAX package's
+        signature and unused: there is no hub access, and an id that is
+        not a local path raises.
+        """
+        unknown = set(hub_kwargs) - {"token", "use_auth_token", "cache_dir",
+                                     "revision"}
+        if unknown:
+            raise TypeError(f"unexpected arguments {sorted(unknown)}")
+        if isinstance(checkpoint, Mapping):
+            config = dict(checkpoint)
+            model_id = str(config.get("checkpoint", "."))
+        else:
+            path = Path(checkpoint)
+            if path.is_dir():
+                config_yml, model_id = path / PIPELINE_CONFIG, str(path)
+            elif path.is_file():
+                config_yml, model_id = path, str(path.parent)
             else:
-                setattr(self, name, value)
-        self.instantiated = True
+                raise ValueError(
+                    f"{checkpoint} is neither a directory nor a config "
+                    f"file: this package loads local snapshots only (it "
+                    f"has no hub access)")
+            import yaml
+            with open(config_yml) as f:
+                config = yaml.safe_load(f)
+
+        config = expand_subfolders(config, model_id)
+        if "pipeline" not in config:
+            raise ValueError("config has no 'pipeline' section")
+        Klass = get_class_by_name(config["pipeline"]["name"],
+                                  default_module_name=f"{_PACKAGE}.pipelines")
+        params = dict(config["pipeline"].get("params") or {})
+        params.update(pipeline_params or {})
+        if device is not None:
+            try:
+                accepted = inspect.signature(Klass.__init__).parameters
+            except (TypeError, ValueError):
+                accepted = {}
+            if "device" in accepted:
+                params["device"] = device
+        pipeline = Klass(**params)
+        pipeline.__dict__["_config_params"] = params
+
+        if "freeze" in config:
+            pipeline.freeze(config["freeze"])
+        if "params" in config:
+            pipeline.instantiate(config["params"])
+
+        preprocessors = {}
+        for key, preprocessor in (config.get("preprocessors") or {}).items():
+            if isinstance(preprocessor, Mapping) and "name" in preprocessor:
+                Preprocessor = get_class_by_name(preprocessor["name"])
+                preprocessors[key] = Preprocessor(
+                    **(preprocessor.get("params") or {}))
+            else:
+                preprocessors[key] = preprocessor
+        pipeline.__dict__["_preprocessors"] = preprocessors
+        return pipeline
+
+    def _instantiated_tree(self) -> Dict[str, Any]:
+        """Concrete values, nested by sub-pipeline."""
+        tree = {name: dict(value) if isinstance(value, Mapping) else value
+                for name, value in self._registry("_instantiated").items()}
+        for name, sub in self._registry("_pipelines").items():
+            values = sub._instantiated_tree()
+            if values:
+                tree[name] = values
+        return tree
+
+    def dump_config(self) -> Dict[str, Any]:
+        """The config that ``from_pretrained`` reads back: the class, its
+        constructor params (those it was loaded with), the frozen and the
+        instantiated hyperparameters."""
+        params = {k: str(v) if isinstance(v, torch.device) else v
+                  for k, v in self.__dict__.get("_config_params",
+                                                {}).items()}
+        config: Dict[str, Any] = {
+            "pipeline": {"name": f"{type(self).__module__}."
+                                 f"{type(self).__name__}",
+                         "params": params},
+            "params": self._instantiated_tree()}
+        if self._registry("_frozen"):
+            config["freeze"] = dict(self._registry("_frozen"))
+        return config
+
+    def save_config(self, path: Union[str, Path]) -> Path:
+        """Write ``dump_config()`` to ``path/config.yaml``."""
+        import yaml
+        path = Path(path)
+        path.mkdir(parents=True, exist_ok=True)
+        with open(path / PIPELINE_CONFIG, "w") as f:
+            yaml.safe_dump(self.dump_config(), f)
+        return path / PIPELINE_CONFIG
+
+    # -- devices ----------------------------------------------------------------
+
+    def to(self, device: Union[str, torch.device]) -> "Pipeline":
+        """Move every registered model, ``Inference`` and sub-pipeline to
+        ``device``; a CUDA device without a card raises."""
+        device = check_device(device)
+        for model in self._registry("_models").values():
+            model.to(device)
+        for inference in self._registry("_inferences").values():
+            inference.to(device)
+        for sub in self._registry("_pipelines").values():
+            sub.to(device)
+        object.__setattr__(self, "device", device)
         return self
+
+    def cuda(self, device: Optional[Union[int, torch.device]] = None
+             ) -> "Pipeline":
+        """``to`` the CUDA card (card ``device`` when an index is given)."""
+        if device is None or isinstance(device, int):
+            device = torch.device("cuda", device or 0)
+        return self.to(device)
+
+    # -- applying ---------------------------------------------------------------
+
+    def prepare_one(self, file: AudioFile) -> MutableMapping:
+        """A validated file dict, with each preprocessor's output stored
+        under its key."""
+        file = Audio.validate_file(file)
+        for key, preprocessor in self._registry("_preprocessors").items():
+            file[key] = preprocessor(file)
+        return file
 
     def default_hook(self) -> Callable:
         def hook(step_name, step_artifact, file=None, total=None,
@@ -81,7 +377,7 @@ class Pipeline:
                 and not isinstance(file, (str, Path, Mapping))
                 and not hasattr(file, "read")):
             return self._apply_batch(list(file), hook=hook, **kwargs)
-        file = Audio.validate_file(file)
+        file = self.prepare_one(file)
         # stateful hooks (TimingHook, ArtifactHook) write into the file
         return self.apply(file, hook=self.setup_hook(file, hook), **kwargs)
 
@@ -89,7 +385,7 @@ class Pipeline:
                      hook: Optional[Callable] = None, **kwargs):
         """Apply to a list of files.
 
-        A subclass with an ``apply_batch`` gets the validated files. One
+        A subclass with an ``apply_batch`` gets the prepared files. One
         that streams its own decode (``STREAMS_DECODE``) gets them as they
         are; any other would first get them decoded by
         ``_predecode_batch``. Without ``apply_batch`` the files run through
@@ -98,7 +394,7 @@ class Pipeline:
         machinery decoded) are dropped once it is done: the list keeps
         every dict alive until the end.
         """
-        files = [Audio.validate_file(f) for f in files]
+        files = [self.prepare_one(f) for f in files]
         apply_batch = getattr(self, "apply_batch", None)
         if apply_batch is not None:
             if not getattr(self, "STREAMS_DECODE", False):

@@ -1,14 +1,17 @@
 """Temporal primitives: Segment, SlidingWindow, SlidingWindowFeature.
 
 Counterpart of pyannote_audio_tpu/core/segment.py, cut to what the
-diarization path uses. Host-side and numpy-only, except that a
+diarization path, the oracle segmentation and the DER metric use.
+Host-side and numpy-only, except that a
 SlidingWindowFeature may hold a torch tensor (chunk-level scores that stay
 on the model's device until a consumer moves them).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
+from typing import Iterator, List, Optional, Union
 
 import numpy as np
 
@@ -30,6 +33,13 @@ class Segment:
     def __bool__(self) -> bool:
         """A segment is false-y when empty (duration below precision)."""
         return bool((self.end - self.start) > SEGMENT_PRECISION)
+
+    def __contains__(self, other: "Segment") -> bool:
+        return (self.start <= other.start) and (self.end >= other.end)
+
+    def __and__(self, other: "Segment") -> "Segment":
+        """Intersection (may be empty / false-y)."""
+        return Segment(max(self.start, other.start), min(self.end, other.end))
 
     def __str__(self) -> str:
         return f"[{self.start:.3f} --> {self.end:.3f}]"
@@ -69,9 +79,44 @@ class SlidingWindow:
         return int(np.rint(
             (t - self._start - 0.5 * self._duration) / self._step))
 
+    def samples(self, from_duration: float, mode: str = "strict") -> int:
+        """Number of frames in a span of ``from_duration`` seconds."""
+        if mode == "strict":
+            return int(math.floor((from_duration - self._duration)
+                                  / self._step)) + 1
+        if mode == "loose":
+            return int(math.floor((from_duration + self._duration)
+                                  / self._step))
+        if mode == "center":
+            return int(np.rint(from_duration / self._step))
+        raise ValueError(f"unknown mode {mode!r}")
+
     def __getitem__(self, i: int) -> Segment:
         start = self._start + i * self._step
         return Segment(start, start + self._duration)
+
+    def __call__(self, support: Union[Segment, float],
+                 align_last: bool = False) -> Iterator[Segment]:
+        """Windows covering ``support`` (a Segment or a duration); with
+        ``align_last``, one more ending at the support's end (starting at
+        its start when the support is shorter than a window)."""
+        if isinstance(support, (int, float)):
+            support = Segment(0.0, float(support))
+        last = None
+        i = 0
+        while True:
+            s = support.start + i * self._step
+            if s + self._duration > support.end + SEGMENT_PRECISION:
+                break
+            last = Segment(s, s + self._duration)
+            yield last
+            i += 1
+        if align_last:
+            final_start = max(support.start, support.end - self._duration)
+            final = Segment(final_start, final_start + self._duration)
+            if final and (last is None or final.start - last.start
+                          > SEGMENT_PRECISION):
+                yield final
 
     def __repr__(self) -> str:
         return (f"<SlidingWindow duration={self._duration:g} "
@@ -85,9 +130,11 @@ class SlidingWindowFeature:
     that stay on the device they were computed on.
     """
 
-    def __init__(self, data, sliding_window: SlidingWindow):
+    def __init__(self, data, sliding_window: SlidingWindow,
+                 labels: Optional[List] = None):
         self.data = data
         self.sliding_window = sliding_window
+        self.labels = labels
 
     def __len__(self) -> int:
         return len(self.data)

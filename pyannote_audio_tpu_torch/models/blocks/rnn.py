@@ -21,7 +21,7 @@ from torch import nn
 
 from ...ops.lstm_kernel import (lstm_bidirectional_recurrence,
                                 prepare_recurrent_weights)
-from ...utils.runtime import lstm_precision
+from ...utils.runtime import exact_float32, lstm_precision
 
 
 class LSTM(nn.Module):
@@ -65,21 +65,26 @@ class LSTM(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         precision = lstm_precision(x.device)
         h = x.transpose(0, 1)                                 # (T, B, D)
-        for i in range(self.num_layers):
-            names = [f"l{i}{s}" for s in self._suffixes()]
-            w_ih = torch.cat([getattr(self, f"weight_ih_{n}")
-                              for n in names])
-            bias = torch.cat([getattr(self, f"bias_ih_{n}")
-                              + getattr(self, f"bias_hh_{n}")
-                              for n in names])
-            w_hh = torch.stack([getattr(self, f"weight_hh_{n}")
-                                for n in names])
-            xw = torch.matmul(h, w_ih.t()) + bias          # (T, B, D*4H)
-            prepared = None
-            if x.device.type == "cuda":
-                prepared = self._prepared_weights(i, names, w_hh, precision)
-            h = lstm_bidirectional_recurrence(xw.contiguous(), w_hh,
-                                              precision, prepared)
+        # the float32 input projection (and the plain recurrence's
+        # products on the CPU) without TF32, as the JAX package pins
+        # Precision.HIGHEST there
+        with exact_float32():
+            for i in range(self.num_layers):
+                names = [f"l{i}{s}" for s in self._suffixes()]
+                w_ih = torch.cat([getattr(self, f"weight_ih_{n}")
+                                  for n in names])
+                bias = torch.cat([getattr(self, f"bias_ih_{n}")
+                                  + getattr(self, f"bias_hh_{n}")
+                                  for n in names])
+                w_hh = torch.stack([getattr(self, f"weight_hh_{n}")
+                                    for n in names])
+                xw = torch.matmul(h, w_ih.t()) + bias      # (T, B, D*4H)
+                prepared = None
+                if x.device.type == "cuda":
+                    prepared = self._prepared_weights(i, names, w_hh,
+                                                      precision)
+                h = lstm_bidirectional_recurrence(xw.contiguous(), w_hh,
+                                                  precision, prepared)
         return h.transpose(0, 1)
 
     def _prepared_weights(self, layer, names, w_hh, precision):

@@ -10,8 +10,10 @@ The three convolutions run in bf16 where the PYANNOTE_TPU_SEG_BF16 gate
 is on (by default on a CUDA device, off on the CPU; resolved per call from
 the input's device): operands rounded to bf16, float32 accumulation, the
 output rounded to bf16 and cast back to float32. Instance norms, abs and
-pooling stay float32. ``whole_conv`` / ``from_conv`` are the shared
-whole-file front-end (the JAX package's, ``sincnet.py:208-244``).
+pooling stay float32. Where they run in float32 (the exact path) the
+convolutions run under ``utils.runtime.exact_float32``: cuDNN takes TF32
+by default, and the JAX package pins ``Precision.HIGHEST`` there.
+``whole_conv`` / ``from_conv`` are the shared whole-file front-end (the JAX package's, ``sincnet.py:208-244``).
 Layout is channel-first (B, C, T) inside the block, as torch's convs take
 it; ``forward`` returns (B, frames, 60) as the JAX block does.
 """
@@ -30,7 +32,7 @@ from ...utils.receptive_field import (conv1d_num_frames,
                                       multi_conv_num_frames,
                                       multi_conv_receptive_field_center,
                                       multi_conv_receptive_field_size)
-from ...utils.runtime import device_flag
+from ...utils.runtime import device_flag, exact_float32_if
 
 SINC_KERNEL_SIZE = 251
 
@@ -150,8 +152,9 @@ class SincNet(nn.Module):
 
     def forward(self, waveforms: torch.Tensor) -> torch.Tensor:
         dtype = self.compute_dtype(waveforms.device)
-        x = self.wav_norm1d(waveforms)
-        return self.post_conv(self.conv1d[0](x, dtype), dtype)
+        with exact_float32_if(dtype):
+            x = self.wav_norm1d(waveforms)
+            return self.post_conv(self.conv1d[0](x, dtype), dtype)
 
     def post_conv(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """Everything after the sinc conv: abs + 3 x (pool, norm, leaky
@@ -184,8 +187,9 @@ class SincNet(nn.Module):
         """Sinc conv of the raw (un-normalized) waveform: (B, 1, T) ->
         (B, 80, F_all), kept in the compute dtype (bf16 halves the
         whole-file buffer)."""
-        return self.conv1d[0].raw_conv(
-            waveform, self.compute_dtype(waveform.device))
+        dtype = self.compute_dtype(waveform.device)
+        with exact_float32_if(dtype):
+            return self.conv1d[0].raw_conv(waveform, dtype)
 
     def from_conv(self, frames: torch.Tensor, mean: torch.Tensor,
                   var: torch.Tensor) -> torch.Tensor:
@@ -200,7 +204,9 @@ class SincNet(nn.Module):
         shift = norm.bias[0] - mean * inv
         x = frames.float() * inv[:, None, None] \
             + shift[:, None, None] * k1[None, :, None]
-        return self.post_conv(x, self.compute_dtype(frames.device))
+        dtype = self.compute_dtype(frames.device)
+        with exact_float32_if(dtype):
+            return self.post_conv(x, dtype)
 
     @staticmethod
     def conv_num_frames(num_samples: int, stride: int = 10) -> int:

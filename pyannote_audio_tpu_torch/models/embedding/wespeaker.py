@@ -14,7 +14,9 @@ with float32 accumulation and a bf16 output, BatchNorm computed in float32
 from its float32 running statistics and rounded to bf16. Parameters stay
 float32 and are cast per call. Fbank, the mean subtraction, pooling and
 ``seg_1`` stay float32, and the trunk's output is cast to float32 before
-the flatten.
+the flatten. A float32 trunk (the exact path), the pooling and ``seg_1``
+run under ``utils.runtime.exact_float32``: cuDNN takes TF32 by default,
+and a process may allow it for matmuls.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.fbank import wespeaker_fbank
+from ...utils.runtime import exact_float32, exact_float32_if
 from ..blocks.pooling import stats_pool
 
 
@@ -142,6 +145,8 @@ class WeSpeakerResNet34(nn.Module):
         self.frame_shift = frame_shift
         self.window_type = window_type
         self.dimension = embed_dim
+        self.num_blocks = tuple(num_blocks)
+        self.m_channels = m_channels
         self.resnet = ResNet(num_blocks, m_channels, num_mel_bins, embed_dim,
                              generator)
 
@@ -165,19 +170,35 @@ class WeSpeakerResNet34(nn.Module):
         if not centered:
             feats = feats - feats.mean(dim=-2, keepdim=True)
         x = feats.transpose(1, 2)[:, None].to(self.compute_dtype)
-        x = self.resnet.trunk(x).float()                      # (B,C,F',T')
+        with exact_float32_if(self.compute_dtype):
+            x = self.resnet.trunk(x).float()                  # (B,C,F',T')
         B, C, Fr, T = x.shape
         return x.reshape(B, C * Fr, T).transpose(1, 2)
 
     def embed(self, frames: torch.Tensor,
               weights: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """(B, T', D) frames -> (B, [S,] embed_dim) embeddings."""
-        return self.resnet.seg_1(stats_pool(frames.transpose(1, 2),
-                                            weights=weights))
+        """(B, T', D) frames -> (B, [S,] embed_dim) embeddings, pooled and
+        projected in float32 with TF32 off."""
+        with exact_float32():
+            return self.resnet.seg_1(stats_pool(frames.transpose(1, 2),
+                                                weights=weights))
 
     def forward(self, waveforms: torch.Tensor,
                 weights: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self.embed(self.frames(waveforms), weights=weights)
+
+    def reference_hparams(self) -> dict:
+        """Hyper-parameters in the reference checkpoint layout, with the
+        port's trunk shape and dtype (which a reference checkpoint of the
+        published ResNet34 leaves at their defaults)."""
+        return {"sample_rate": self.sample_rate,
+                "num_mel_bins": self.num_mel_bins,
+                "frame_length": self.frame_length,
+                "frame_shift": self.frame_shift,
+                "window_type": self.window_type,
+                "num_blocks": list(self.num_blocks),
+                "m_channels": self.m_channels, "embed_dim": self.dimension,
+                "compute_dtype": str(self.compute_dtype).split(".")[-1]}
 
     def load_reference_state_dict(self, state: Mapping[str, np.ndarray]):
         """Load a reference ``resnet.*`` state dict, BatchNorm running

@@ -17,8 +17,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...core.model import FrameModel, Specifications
+from ...utils.runtime import exact_float32
 from ..blocks.rnn import LSTM
 from ..blocks.sincnet import SincNet
+
 
 def _linear(in_features: int, out_features: int,
             generator: Optional[torch.Generator]) -> nn.Linear:
@@ -67,14 +69,16 @@ class PyanNet(FrameModel, nn.Module):
         return self._head(self.sincnet(waveforms))
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, frames, 60) float32 SincNet features -> model output."""
-        x = self.lstm(x)
-        for layer in self.linear:
-            x = F.leaky_relu(layer(x), 0.01)
-        x = self.classifier(x)
-        if self.specifications.powerset:
-            return F.log_softmax(x, dim=-1)
-        return torch.sigmoid(x)
+        """(B, frames, 60) float32 SincNet features -> model output, all
+        float32 with TF32 off (``utils.runtime.exact_float32``)."""
+        with exact_float32():
+            x = self.lstm(x)
+            for layer in self.linear:
+                x = F.leaky_relu(layer(x), 0.01)
+            x = self.classifier(x)
+            if self.specifications.powerset:
+                return F.log_softmax(x, dim=-1)
+            return torch.sigmoid(x)
 
     # -- shared front-end protocol (read by Inference.slide) ----------------
 
@@ -100,6 +104,20 @@ class PyanNet(FrameModel, nn.Module):
         """Forward from gathered conv frames (B, 80, F_c) and each chunk's
         raw-waveform mean and population variance (B,)."""
         return self._head(self.sincnet.from_conv(frames, mean, var))
+
+    def reference_hparams(self) -> Dict:
+        """Hyper-parameters in the reference checkpoint layout (what
+        ``utils.convert.write_reference_checkpoint`` stores and
+        ``core.model.Model.from_pretrained`` reads back)."""
+        return {"sincnet": {"stride": self.sincnet_stride},
+                "lstm": {"hidden_size": self.lstm.hidden_size,
+                         "num_layers": self.lstm.num_layers,
+                         "bidirectional": self.lstm.bidirectional,
+                         "monolithic": True, "dropout": 0.0},
+                "linear": {"hidden_size": self.linear[0].out_features
+                           if len(self.linear) else 0,
+                           "num_layers": len(self.linear)},
+                "sample_rate": self.sample_rate, "num_channels": 1}
 
     def load_reference_state_dict(self, state: Mapping[str, np.ndarray]):
         """Load a reference-layout state dict (numpy arrays or tensors).

@@ -27,14 +27,13 @@ computes them outside any Pallas kernel; they run in float32 with TF32 off
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import os
 
 import numpy as np
 import torch
 
-from ..utils.runtime import device_flag
+from ..utils.runtime import device_flag, exact_float32
 
 EPSILON = 1.1920928955078125e-07  # float32 machine epsilon, kaldi's log floor
 
@@ -138,21 +137,6 @@ def _constant(make, args: tuple, device: torch.device) -> torch.Tensor:
     return host
 
 
-@contextlib.contextmanager
-def _no_tf32():
-    """TF32 off for cuDNN convolutions and CUDA matmuls (the JAX package's
-    ``Precision.HIGHEST``), restored afterwards."""
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = saved
-
-
 def fbank_num_frames(num_samples: int, sample_rate: int = 16000,
                      frame_length: float = 25.0,
                      frame_shift: float = 10.0) -> int:
@@ -179,7 +163,7 @@ def fbank(waveform: torch.Tensor, sample_rate: int = 16000,
     x = waveform.reshape(-1, waveform.shape[-1])
     device = x.device
     bins = padded // 2 + 1
-    with _no_tf32():
+    with exact_float32():
         if device_flag("PYANNOTE_TPU_CONV_FBANK", device):
             kernel = _constant(_conv_dft_kernel_np, (
                 window_size, padded, window_type, True,

@@ -6,10 +6,10 @@ recurrence into one matmul; the loop carries only the (B, H) state and
 does one (B, H) x (H, 4H) product per step. Gate order i, f, g, o and the
 double bias follow torch.nn.LSTM, so reference checkpoints load weight
 for weight. State, gates and output are float32. The recurrent product
-takes the JAX package's three precisions (``recurrent_product``); on a
-CUDA device the matmuls need TF32 off
-(``torch.backends.cuda.matmul.allow_tf32 = False``, torch's default) to
-compute them exactly.
+takes the JAX package's three precisions (``recurrent_product``). The
+recurrence and the input projection run under ``utils.runtime.
+exact_float32`` (TF32 off, the JAX package's ``Precision.HIGHEST``), so
+their float32 products do not depend on torch's global flags.
 """
 
 from __future__ import annotations
@@ -17,6 +17,8 @@ from __future__ import annotations
 from typing import Dict, List
 
 import torch
+
+from ..utils.runtime import exact_float32
 
 
 def split_bf16(a: torch.Tensor):
@@ -61,12 +63,13 @@ def lstm_recurrence(xw: torch.Tensor, w_hh: torch.Tensor,
     h = xw.new_zeros((B, H))
     c = xw.new_zeros((B, H))
     out = xw.new_empty((T, B, H))
-    for t in (range(T - 1, -1, -1) if reverse else range(T)):
-        gates = xw[t] + recurrent_product(h, w_hh_t, precision)
-        i, f, g, o = gates.chunk(4, dim=-1)
-        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        h = torch.sigmoid(o) * torch.tanh(c)
-        out[t] = h
+    with exact_float32():
+        for t in (range(T - 1, -1, -1) if reverse else range(T)):
+            gates = xw[t] + recurrent_product(h, w_hh_t, precision)
+            i, f, g, o = gates.chunk(4, dim=-1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            h = torch.sigmoid(o) * torch.tanh(c)
+            out[t] = h
     return out
 
 
@@ -92,7 +95,8 @@ def lstm_single_direction(x: torch.Tensor, w_ih: torch.Tensor,
                           b_hh: torch.Tensor,
                           reverse: bool = False) -> torch.Tensor:
     """x (B, T, D) -> (B, T, H). Weights in torch layout."""
-    xw = torch.matmul(x, w_ih.t()) + b_ih + b_hh
+    with exact_float32():
+        xw = torch.matmul(x, w_ih.t()) + b_ih + b_hh
     hs = lstm_recurrence(xw.transpose(0, 1), w_hh, reverse=reverse)
     return hs.transpose(0, 1)
 

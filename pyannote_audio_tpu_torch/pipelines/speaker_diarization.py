@@ -31,8 +31,16 @@ ones, so host work overlaps the device's. Files past the device-memory
 budget run in halo'd slices (core/longfile.py). Hooks see every stage,
 under the JAX package's step names.
 
-Not ported yet: VBx/KMeans/oracle clustering, and renaming labels after a
-reference annotation (labels are always SPEAKER_00, ...).
+The constructor takes the JAX package's surface: models as instances,
+local checkpoint paths or ``{checkpoint, subfolder}`` dicts (which is what
+``Pipeline.from_pretrained`` passes for a community-1 style snapshot),
+a PLDA for ``clustering="VBxClustering"`` and any ``Clustering`` member.
+Clusterings that expect a speaker count take it from
+``file["annotation"]`` when the caller gives none; oracle clustering
+without an embedding model skips the embedding program. Labels follow
+``file["annotation"]`` when a file carries one (Hungarian mapping, the
+centroids reordered to match), else SPEAKER_00, ... Non-powerset
+segmentation models are not ported yet.
 """
 
 from __future__ import annotations
@@ -44,13 +52,12 @@ import threading
 import warnings
 from collections import deque
 from dataclasses import dataclass
-from typing import (Any, Callable, Dict, Iterator, List, Optional, Tuple,
-                    Union)
+from typing import (Any, Callable, Dict, Iterator, List, Mapping, Optional,
+                    Tuple, Union)
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from ..core.annotation import Annotation
 from ..core.inference import (Inference, _chunk_grid,
@@ -58,14 +65,18 @@ from ..core.inference import (Inference, _chunk_grid,
                               pad_to_grid, to_device)
 from ..core.io import Audio
 from ..core.longfile import Slice, plan_slices, slice_uploads
-from ..core.pipeline import Pipeline, _evict
+from ..core.parameter import ParamDict, Uniform
+from ..core.pipeline import Pipeline, _evict, check_device
 from ..core.segment import SlidingWindow, SlidingWindowFeature
+from ..metrics.der import GreedyDiarizationErrorRate
+from ..ops import fbank as fbank_ops
 from ..ops.diarize_fused import (fused_count_stats, fused_reconstruct,
                                  make_embedding_masks)
 from ..ops.fbank import fbank_num_frames, whole_fbank
 from ..utils.runtime import device_flag
-from .clustering import AgglomerativeClustering
+from .clustering import Clustering, OracleClustering
 from .utils.diarization import SpeakerDiarizationMixin, set_num_speakers
+from .utils.getter import PipelineModel, get_model, get_plda
 
 
 @dataclass
@@ -82,9 +93,14 @@ class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
 
     ``segmentation`` is a PyanNet-like powerset model and ``embedding`` a
     WeSpeakerResNet34-like model (``frames`` / ``frames_from_fbank`` /
-    ``embed``); both are moved to ``device`` and run in eval mode.
-    ``device`` is the CUDA card by default; without one the constructor
-    raises, and ``device="cpu"`` runs the exact path on the CPU.
+    ``embed``), each an instance, a local checkpoint path or a
+    ``{checkpoint, subfolder}`` dict; both are moved to ``device`` and run
+    in eval mode. ``embedding`` may be None only for oracle clustering.
+    ``plda`` (an instance, a directory or such a dict) serves
+    ``clustering="VBxClustering"``. ``device`` is the CUDA card by
+    default; without one the constructor raises, and ``device="cpu"``
+    runs the exact path on the CPU; ``to(device)`` moves the pipeline
+    later. ``legacy`` returns only the diarization ``Annotation``.
     ``counts`` records which embedding path ran (reset it at will).
     """
 
@@ -98,42 +114,80 @@ class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
     TRUNK_PANEL_HALO = 64
     TRUNK_PANEL_BATCH = 8
 
-    def __init__(self, segmentation: nn.Module, embedding: nn.Module,
+    def __init__(self, segmentation: PipelineModel = None,
+                 embedding: Optional[PipelineModel] = None,
                  segmentation_step: float = 0.1,
                  embedding_exclude_overlap: bool = False,
+                 plda=None,
                  clustering: str = "AgglomerativeClustering",
                  embedding_batch_size: int = 32,
                  segmentation_batch_size: int = 32,
+                 der_variant: Optional[dict] = None,
+                 legacy: bool = False,
                  device: Union[str, torch.device] = "cuda"):
-        if torch.device(device).type == "cuda" and \
-                not torch.cuda.is_available():
-            raise RuntimeError("SpeakerDiarization runs on a CUDA device by "
-                               "default and none is available: pass "
-                               "device=\"cpu\" to run on the CPU")
-        if clustering != "AgglomerativeClustering":
-            raise ValueError("only AgglomerativeClustering is ported")
+        super().__init__()
+        self.device = check_device(device)
+        try:
+            Klustering = Clustering[clustering].value
+        except KeyError:
+            raise ValueError(f"clustering must be one of "
+                             f"{[member.name for member in Clustering]}")
+        if segmentation is None:
+            raise ValueError("a segmentation model is required")
+        segmentation = get_model(segmentation)
+        if embedding is None and Klustering is not OracleClustering:
+            raise ValueError(f"{clustering} needs an embedding model")
         if not segmentation.specifications.powerset:
-            raise ValueError("the segmentation model must be powerset")
-        self.device = torch.device(device)
+            raise ValueError("non-powerset segmentation models are not "
+                             "ported yet")
+        self.legacy = legacy
         self.segmentation_step = segmentation_step
         self.embedding_exclude_overlap = embedding_exclude_overlap
         self.embedding_batch_size = embedding_batch_size
-        self._embedding = embedding.to(self.device).eval()
+        self.klustering = clustering
+        self.der_variant = der_variant or {"collar": 0.0,
+                                           "skip_overlap": False}
+        self._embedding = get_model(embedding).to(self.device).eval() \
+            if embedding is not None else None
         segmentation = segmentation.to(self.device).eval()
         duration = segmentation.specifications.duration
         self._segmentation = Inference(
             segmentation, duration=duration,
             step=segmentation_step * duration,
             batch_size=segmentation_batch_size)
+        self.segmentation = ParamDict(min_duration_off=Uniform(0.0, 1.0))
         self._audio = Audio(sample_rate=16000)
-        self.clustering = AgglomerativeClustering(metric="cosine")
+        if Klustering is OracleClustering:
+            self.clustering = OracleClustering()
+        elif clustering == "VBxClustering":
+            self.clustering = Klustering(plda=get_plda(plda),
+                                         metric="cosine")
+        else:
+            self.clustering = Klustering(metric="cosine")
+        self.clustering.to(self.device)
+        self._expects_num_speakers = self.clustering.expects_num_clusters
         self.counts = {"whole_fbank": 0, "trunk_panel_batches": 0,
                        "chunk_trunk_batches": 0}
 
     def default_parameters(self) -> Dict[str, Any]:
+        if self.klustering == "VBxClustering":
+            return {"segmentation": {"min_duration_off": 0.0},
+                    "clustering": {"threshold": 0.6, "Fa": 0.07, "Fb": 0.8}}
         return {"segmentation": {"min_duration_off": 0.0},
                 "clustering": {"method": "centroid", "min_cluster_size": 15,
                                "threshold": 0.7}}
+
+    def to(self, device: Union[str, torch.device]) -> "SpeakerDiarization":
+        """Move the models, the segmentation ``Inference`` and the
+        clustering's device to ``device``, dropping what was cached for
+        the old one (the powerset mapping, the LSTM's packed weights, the
+        fbank's constants)."""
+        super().to(device)
+        fbank_ops._constant.cache_clear()
+        return self
+
+    def get_metric(self) -> GreedyDiarizationErrorRate:
+        return GreedyDiarizationErrorRate(**self.der_variant)
 
     @staticmethod
     def classes() -> Iterator[str]:
@@ -278,7 +332,7 @@ class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
     def _plan(self, num_samples: int) -> Optional[List[Slice]]:
         """The file's slice plan (core/longfile.py) on the segmentation's
         chunk grid, or None when it takes whole-file buffers."""
-        sample_rate = self._embedding.sample_rate
+        sample_rate = self._segmentation.model.sample_rate
         window_samples = round(self._segmentation.duration * sample_rate)
         step_samples = round(self._segmentation.step * sample_rate)
         starts, _ = _chunk_grid(num_samples, window_samples, step_samples)
@@ -476,6 +530,12 @@ class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
         num_speakers, min_speakers, max_speakers = set_num_speakers(
             num_speakers=num_speakers, min_speakers=min_speakers,
             max_speakers=max_speakers)
+        if self._expects_num_speakers and num_speakers is None:
+            if isinstance(file, Mapping) and "annotation" in file:
+                num_speakers = len(file["annotation"].labels())
+            else:
+                raise ValueError(f"num_speakers must be provided when using "
+                                 f"{self.klustering} clustering")
         waveform, sample_rate = self._audio(file)
         # a whole file is uploaded once, here, and shared by the stages;
         # a long file's slices are uploaded by the stages themselves
@@ -487,7 +547,8 @@ class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
             hook=functools.partial(hook, "segmentation", None))
         hook("segmentation", segmentations)
         # queued behind segmentation, before anything the host waits for
-        trunk = self._start_shared_trunk(source)
+        trunk = self._start_shared_trunk(source) \
+            if self._embedding is not None else None
         scores = segmentations.data                           # (C, F, S)
         offsets, num_output_frames, window = self._aggregation_grid(
             segmentations.sliding_window,
@@ -495,18 +556,20 @@ class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
         offsets_dev = to_device(offsets, self.device)
         count, speaker_frames, clean_frames = fused_count_stats(
             scores, offsets_dev, num_output_frames)
-        embeddings = self.get_embeddings(
-            source, segmentations,
-            exclude_overlap=self.embedding_exclude_overlap, trunk=trunk,
-            hook=hook, cache=file, defer_fetch=True)
-        host, event = self._fetch_async({
-            "count": count, "speaker_frames": speaker_frames,
-            "clean_frames": clean_frames, "embeddings": embeddings})
+        fetch = {"count": count, "speaker_frames": speaker_frames,
+                 "clean_frames": clean_frames}
+        if self._embedding is not None:
+            fetch["embeddings"] = self.get_embeddings(
+                source, segmentations,
+                exclude_overlap=self.embedding_exclude_overlap, trunk=trunk,
+                hook=hook, cache=file, defer_fetch=True)
+        host, event = self._fetch_async(fetch)
         return {"file": file, "hook": hook, "num_speakers": num_speakers,
                 "min_speakers": min_speakers, "max_speakers": max_speakers,
                 # the host waveform stays referenced until the file is
                 # finalized: a pinned one is what its upload reads
                 "waveform": waveform, "scores": scores,
+                "chunk_window": segmentations.sliding_window,
                 "offsets": offsets_dev,
                 "num_output_frames": num_output_frames, "window": window,
                 "host": host, "event": event}
@@ -514,7 +577,8 @@ class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
     def apply(self, file: Dict, num_speakers: Optional[int] = None,
               min_speakers: Optional[int] = None,
               max_speakers: Optional[int] = None,
-              hook: Optional[Callable] = None, **kwargs) -> DiarizeOutput:
+              hook: Optional[Callable] = None, **kwargs
+              ) -> Union[DiarizeOutput, Annotation]:
         return self._finalize(self._stage(
             file, num_speakers=num_speakers, min_speakers=min_speakers,
             max_speakers=max_speakers, hook=hook, **kwargs))
@@ -570,7 +634,8 @@ class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
                 t.join()
         return results
 
-    def _finalize_and_release(self, staged: Dict[str, Any]) -> DiarizeOutput:
+    def _finalize_and_release(self, staged: Dict[str, Any]
+                              ) -> Union[DiarizeOutput, Annotation]:
         """``_finalize``, then drop the file's device buffers and, for a
         dict this machinery decoded, its host waveform (the batch list
         keeps every dict alive)."""
@@ -590,9 +655,11 @@ class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
             np.float32)
 
     @torch.inference_mode()
-    def _finalize(self, staged: Dict[str, Any]) -> DiarizeOutput:
+    def _finalize(self, staged: Dict[str, Any]
+                  ) -> Union[DiarizeOutput, Annotation]:
         """Host half of ``apply``: wait for the staged copies, cluster,
-        reconstruct, annotate."""
+        reconstruct, annotate. Oracle clustering fetches the binarized
+        scores here, never in ``_stage``."""
         file, hook = staged["file"], staged["hook"]
         min_speakers = staged["min_speakers"]
         max_speakers = staged["max_speakers"]
@@ -605,17 +672,28 @@ class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
 
         if np.nanmax(count.data) == 0:
             # silent file
-            return DiarizeOutput(
+            output = DiarizeOutput(
                 Annotation(uri=file["uri"]), Annotation(uri=file["uri"]),
-                np.zeros((0, self._embedding.dimension)))
+                np.zeros((0, self._embedding.dimension
+                          if self._embedding is not None else 0)))
+            return output.speaker_diarization if self.legacy else output
 
-        embeddings = host["embeddings"]
-        hook("embeddings", embeddings)
+        embeddings = host.get("embeddings")
+        if embeddings is not None:
+            hook("embeddings", embeddings)
+        oracle = {}
+        if isinstance(self.clustering, OracleClustering):
+            oracle = {"segmentations": SlidingWindowFeature(
+                          staged["scores"].cpu().numpy(),
+                          staged["chunk_window"]),
+                      "file": file,
+                      "frames": self._segmentation.model.receptive_field}
         hard_clusters, _, centroids = self.clustering(
             embeddings, host["clean_frames"],
             num_frames=staged["scores"].shape[1],
             num_clusters=staged["num_speakers"], min_clusters=min_speakers,
-            max_clusters=max_speakers)
+            max_clusters=max_speakers,
+            speaker_frames=host["speaker_frames"], **oracle)
 
         num_different_speakers = int(np.max(hard_clusters)) + 1
         if num_different_speakers < min_speakers or \
@@ -646,16 +724,27 @@ class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
             SlidingWindowFeature(exclusive, window),
             min_duration_off=min_duration_off)
 
-        mapping = {label: expected for label, expected in
-                   zip(diarization.labels(), self.classes())}
+        if file.get("annotation"):
+            # the reference's labels, by the Hungarian mapping of overlap
+            _, mapping = self.optimal_mapping(
+                file["annotation"], diarization, return_mapping=True)
+            mapping = {key: mapping.get(key, key)
+                       for key in diarization.labels()}
+        else:
+            mapping = {label: expected for label, expected in
+                       zip(diarization.labels(), self.classes())}
         diarization = diarization.rename_labels(mapping)
         exclusive_diarization = exclusive_diarization.rename_labels(mapping)
         diarization.uri = exclusive_diarization.uri = file["uri"]
 
-        labels = diarization.labels()
-        if len(labels) > centroids.shape[0]:
-            centroids = np.pad(
-                centroids, ((0, len(labels) - centroids.shape[0]), (0, 0)))
-        inverse_mapping = {label: index for index, label in mapping.items()}
-        centroids = centroids[[inverse_mapping[label] for label in labels]]
-        return DiarizeOutput(diarization, exclusive_diarization, centroids)
+        if centroids is not None:
+            labels = diarization.labels()
+            if len(labels) > centroids.shape[0]:
+                centroids = np.pad(centroids, (
+                    (0, len(labels) - centroids.shape[0]), (0, 0)))
+            inverse_mapping = {label: index
+                               for index, label in mapping.items()}
+            centroids = centroids[[inverse_mapping[label]
+                                   for label in labels]]
+        output = DiarizeOutput(diarization, exclusive_diarization, centroids)
+        return output.speaker_diarization if self.legacy else output

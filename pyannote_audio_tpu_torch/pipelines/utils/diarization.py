@@ -1,18 +1,19 @@
 """Shared diarization helpers.
 
 Counterpart of the parts of pyannote_audio_tpu/pipelines/utils/
-diarization.py that the diarization path uses: ``set_num_speakers`` and
-``SpeakerDiarizationMixin.to_annotation``.
+diarization.py that the diarization path uses: ``set_num_speakers``,
+``SpeakerDiarizationMixin.optimal_mapping`` and ``to_annotation``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Mapping, Optional, Union
 
 import numpy as np
 
 from ...core.annotation import Annotation
 from ...core.segment import SlidingWindowFeature
+from ...metrics.der import DiarizationErrorRate
 from ...utils.signal import Binarize
 
 
@@ -33,6 +34,24 @@ def set_num_speakers(num_speakers: Optional[int] = None,
 
 class SpeakerDiarizationMixin:
     """Methods common to speaker diarization pipelines."""
+
+    @staticmethod
+    def optimal_mapping(reference: Union[Mapping, Annotation],
+                        hypothesis: Annotation,
+                        return_mapping: bool = False):
+        """Rename the hypothesis's labels after the reference's that they
+        overlap most (Hungarian); a file dict's ``annotated`` region, if
+        any, restricts the overlap."""
+        annotated = None
+        if isinstance(reference, Mapping):
+            annotated = reference.get("annotated")
+            reference = reference["annotation"]
+        mapping = DiarizationErrorRate().optimal_mapping(
+            reference, hypothesis, uem=annotated)
+        mapped = hypothesis.rename_labels(mapping=mapping)
+        if return_mapping:
+            return mapped, mapping
+        return mapped
 
     @staticmethod
     def to_annotation(discrete_diarization: SlidingWindowFeature,

@@ -6,12 +6,14 @@ turned into numpy arrays; this module never sees JAX. The output is the
 reference torch state-dict layout, i.e. exactly what the JAX model's
 ``export_torch_state_dict`` emits (the inverse of its
 ``convert_torch_state_dict``), ready for the port's
-``load_reference_state_dict``.
+``load_reference_state_dict``. ``write_reference_checkpoint`` writes
+such a state dict as a reference-layout ``pytorch_model.bin``.
 """
 
 from __future__ import annotations
 
 import re
+from pathlib import Path
 from typing import Dict, Mapping
 
 import numpy as np
@@ -101,3 +103,40 @@ def wespeaker_state_dict(variables_np: Mapping) -> Dict[str, np.ndarray]:
     state["resnet.seg_1.weight"] = _f32(seg_1["kernel"]).T
     state["resnet.seg_1.bias"] = _f32(seg_1["bias"])
     return state
+
+
+def write_reference_checkpoint(state_dict: Mapping, architecture: str,
+                               hparams: Mapping, specifications,
+                               path) -> Path:
+    """Write a reference-layout ``pytorch_model.bin`` that this package's
+    ``Model.from_pretrained`` and the JAX package's both read.
+
+    ``path`` is the file, or a directory to hold ``pytorch_model.bin``.
+    The checkpoint is ``{"state_dict": float32 tensors,
+    "hyper_parameters": hparams, "pyannote.audio": {"architecture":
+    {"module", "class"}, "specifications": a plain dict}}``: it pickles
+    no class of either package. ``specifications`` is the port's
+    ``Specifications``, a dict in its ``to_dict`` layout, or None.
+    """
+    import torch
+    path = Path(path)
+    if path.suffix != ".bin":
+        path = path / "pytorch_model.bin"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    if specifications is not None and not isinstance(specifications,
+                                                     Mapping):
+        specifications = specifications.to_dict()
+    vendor = {"architecture": {"module": "pyannote.audio",
+                               "class": architecture}}
+    if specifications is not None:
+        vendor["specifications"] = dict(specifications)
+    checkpoint = {
+        "state_dict": {k: v.detach().cpu().clone()
+                       if isinstance(v, torch.Tensor)
+                       else torch.from_numpy(np.array(v))
+                       for k, v in state_dict.items()},
+        "hyper_parameters": dict(hparams),
+        "pyannote.audio": vendor,
+    }
+    torch.save(checkpoint, path)
+    return path

@@ -6,6 +6,7 @@ names, with "accelerator" read as "CUDA device".
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Union
 
@@ -14,17 +15,48 @@ import torch
 LSTM_PRECISIONS = ("default", "high", "highest")
 
 
-def device_flag(name: str, device: Union[str, torch.device]) -> bool:
+@contextlib.contextmanager
+def exact_float32():
+    """TF32 off for CUDA matmuls and cuDNN convolutions, restored on exit.
+
+    The port's counterpart of the JAX package's ``Precision.HIGHEST`` at
+    its float32 call sites. torch's flags are process-global and cuDNN
+    convolutions take TF32 by default, so every float32 site of the exact
+    path runs under this, whatever the process set
+    (``torch.set_float32_matmul_precision("high")`` included). It wraps
+    whole module calls on the thread that queues device work; the worker
+    threads of ``apply_batch`` only decode, so they never read the flags.
+    """
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def exact_float32_if(dtype: torch.dtype):
+    """``exact_float32()`` for float32 work, a no-op for bf16 work."""
+    return exact_float32() if dtype == torch.float32 \
+        else contextlib.nullcontext()
+
+
+def device_flag(name: str, device: Union[str, torch.device],
+                accelerator_default: bool = True) -> bool:
     """Resolve a PYANNOTE_TPU_* gate for work on ``device``.
 
     An explicit "1" or "0" in the environment wins (any other value reads
     as off, as in the JAX package). When the variable is unset the gate is
-    on iff ``device`` is a CUDA device.
+    on iff ``device`` is a CUDA device, or off everywhere for an opt-in
+    gate (``accelerator_default=False``).
     """
     value = os.environ.get(name)
     if value is not None:
         return value == "1"
-    return torch.device(device).type == "cuda"
+    return accelerator_default and torch.device(device).type == "cuda"
 
 
 def lstm_precision(device: Union[str, torch.device]) -> str:

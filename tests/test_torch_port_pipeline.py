@@ -119,7 +119,10 @@ def test_same_centroids_and_list_input(both_outputs):
 
 
 def test_port_imports_no_jax():
-    """The package and every module of the slice load without JAX."""
+    """The package and every module of the slice load without JAX, the
+    JAX package, scikit-learn or PyYAML (none of which the card machine
+    may have), and a config's JAX-package class path resolves to the port
+    without importing the JAX package."""
     modules = [
         "pyannote_audio_tpu_torch",
         "pyannote_audio_tpu_torch.core.annotation",
@@ -127,8 +130,11 @@ def test_port_imports_no_jax():
         "pyannote_audio_tpu_torch.core.io",
         "pyannote_audio_tpu_torch.core.longfile",
         "pyannote_audio_tpu_torch.core.model",
+        "pyannote_audio_tpu_torch.core.parameter",
         "pyannote_audio_tpu_torch.core.pipeline",
+        "pyannote_audio_tpu_torch.core.plda",
         "pyannote_audio_tpu_torch.core.segment",
+        "pyannote_audio_tpu_torch.metrics.der",
         "pyannote_audio_tpu_torch.models.blocks.pooling",
         "pyannote_audio_tpu_torch.models.blocks.rnn",
         "pyannote_audio_tpu_torch.models.blocks.sincnet",
@@ -137,25 +143,40 @@ def test_port_imports_no_jax():
         "pyannote_audio_tpu_torch.ops.aggregate",
         "pyannote_audio_tpu_torch.ops.diarize_fused",
         "pyannote_audio_tpu_torch.ops.fbank",
+        "pyannote_audio_tpu_torch.ops.kmeans",
         "pyannote_audio_tpu_torch.ops.lstm",
         "pyannote_audio_tpu_torch.ops.lstm_kernel",
+        "pyannote_audio_tpu_torch.ops.permutation",
         "pyannote_audio_tpu_torch.ops.powerset",
+        "pyannote_audio_tpu_torch.pipelines",
         "pyannote_audio_tpu_torch.pipelines.clustering",
+        "pyannote_audio_tpu_torch.pipelines.parameter",
         "pyannote_audio_tpu_torch.pipelines.speaker_diarization",
         "pyannote_audio_tpu_torch.pipelines.utils.diarization",
+        "pyannote_audio_tpu_torch.pipelines.utils.getter",
         "pyannote_audio_tpu_torch.pipelines.utils.hook",
+        "pyannote_audio_tpu_torch.pipelines.utils.oracle",
         "pyannote_audio_tpu_torch.utils.build",
         "pyannote_audio_tpu_torch.utils.convert",
         "pyannote_audio_tpu_torch.utils.flops",
         "pyannote_audio_tpu_torch.utils.receptive_field",
         "pyannote_audio_tpu_torch.utils.runtime",
         "pyannote_audio_tpu_torch.utils.signal",
+        "pyannote_audio_tpu_torch.utils.vbx",
     ]
     code = ("import importlib, sys\n"
             f"for name in {modules!r}:\n"
             "    importlib.import_module(name)\n"
-            "bad = sorted(m for m in sys.modules\n"
-            "             if m.split('.')[0] in ('jax', 'flax', 'jaxlib'))\n"
+            "import pyannote_audio_tpu_torch as port\n"
+            "port.Pipeline, port.Model\n"
+            "from pyannote_audio_tpu_torch.core.pipeline import \\\n"
+            "    get_class_by_name\n"
+            "klass = get_class_by_name('pyannote_audio_tpu.pipelines.'\n"
+            "                          'speaker_diarization.SpeakerDiarization')\n"
+            "assert klass.__module__.startswith('pyannote_audio_tpu_torch.')\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in (\n"
+            "    'jax', 'flax', 'jaxlib', 'pyannote_audio_tpu', 'sklearn',\n"
+            "    'yaml'))\n"
             "assert not bad, bad\n")
     root = Path(__file__).resolve().parent.parent
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,

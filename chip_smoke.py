@@ -50,7 +50,20 @@ Phases, each fatal on failure:
      through ``apply_batch`` with VBx's host time beside AHC's, the
      KMeans fallback (``num_speakers=2``), label mapping onto a synthetic
      annotation with ``get_metric()``, and the device VBx and KMeans
-     (PYANNOTE_TPU_DEVICE_VBX / _KMEANS) against their host versions.
+     (PYANNOTE_TPU_DEVICE_VBX / _KMEANS) against their host versions;
+  8. the slice of VAD, multilabel and non-powerset diarization, audio at
+     any rate and device AHC: (m) VoiceActivityDetection from a config
+     dict over (l)'s snapshot, card against CPU on 30 s and 10 + 3 min
+     with its LSTM launches; (n) a multi-label PyanNet (sigmoid head, 3
+     speakers, 5 s chunks, 4 BiLSTM layers) through
+     MultiLabelSegmentation (10 min) and non-powerset SpeakerDiarization
+     (10 + 3 min), card against CPU on 30 s on the exact path; (o) a
+     44.1 kHz stereo 24-bit and a 48 kHz float32 WAV through
+     SpeakerDiarization against the same audio pre-resampled to 16 kHz
+     PCM16, and ``_predecode_batch`` against one-by-one decode; (p)
+     PYANNOTE_TPU_DEVICE_AHC=1 against host scipy on the serving list;
+     (q) the device hysteresis and aggregation against the CPU at the
+     VAD's serving-list sizes.
 
 The line before the last is a JSON object describing each kernel (its
 ``launches`` is the accelerator path's; ``launches_per_path`` has every
@@ -141,18 +154,17 @@ def log(message: str) -> None:
     print(message, flush=True)
 
 
-def synth(minutes: float, seed: int) -> np.ndarray:
+def synth(minutes: float, seed: int, rate: int = SAMPLE_RATE) -> np.ndarray:
     """Synthetic "conversation": harmonic speakers + silences, PCM16-exact
-    (the recipe of the JAX package's bench.py)."""
+    (the recipe of the JAX package's bench.py), at ``rate`` Hz."""
     rng = np.random.default_rng(seed)
-    n = int(minutes * 60 * SAMPLE_RATE)
-    t = np.arange(n) / SAMPLE_RATE
+    n = int(minutes * 60 * rate)
+    t = np.arange(n) / rate
     wav = 0.003 * rng.standard_normal(n).astype(np.float32)
     segment = 5.0
     for i, start in enumerate(np.arange(0.0, minutes * 60 - segment, 7.0)):
         f0 = [140.0, 210.0, 320.0][(i + seed) % 3]
-        i0, i1 = int(start * SAMPLE_RATE), int((start + segment)
-                                               * SAMPLE_RATE)
+        i0, i1 = int(start * rate), int((start + segment) * rate)
         tt = t[i0:i1]
         wav[i0:i1] += (0.2 * np.sin(2 * np.pi * f0 * tt)
                        * (0.5 + 0.5 * np.abs(np.sin(2 * np.pi * 3 * tt)))
@@ -188,14 +200,16 @@ def set_gates(value) -> None:
             os.environ[name] = value
 
 
-def segmentation_batches(file_minutes=None) -> list:
+def segmentation_batches(file_minutes=None, chunk_seconds=10.0) -> list:
     """Batch sizes the main path gives PyanNet, file after file (of
-    FILE_MINUTES by default)."""
+    FILE_MINUTES by default), on chunks of ``chunk_seconds`` with a step
+    of a tenth of that."""
     from pyannote_audio_tpu_torch.core.inference import _chunk_grid
     sizes = []
     for minutes in file_minutes or FILE_MINUTES:
         starts, _ = _chunk_grid(int(minutes * 60 * SAMPLE_RATE),
-                                10 * SAMPLE_RATE, SAMPLE_RATE)
+                                int(chunk_seconds * SAMPLE_RATE),
+                                int(chunk_seconds * SAMPLE_RATE) // 10)
         sizes += [min(BATCH_SIZE, len(starts) - b)
                   for b in range(0, len(starts), BATCH_SIZE)]
     return sizes
@@ -219,12 +233,25 @@ def phase_environment() -> str:
 
 
 def phase_build() -> None:
-    from pyannote_audio_tpu_torch.utils.build import build
-    info = build("lstm_recurrence")
+    """Every native library of the path, each compiler started at once:
+    the LSTM kernel (nvcc), the audio runtime (g++), and the FFmpeg codec
+    (g++, built only where FFmpeg's headers are found)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pyannote_audio_tpu_torch.utils import native
+    from pyannote_audio_tpu_torch.utils.build import build, build_host
+    with ThreadPoolExecutor(3) as pool:
+        kernel = pool.submit(build, "lstm_recurrence")
+        audio = pool.submit(build_host, "pat_audio")
+        codec = pool.submit(native.codec_available)
+        info, audio_info, has_codec = (kernel.result(), audio.result(),
+                                       codec.result())
     log(f"built {info['path'].name} in {info['seconds']:.2f} s")
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line:
             log("  " + line.strip())
+    log(f"built {audio_info['path'].name} in {audio_info['seconds']:.2f} s "
+        f"(g++); FFmpeg codec library built: {has_codec}")
 
 
 def layer_inputs(device, T, B, D_in, H, D, seed=0):
@@ -288,6 +315,12 @@ def phase_kernels(device: torch.device) -> dict:
     shapes = [(f"main B={B} layer {layer}", 589, B, D_in, 128, 2)
               for B in sorted(set(segmentation_batches()), reverse=True)
               for layer, D_in in enumerate((60, 256))]
+    # phase 8's multi-label PyanNet on 5 s chunks: T = 293 frames, every
+    # batch size of its 10-minute file, layer 0 and layers 1-3
+    shapes += [(f"5 s chunks B={B} layer {name}", 293, B, D_in, 128, 2)
+               for B in sorted(set(segmentation_batches(
+                   FILE_MINUTES[:1], 5.0)), reverse=True)
+               for name, D_in in (("0", 60), ("1-3", 256))]
     shapes += [("B=1 T=1 H=8", 1, 1, 5, 8, 2),
                ("H=96", 33, 4, 60, 96, 2),
                ("B=3", 40, 3, 60, 128, 2),
@@ -347,6 +380,29 @@ def phase_kernels(device: torch.device) -> dict:
         f"{layer_ms:.3f} ms; cuDNN torch.nn.LSTM "
         + ", ".join(f"{k} {'%.3f ms' % v if v is not None else 'n/a'}"
                     for k, v in library.items()))
+    # the same at T = 293 (5 s chunks), "default" as the main path runs it
+    T5 = 293
+    xw5, w_hh5, (x5, w_ih5, b5) = layer_inputs(device, T5, B, D_in, H, D)
+    prepared5 = prepare_recurrent_weights(w_hh5, "default")
+    kernel5_ms = cuda_ms(lambda: lstm_bidirectional_recurrence(
+        xw5, w_hh5, "default", prepared5), runs=20)
+    plain5_ms = cuda_ms(lambda: lstm_bidirectional_recurrence_plain(
+        xw5, w_hh5, "default"), runs=3, warmup=1)
+    layer5_ms = cuda_ms(lambda: lstm_bidirectional_recurrence(
+        (x5 @ w_ih5.t() + b5).contiguous(), w_hh5, "default", prepared5),
+        runs=20)
+    bound5 = lstm_bound(T5, B, H, D, "default", prepared5.packed.numel()
+                        * prepared5.packed.element_size())
+    library5 = library_lstm_ms(device, T5, B, D_in, H)
+    t293 = {"ms": kernel5_ms, "plain_ms": plain5_ms, "layer_ms": layer5_ms,
+            "library": library5, **bound5}
+    log(f"lstm_recurrence default at (293, 256, 1024) -> (293, 256, 256): "
+        f"kernel {kernel5_ms:.3f} ms, plain {plain5_ms:.3f} ms; bound "
+        f"{bound5['bound_ms']:.4f} ms ({bound5['bound_by']}); layer "
+        f"(projection + kernel) {layer5_ms:.3f} ms; cuDNN torch.nn.LSTM "
+        + ", ".join(f"{k} {'%.3f ms' % v if v is not None else 'n/a'}"
+                    for k, v in library5.items()))
+
     main = modes["default"]
     return {"name": "lstm_recurrence", "route": "cuda",
             "source": "pyannote_audio_tpu_torch/csrc/lstm_recurrence.cu",
@@ -356,7 +412,7 @@ def phase_kernels(device: torch.device) -> dict:
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": library["float32"], "modes": modes,
             "layer_ms": layer_ms, "projection_ms": projection_ms,
-            "library": library}
+            "library": library, "t293": t293}
 
 
 def build_pipeline(segmentation, embedding, device):
@@ -1111,8 +1167,15 @@ def check_long_file(pipeline, device) -> dict:
     got = [(s.a, s.b, s.i0, s.i1) for s in sliced["plan"] or []]
     if got != LONG_PLAN or whole["plan"] is not None:
         raise AssertionError(f"(h) slice plan {got} != {LONG_PLAN}")
+    from pyannote_audio_tpu_torch.utils.flops import \
+        diarization_resident_hbm_bytes as modelled
+    longest = max(s.b - s.a for s in sliced["plan"]) / SAMPLE_RATE
     log(f"(h) peak sliced {sliced['peak'] / 2**30:.3f} GiB vs whole "
-        f"{whole['peak'] / 2**30:.3f} GiB (limit: lower)")
+        f"{whole['peak'] / 2**30:.3f} GiB (limit: lower); modelled by "
+        f"utils/flops.py diarization_resident_hbm_bytes: largest slice "
+        f"({longest / 60:.1f} min) "
+        f"{modelled(longest)['total'] / 2**30:.3f} GiB, whole "
+        f"{modelled(LONG_MINUTES * 60)['total'] / 2**30:.3f} GiB")
     if not sliced["peak"] < whole["peak"]:
         raise AssertionError("(h) slicing did not lower the peak")
     check_same_diarization("(h) sliced vs whole", sliced["traced"],
@@ -1550,8 +1613,9 @@ def on_card(pipeline) -> bool:
 
 
 def phase_community(device: torch.device, workdir: Path,
-                    ahc_pipeline) -> dict:
-    """(l) The community-1 shape on the card; returns its LSTM launches."""
+                    ahc_pipeline) -> tuple:
+    """(l) The community-1 shape on the card; returns its LSTM launches
+    and the snapshot's config dict."""
     from pyannote_audio_tpu_torch import Pipeline
     from pyannote_audio_tpu_torch.pipelines.clustering import VBxClustering
     set_gates(None)
@@ -1632,7 +1696,610 @@ def phase_community(device: torch.device, workdir: Path,
         raise AssertionError("(l) no label was mapped onto the annotation")
 
     check_device_clustering(pipeline, inputs[0], device)
-    return counts["lstm_launches"]
+    return counts["lstm_launches"], config
+
+
+# -- phase 8 ------------------------------------------------------------------
+
+# (n): the shape of pyannote/segmentation 2.x, a sigmoid head over 3
+# speakers on 5 s chunks after 4 BiLSTM layers of 128. Torch's init leaves
+# a random 4-layer BiLSTM's output almost constant in time (each class's
+# logit spreads by about 4e-4 over 30 s of synth audio), so the BiLSTM and
+# linear weights are drawn at 3x its bound, and the head is centred on
+# each class's median logit over that audio and scaled to a spread of 1.5:
+# every class then crosses its threshold as the audio moves
+ML_CLASSES = ("speaker#1", "speaker#2", "speaker#3")
+ML_CHUNK_SECONDS = 5.0
+ML_LSTM_LAYERS = 4
+ML_WEIGHT_SCALE = 3.0
+ML_LOGIT_SPREAD = 1.5
+ML_THRESHOLD = 0.5
+ML_PARAMS = {"thresholds": {c: {"onset": ML_THRESHOLD,
+                                "offset": ML_THRESHOLD,
+                                "min_duration_on": 0.0,
+                                "min_duration_off": 0.0}
+                            for c in ML_CLASSES}}
+NON_POWERSET_PARAMS = {"segmentation": {"threshold": ML_THRESHOLD,
+                                        "min_duration_off": 0.0},
+                       "clustering": PARAMS["clustering"]}
+VAD_PARAMS = {"min_duration_on": 0.0, "min_duration_off": 0.0}
+# card against CPU: a binarized frame may differ only where the CPU's
+# score lies within the bf16 SincNet bound of the threshold, or (VAD on a
+# powerset model) where a near-tie powerset flip feeds the frame
+NEAR_THRESHOLD = BF16_SINC_ATOL
+# (o): the high-rate files; the batch decoder against one-by-one decode
+# (tests/test_torch_port_io.py's resampling bound)
+AUDIO_MINUTES = 10.0
+PREDECODE_ATOL = 1e-6
+# (p): device linkage against scipy's (tests/test_ahc.py's bounds on the
+# sorted heights); the merge sequences may part only at a near tie (both
+# heights within AHC_TIE), and only then may the partitions differ
+AHC_HEIGHT_RTOL, AHC_HEIGHT_ATOL = 5e-3, 5e-4
+AHC_TIE = 1e-4
+# (q): float32 index_add_ sums in another order on the card
+AGGREGATE_ATOL = 1e-5
+
+
+def reset_lstm() -> None:
+    from pyannote_audio_tpu_torch.ops.lstm_kernel import \
+        lstm_bidirectional_recurrence
+    lstm_bidirectional_recurrence.launches = 0
+
+
+def lstm_launches() -> int:
+    from pyannote_audio_tpu_torch.ops.lstm_kernel import \
+        lstm_bidirectional_recurrence
+    return lstm_bidirectional_recurrence.launches
+
+
+def make_multilabel_model() -> torch.nn.Module:
+    """(n)'s PyanNet: published widths (sinc stride 10, BiLSTM 4 x 128, 2 x
+    Linear 128), a sigmoid head over ML_CLASSES, seeded weights scaled and
+    the head calibrated as ML_WEIGHT_SCALE's comment says (on the CPU)."""
+    from pyannote_audio_tpu_torch.core.inference import chunk_views
+    from pyannote_audio_tpu_torch.core.model import Problem, Specifications
+    from pyannote_audio_tpu_torch.models.segmentation.pyannet import PyanNet
+    spec = Specifications(duration=ML_CHUNK_SECONDS, classes=list(ML_CLASSES),
+                          problem=Problem.MULTI_LABEL_CLASSIFICATION)
+    model = PyanNet(spec, lstm_layers=ML_LSTM_LAYERS,
+                    generator=torch.Generator().manual_seed(3)).eval()
+    window = int(ML_CHUNK_SECONDS * SAMPLE_RATE)
+    chunks = chunk_views(torch.from_numpy(synth(0.5, seed=7)[None]), window,
+                         window // 10).contiguous()
+    with torch.no_grad():
+        for name, p in model.lstm.named_parameters():
+            if name.startswith("weight"):
+                p.mul_(ML_WEIGHT_SCALE)
+        for layer in model.linear:
+            layer.weight.mul_(ML_WEIGHT_SCALE)
+        logit = torch.logit(model(chunks).flatten(0, 1).double())
+        gain = ML_LOGIT_SPREAD / logit.std(0)
+        median = logit.median(0).values
+        model.classifier.weight.mul_(gain[:, None].float())
+        model.classifier.bias.sub_(median.float()).mul_(gain.float())
+    return model
+
+
+def short_file() -> dict:
+    return {"waveform": synth(0.5, seed=7)[None], "sample_rate": SAMPLE_RATE,
+            "uri": "short"}
+
+
+def binarized_frames(label: str, ours: np.ndarray, theirs: np.ndarray,
+                     threshold: float, allowed: np.ndarray = None
+                     ) -> np.ndarray:
+    """Hold the card's (frames, ...) scores ``ours`` to the CPU's
+    ``theirs`` at ``threshold``: every frame binarized otherwise must lie
+    within NEAR_THRESHOLD of it on the CPU, or be ``allowed``. Returns the
+    mask of differing frames."""
+    differ = (ours > threshold) != (theirs > threshold)
+    near = np.abs(theirs - threshold) <= NEAR_THRESHOLD
+    if allowed is not None:
+        near = near | allowed.reshape(allowed.shape + (1,) * (
+            near.ndim - allowed.ndim))
+    err = np.abs(ours - theirs).max()
+    log(f"{label}: scores max_abs_err {err:.3e}; {int(differ.sum())} of "
+        f"{differ.size} binarized values differ at threshold {threshold}, "
+        f"{int((differ & ~near).sum())} of them farther than "
+        f"{NEAR_THRESHOLD} from it on the CPU (limit 0)"
+        + ("" if allowed is None else
+           f" and fed by no near-tie powerset flip"))
+    if not np.isfinite(ours).all() or (differ & ~near).any():
+        raise AssertionError(f"{label}: the card binarizes frames "
+                             f"otherwise than the CPU away from the "
+                             f"threshold")
+    return differ
+
+
+def powerset_flips(label: str, model_gpu, model_cpu, device,
+                   waveform: np.ndarray, duration: float, step: float):
+    """Chunk frames whose powerset argmax differs between the card and the
+    CPU (each must be a near tie: its CPU margin within twice the log-prob
+    error), and the chunk window."""
+    from pyannote_audio_tpu_torch.core.inference import Inference
+    logp = {}
+    for name, model, dev in (("card", model_gpu, device),
+                             ("cpu", model_cpu, "cpu")):
+        inference = Inference(model, duration=duration, step=step,
+                              batch_size=BATCH_SIZE, skip_aggregation=True,
+                              skip_conversion=True, device=dev)
+        with torch.inference_mode():
+            out = inference.slide(waveform, SAMPLE_RATE, cache={})
+        logp[name] = out.data.float().cpu()
+    err = (logp["card"] - logp["cpu"]).abs().max().item()
+    top_gpu, top_cpu = logp["card"].argmax(-1), logp["cpu"].argmax(-1)
+    flips = np.argwhere((top_gpu != top_cpu).numpy())
+    margins = [(logp["cpu"][c, f, top_cpu[c, f]]
+                - logp["cpu"][c, f, top_gpu[c, f]]).item() for c, f in flips]
+    log(f"{label}: log-prob max_abs_err {err:.3e}; {len(flips)} of "
+        f"{top_cpu.numel()} chunk frames flip their powerset class, largest "
+        f"CPU margin {max(margins, default=0.0):.3e} (limit {2 * err:.3e})")
+    if max(margins, default=0.0) > 2 * err:
+        raise AssertionError(f"{label}: a powerset flip is not a near tie")
+    return flips, out.sliding_window, len(logp["cpu"])
+
+
+def vad_config(config: dict) -> dict:
+    """VoiceActivityDetection over the community-1 snapshot's
+    segmentation model, as a config dict."""
+    return {"checkpoint": config["checkpoint"], "version": config["version"],
+            "pipeline": {"name": "pyannote.audio.pipelines."
+                                 "VoiceActivityDetection",
+                         "params": {"segmentation": "$model/segmentation",
+                                    "batch_size": BATCH_SIZE}},
+            "params": VAD_PARAMS}
+
+
+def check_vad(device, workdir: Path, config: dict) -> int:
+    """(m) VoiceActivityDetection loaded by ``Pipeline.from_pretrained``
+    from a config dict over the community-1 snapshot: the card against
+    the CPU on 30 s, then 10 + 3 min on the card; returns its LSTM
+    launches."""
+    from pyannote_audio_tpu_torch import Pipeline
+    from pyannote_audio_tpu_torch.pipelines.speaker_diarization import \
+        SpeakerDiarization
+    from pyannote_audio_tpu_torch.pipelines.voice_activity_detection import \
+        VoiceActivityDetection
+    cfg = vad_config(config)
+    pipeline = Pipeline.from_pretrained(cfg, device=device)
+    cpu = Pipeline.from_pretrained(cfg, device="cpu")
+    if not (isinstance(pipeline, VoiceActivityDetection)
+            and next(pipeline._segmentation.model.parameters()).device.type
+            == torch.device(device).type):
+        raise AssertionError("(m) the VAD did not load onto the card")
+    file = short_file()
+    inference = pipeline._segmentation
+    flips, chunk_window, num_chunks = powerset_flips(
+        "(m) VAD's PyanNet, card vs CPU on 30 s", inference.model,
+        cpu._segmentation.model, device, file["waveform"],
+        inference.duration, inference.step)
+    frames = inference.model.receptive_field
+    offsets, _, _ = SpeakerDiarization._aggregation_grid(
+        chunk_window, frames, num_chunks)
+    with torch.inference_mode():
+        ours = inference(dict(file)).data
+        theirs = cpu._segmentation(dict(file)).data
+    fed = np.zeros(len(theirs), dtype=bool)
+    for c, f in flips:
+        if offsets[c] + f < len(fed):
+            fed[offsets[c] + f] = True
+    differ = binarized_frames("(m) VAD speech scores (max over speakers), "
+                              "card vs CPU on 30 s", ours, theirs, 0.5,
+                              allowed=fed)
+    a, b = pipeline(dict(file)), cpu(dict(file))
+    log(f"(m) VAD on 30 s: {len(a)} vs {len(b)} speech segments, labels "
+        f"{a.labels()}; equal: {a == b}")
+    if not len(a) or a.labels() != ["SPEECH"] or (
+            not differ.any() and a != b):
+        raise AssertionError("(m) the VAD's speech timeline differs from "
+                             "the CPU's")
+    del cpu
+
+    files = write_files(workdir, FILE_MINUTES)
+    pipeline([dict(f) for f in files])                         # warm
+    torch.cuda.synchronize()
+    reset_lstm()
+    outputs = pipeline([dict(f) for f in files])
+    torch.cuda.synchronize()
+    launches = lstm_launches()
+    expected = 2 * len(segmentation_batches())
+    wall = wall_seconds(lambda: pipeline([dict(f) for f in files]))
+    log(f"(m) VAD on 10 + 3 min through the list path: "
+        f"{[len(o) for o in outputs]} speech segments; lstm_recurrence "
+        f"launches {launches} (expected {expected}: 2 layers x "
+        f"{expected // 2} batches); warm pass {wall:.3f} s = "
+        f"{wall * 60 / sum(FILE_MINUTES):.3f} s per audio-hour")
+    if launches != expected or not all(len(o) for o in outputs):
+        raise AssertionError("(m) the VAD did not run through the LSTM "
+                             "kernel as expected")
+    return launches
+
+
+def non_powerset_pipeline(segmentation, embedding, device):
+    from pyannote_audio_tpu_torch.pipelines.speaker_diarization import \
+        SpeakerDiarization
+    pipeline = SpeakerDiarization(
+        segmentation=segmentation, embedding=embedding,
+        clustering="AgglomerativeClustering",
+        segmentation_batch_size=BATCH_SIZE, embedding_batch_size=BATCH_SIZE,
+        device=device)
+    return pipeline.instantiate(NON_POWERSET_PARAMS)
+
+
+@contextlib.contextmanager
+def exact_path():
+    """The exact path's settings: the accelerator gates "0" and the LSTM
+    at "highest"; the gates are unset on exit."""
+    with lstm_precision_env("highest"):
+        set_gates("0")
+        try:
+            yield
+        finally:
+            set_gates(None)
+
+
+def check_non_powerset_exact(model, device) -> None:
+    """(n) non-powerset SpeakerDiarization, the card against the CPU on
+    30 s on the exact path (float32 everywhere, as phase 4 holds the
+    powerset one): the binarized chunk frames and the hard clusters."""
+    from pyannote_audio_tpu_torch.ops.binarize import hysteresis
+    file = short_file()
+    seen = {}
+    with exact_path():
+        embedding = make_models(torch.float32)[1]
+        for name, dev in (("card", device), ("cpu", "cpu")):
+            pipeline = non_powerset_pipeline(
+                copy.deepcopy(model).to(dev), copy.deepcopy(embedding), dev)
+            seen[name] = traced_run(pipeline, file)
+    (out, ours), (ref, theirs) = seen["card"], seen["cpu"]
+
+    def binarize(scores):
+        return hysteresis(torch.from_numpy(scores).transpose(0, 1),
+                          ML_THRESHOLD, ML_THRESHOLD,
+                          initial_on=False).transpose(0, 1).numpy()
+    a, b = binarize(ours["scores"]), binarize(theirs["scores"])
+    near = np.abs(theirs["scores"] - ML_THRESHOLD) <= NEAR_THRESHOLD
+    differ = a != b
+    touched = differ.any(axis=(1, 2))
+    same = np.array_equal(ours["clusters"][~touched],
+                          theirs["clusters"][~touched])
+    log(f"(n) non-powerset diarization, exact path, card vs CPU on 30 s: "
+        f"scores max_abs_err "
+        f"{np.abs(ours['scores'] - theirs['scores']).max():.3e}; "
+        f"{int(differ.sum())} of {differ.size} binarized chunk frames "
+        f"differ, {int((differ & ~near).sum())} farther than "
+        f"{NEAR_THRESHOLD} from the threshold (limit 0); hard clusters "
+        f"equal on the {int((~touched).sum())} untouched chunks: {same}; "
+        f"{len(out.speaker_diarization)} vs {len(ref.speaker_diarization)} "
+        f"segments, labels {out.speaker_diarization.labels()}")
+    if (differ & ~near).any() or not same or \
+            not len(out.speaker_diarization):
+        raise AssertionError("(n) non-powerset diarization on the card "
+                             "disagrees with the CPU")
+
+
+def check_multilabel(device, workdir: Path) -> dict:
+    """(n) MultiLabelSegmentation and non-powerset SpeakerDiarization with
+    make_multilabel_model: card against CPU on 30 s on the exact path,
+    the accelerator path's distance from it as a measurement (bf16
+    SincNet's rounding exceeds this random model's input-driven spread),
+    then both timed on the card at its defaults with their LSTM
+    launches."""
+    from pyannote_audio_tpu_torch.pipelines.multilabel import \
+        MultiLabelSegmentation
+    model = make_multilabel_model()
+    check_non_powerset_exact(model, device)
+    cpu_model = copy.deepcopy(model)
+    multilabel = MultiLabelSegmentation(
+        model, batch_size=BATCH_SIZE, device=device).instantiate(ML_PARAMS)
+    cpu = MultiLabelSegmentation(
+        cpu_model, batch_size=BATCH_SIZE, device="cpu").instantiate(ML_PARAMS)
+    file = short_file()
+    with exact_path(), torch.inference_mode():
+        ours = multilabel._segmentation(dict(file)).data
+        theirs = cpu._segmentation(dict(file)).data
+        a, b = multilabel(dict(file)), cpu(dict(file))
+    differ = binarized_frames("(n) MultiLabelSegmentation scores, exact "
+                              "path, card vs CPU on 30 s", ours, theirs,
+                              ML_THRESHOLD)
+    log(f"(n) MultiLabelSegmentation on 30 s: {len(a)} vs {len(b)} "
+        f"segments, labels {a.labels()}; equal: {a == b}")
+    if not len(a) or (not differ.any() and a != b):
+        raise AssertionError("(n) MultiLabelSegmentation differs from the "
+                             "CPU")
+    del cpu, cpu_model
+    with torch.inference_mode():
+        fast = multilabel._segmentation(dict(file)).data
+    flipped = (fast > ML_THRESHOLD) != (ours > ML_THRESHOLD)
+    log(f"(n) measurement: the accelerator path's scores (bf16 SincNet, "
+        f"\"default\" LSTM) against the exact path's on the card: "
+        f"max_abs_err {np.abs(fast - ours).max():.3e}, {int(flipped.sum())} "
+        f"of {flipped.size} binarized values differ")
+
+    launches = {}
+    ten = write_files(workdir, FILE_MINUTES[:1])[0]
+    multilabel(dict(ten))                                       # warm
+    torch.cuda.synchronize()
+    reset_lstm()
+    out = multilabel(dict(ten))
+    torch.cuda.synchronize()
+    launches["multilabel"] = lstm_launches()
+    expected = ML_LSTM_LAYERS * len(segmentation_batches(
+        FILE_MINUTES[:1], ML_CHUNK_SECONDS))
+    wall = wall_seconds(lambda: multilabel(dict(ten)))
+    log(f"(n) MultiLabelSegmentation on {FILE_MINUTES[0]:g} min: {len(out)} "
+        f"segments over {out.labels()}; lstm_recurrence launches "
+        f"{launches['multilabel']} (expected {expected}: {ML_LSTM_LAYERS} "
+        f"layers x {expected // ML_LSTM_LAYERS} batches of 5 s chunks); "
+        f"warm pass {wall:.3f} s = {wall * 60 / FILE_MINUTES[0]:.3f} s per "
+        f"audio-hour")
+    if launches["multilabel"] != expected or not len(out):
+        raise AssertionError("(n) MultiLabelSegmentation did not run "
+                             "through the LSTM kernel as expected")
+
+    pipeline = non_powerset_pipeline(model, make_models(torch.bfloat16)[1],
+                                     device)
+    files = write_files(workdir, FILE_MINUTES)
+    run_batch(pipeline, files)                                  # warm
+    torch.cuda.synchronize()
+    reset_counts(pipeline)
+    outputs = run_batch(pipeline, files)
+    torch.cuda.synchronize()
+    counts = read_counts(pipeline)
+    check_outputs(files, outputs)
+    expected = ML_LSTM_LAYERS * len(segmentation_batches(FILE_MINUTES,
+                                                         ML_CHUNK_SECONDS))
+    log(f"(n) non-powerset diarization, 10 + 3 min through apply_batch: "
+        f"counts {counts} (lstm_launches expected {expected})")
+    if counts["lstm_launches"] != expected:
+        raise AssertionError("(n) non-powerset diarization did not run "
+                             "through the LSTM kernel as expected")
+    launches["diarization (non-powerset)"] = counts["lstm_launches"]
+    timed_passes(pipeline, files, sum(FILE_MINUTES),
+                 "(n) non-powerset diarization")
+    return launches
+
+
+def write_wav_as(path: Path, waveform: np.ndarray, rate: int,
+                 encoding: str) -> None:
+    """A (channel, time) waveform as 24-bit PCM ("pcm24") or float32
+    ("float32") WAV."""
+    import struct
+    frames = waveform.T
+    if encoding == "float32":
+        code, bits, data = 3, 32, frames.astype("<f4").tobytes()
+    else:
+        ints = np.clip(np.round(frames * 2.0 ** 23), -2 ** 23,
+                       2 ** 23 - 1).astype("<i4").ravel()
+        code, bits = 1, 24
+        data = ints.view(np.uint8).reshape(-1, 4)[:, :3].tobytes()
+    channels = waveform.shape[0]
+    block = channels * bits // 8
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", 36 + len(data)) + b"WAVEfmt ")
+        f.write(struct.pack("<IHHIIHH", 16, code, channels, rate,
+                            rate * block, block, bits))
+        f.write(b"data" + struct.pack("<I", len(data)))
+        f.write(data)
+
+
+def check_audio(pipeline, workdir: Path) -> None:
+    """(o) High-rate WAVs through SpeakerDiarization on the card against
+    the same audio pre-resampled to 16 kHz PCM16 by the port's own
+    resampler; then ``_predecode_batch`` against one-by-one decode."""
+    from pyannote_audio_tpu_torch.core.io import Audio, write_wav
+    sources = {
+        "44.1 kHz stereo 24-bit": (np.stack([
+            synth(AUDIO_MINUTES, seed=11, rate=44100),
+            synth(AUDIO_MINUTES, seed=12, rate=44100)]), 44100, "pcm24"),
+        "48 kHz float32": (synth(AUDIO_MINUTES, seed=13, rate=48000)[None],
+                           48000, "float32")}
+    audio = Audio(sample_rate=SAMPLE_RATE)
+    frames = pipeline._segmentation.model.receptive_field
+    high_rate = []
+    for k, (label, (waveform, rate, encoding)) in enumerate(sources.items()):
+        path = workdir / f"audio_{k}_{rate}.wav"
+        write_wav_as(path, waveform, rate, encoding)
+        del waveform
+        high_rate.append({"audio": str(path), "uri": path.stem})
+        resampled, _ = audio(str(path))
+        pcm16_path = workdir / f"audio_{k}_16k.wav"
+        write_wav(pcm16_path, resampled, SAMPLE_RATE)
+        pcm16, _ = audio(str(pcm16_path))
+        file = {"audio": str(path), "uri": path.stem}
+        reference = {"audio": str(pcm16_path), "uri": pcm16_path.stem}
+        pipeline(dict(file), max_speakers=4)                    # warm
+        decode = {}
+        for name, f in (("high", file), ("pcm16", reference)):
+            seconds = {}
+            with stage_timer(pipeline, seconds):
+                wall = wall_seconds(lambda: pipeline(dict(f), max_speakers=4))
+            decode[name] = (seconds["decode"], wall)
+        log(f"(o) {label} WAV, {AUDIO_MINUTES:g} min, through "
+            f"SpeakerDiarization on the card: decode + downmix + resample "
+            f"stage {decode['high'][0]:.3f} s in a {decode['high'][1]:.3f} s "
+            f"pass; the same audio as 16 kHz PCM16: decode "
+            f"{decode['pcm16'][0]:.3f} s in {decode['pcm16'][1]:.3f} s")
+        check_same_diarization(
+            f"(o) {label} vs pre-resampled 16 kHz PCM16",
+            traced_run(pipeline, file), traced_run(pipeline, reference),
+            logprobs(pipeline, resampled), logprobs(pipeline, pcm16), frames)
+
+    files = write_files(workdir, SERVING_MINUTES) + high_rate
+    batch = [dict(f) for f in files]
+    start = time.perf_counter()
+    pipeline._predecode_batch(batch)
+    batch_s = time.perf_counter() - start
+    one_by_one = [dict(f) for f in files]
+    start = time.perf_counter()
+    for f in one_by_one:
+        pipeline._decode_into(f, False)
+    sequential_s = time.perf_counter() - start
+    err = max(np.abs(np.asarray(a["waveform"]) - np.asarray(b["waveform"]))
+              .max() for a, b in zip(batch, one_by_one))
+    shapes = all(np.asarray(a["waveform"]).shape
+                 == np.asarray(b["waveform"]).shape
+                 for a, b in zip(batch, one_by_one))
+    log(f"(o) _predecode_batch on the serving list and the two high-rate "
+        f"files ({sum(SERVING_MINUTES) + 2 * AUDIO_MINUTES:g} min): "
+        f"{batch_s:.3f} s of host time, one by one {sequential_s:.3f} s; "
+        f"waveforms max_abs_err {err:.3e} (limit {PREDECODE_ATOL})")
+    if not (shapes and err <= PREDECODE_ATOL
+            and all(f.get("_batch_decoded") for f in batch)):
+        raise AssertionError("(o) the batch decoder disagrees with "
+                             "one-by-one decode")
+
+
+def partition_equal(a: np.ndarray, b: np.ndarray) -> bool:
+    pairs = set(zip(a.ravel().tolist(), b.ravel().tolist()))
+    return len(pairs) == len({x for x, _ in pairs}) == \
+        len({y for _, y in pairs})
+
+
+def check_device_ahc(pipeline, device, workdir: Path) -> dict:
+    """(p) PYANNOTE_TPU_DEVICE_AHC=1 against host scipy on the serving
+    list: partitions, linkages and times."""
+    from scipy.cluster.hierarchy import fcluster, linkage
+    from pyannote_audio_tpu_torch.ops.ahc import device_linkage
+    from pyannote_audio_tpu_torch.pipelines.clustering import _unit
+    files = write_files(workdir, SERVING_MINUTES)
+    passes, inputs, results = {}, {}, {}
+    for gate in ("0", "1", "0", "1"):
+        with environ({"PYANNOTE_TPU_DEVICE_AHC": gate}):
+            run_batch(pipeline, files[-2:])                     # warm
+            seconds, captured = {}, []
+
+            def call(gate=gate):
+                results[gate] = run_batch(pipeline, files)
+            with host_timers(pipeline, seconds), \
+                    clustering_timer(pipeline, seconds, captured):
+                seconds["wall"] = wall_seconds(call)
+        passes.setdefault(gate, []).append(seconds)
+        inputs[gate] = captured
+    for gate, label in (("0", "host scipy"), ("1", "device AHC")):
+        log(f"(p) serving list {sum(SERVING_MINUTES):g} min through "
+            f"apply_batch, {label}: " + "; ".join(
+                f"wall {r['wall']:.3f} s, _finalize {r['finalize']:.3f} s "
+                f"(clustering {r['clustering']:.3f} s)"
+                for r in passes[gate]))
+    clustering = pipeline.clustering
+    totals = {"scipy": 0.0, "device": 0.0}
+    for f, (args, kwargs, host_out), dev_res, host_res in zip(
+            files, inputs["0"], results["1"], results["0"]):
+        embeddings, clean_frames = args
+        train, _, _ = clustering.filter_embeddings(
+            embeddings, clean_frames, kwargs["num_frames"])
+        normed = _unit(train)
+        start = time.perf_counter()
+        host_z = linkage(normed, method="centroid", metric="euclidean")
+        scipy_s = time.perf_counter() - start
+        device_linkage(normed[:8], device=device)               # warm
+        start = time.perf_counter()
+        dev_z = device_linkage(normed, device=device)
+        device_s = time.perf_counter() - start
+        totals["scipy"] += scipy_s
+        totals["device"] += device_s
+        threshold = clustering.threshold
+        heights, dev_heights = np.sort(host_z[:, 2]), np.sort(dev_z[:, 2])
+        heights_ok = np.allclose(dev_heights, heights, rtol=AHC_HEIGHT_RTOL,
+                                 atol=AHC_HEIGHT_ATOL)
+        cut_same = partition_equal(
+            fcluster(host_z, threshold, criterion="distance"),
+            fcluster(dev_z, threshold, criterion="distance"))
+        # the first merge where the two sequences part: there both picked
+        # a pair at the least distance, so the heights must agree there
+        # within AHC_TIE (a near tie that float32 and float64 order apart)
+        parted = np.flatnonzero((np.sort(host_z[:, :2], axis=1)
+                                 != np.sort(dev_z[:, :2], axis=1)).any(1))
+        first = int(parted[0]) if len(parted) else None
+        gap = abs(host_z[first, 2] - dev_z[first, 2]) if first is not None \
+            else 0.0
+        with environ({"PYANNOTE_TPU_DEVICE_AHC": "1"}):
+            dev_out = clustering(*args, **kwargs)
+        same = partition_equal(dev_out[0], host_out[0])
+        same_annotation = dev_res.speaker_diarization == \
+            host_res.speaker_diarization
+        log(f"(p) {f['uri']}: {len(train)} embeddings clustered; linkage "
+            f"scipy {scipy_s * 1e3:.1f} ms, device {device_s * 1e3:.1f} ms; "
+            f"sorted heights within rtol {AHC_HEIGHT_RTOL} / atol "
+            f"{AHC_HEIGHT_ATOL}: {heights_ok} (max diff "
+            f"{np.abs(dev_heights - heights).max(initial=0.0):.3e}); merge "
+            f"sequences part at step {first} of {len(host_z)}, height gap "
+            f"there {gap:.3e} (limit {AHC_TIE}); cut at {threshold} equal: "
+            f"{cut_same}; pipeline hard clusters equal: {same}, annotation "
+            f"equal: {same_annotation}; last merge covers "
+            f"{int(dev_z[-1, 3]) if len(dev_z) else 1} of {len(train)}")
+        if not (heights_ok and gap <= AHC_TIE and (
+                len(dev_z) == 0 or int(dev_z[-1, 3]) == len(train))):
+            raise AssertionError(f"(p) device linkage disagrees with scipy "
+                                 f"on {f['uri']}")
+        if first is None and not (cut_same and same and same_annotation):
+            raise AssertionError(f"(p) the same merges gave another "
+                                 f"partition on {f['uri']}")
+    log(f"(p) linkage of the serving list's embeddings: scipy "
+        f"{totals['scipy']:.3f} s, device {totals['device']:.3f} s")
+    return {"passes": passes, "linkage": totals}
+
+
+def check_binarize_aggregate(model, device) -> None:
+    """(q) ``ops.binarize.hysteresis`` and ``ops.aggregate.
+    aggregate_scores`` on the card against the CPU at the VAD's sizes on
+    the serving list (10 s chunks at 1 s steps, one score per frame, a
+    NaN stretch in every chunk)."""
+    from pyannote_audio_tpu_torch.core.inference import _chunk_grid
+    from pyannote_audio_tpu_torch.ops.aggregate import aggregate_scores
+    from pyannote_audio_tpu_torch.ops.binarize import hysteresis
+    frames = model.receptive_field
+    per_chunk = model.num_frames(10 * SAMPLE_RATE)
+    rng = np.random.default_rng(13)
+    worst, card_ms, hysteresis_ms, cpu_ms, sizes = 0.0, 0.0, 0.0, 0.0, []
+    for minutes in SERVING_MINUTES:
+        n = int(minutes * 60 * SAMPLE_RATE)
+        starts, _ = _chunk_grid(n, 10 * SAMPLE_RATE, SAMPLE_RATE)
+        scores = rng.random((len(starts), per_chunk, 1), dtype=np.float32)
+        scores[:, 100:140] = np.nan
+        offsets = np.rint((starts / SAMPLE_RATE - frames.start)
+                          / frames.step).astype(np.int64)
+        total = max(int(n / SAMPLE_RATE / frames.step),
+                    int(offsets[-1]) + per_chunk)
+        host = (torch.from_numpy(scores), torch.from_numpy(offsets))
+        card = tuple(t.to(device) for t in host)
+        start = time.perf_counter()
+        ref = aggregate_scores(*host, total, hamming=True, missing=0.0)
+        binary_ref = hysteresis(ref, 0.6, 0.4)
+        cpu_ms += (time.perf_counter() - start) * 1e3
+        out = aggregate_scores(*card, total, hamming=True, missing=0.0)
+        worst = max(worst, (out.cpu() - ref).abs().max().item())
+        if not (torch.isfinite(out).all() and torch.equal(
+                hysteresis(ref.to(device), 0.6, 0.4).cpu(), binary_ref)):
+            raise AssertionError("(q) hysteresis on the card differs from "
+                                 "the CPU")
+        card_ms += cuda_ms(lambda: aggregate_scores(
+            *card, total, hamming=True, missing=0.0), runs=10)
+        hysteresis_ms += cuda_ms(lambda: hysteresis(out, 0.6, 0.4), runs=10)
+        sizes.append((len(starts), total))
+    log(f"(q) aggregate_scores + hysteresis at the serving list's VAD sizes "
+        f"(chunks, output frames) {sizes}: aggregation card vs CPU "
+        f"max_abs_err {worst:.3e} (limit {AGGREGATE_ATOL}); hysteresis "
+        f"equal; card {card_ms:.3f} ms + {hysteresis_ms:.3f} ms (medians of "
+        f"10, summed over the files), CPU {cpu_ms:.1f} ms for both")
+    if worst > AGGREGATE_ATOL:
+        raise AssertionError("(q) aggregation on the card differs from the "
+                             "CPU")
+
+
+def phase_vad_multilabel_audio(device, workdir: Path, pipeline,
+                               config: dict) -> dict:
+    """Phase 8: VAD, multilabel and non-powerset diarization, audio at any
+    rate, device AHC, device hysteresis and aggregation; returns the LSTM
+    launches of each new path."""
+    set_gates(None)
+    launches = {"vad": check_vad(device, workdir, config)}
+    launches.update(check_multilabel(device, workdir))
+    check_audio(pipeline, workdir)
+    check_device_ahc(pipeline, device, workdir)
+    check_binarize_aggregate(pipeline._segmentation.model, device)
+    return launches
 
 
 def main() -> int:
@@ -1651,8 +2318,10 @@ def main() -> int:
                                                               Path(tmp))
         phase_serving(pipeline, device, Path(tmp))
         phase_default_flags(device)
-        launches["community-1 (VBx)"] = phase_community(device, Path(tmp),
-                                                        pipeline)
+        launches["community-1 (VBx)"], config = phase_community(
+            device, Path(tmp), pipeline)
+        launches.update(phase_vad_multilabel_audio(device, Path(tmp),
+                                                   pipeline, config))
     log(f"lstm_recurrence launches per path: {launches}")
     record["launches"] = launches["accelerator"]
     record["launches_per_path"] = launches

@@ -1,20 +1,32 @@
 """Timeline and Annotation: who-spoke-when containers.
 
 Counterpart of pyannote_audio_tpu/core/annotation.py, cut to what the
-diarization path, the oracle segmentation and the DER metric use: tracks,
-labels, ``rename_labels``, ``support``, ``crop``, ``get_overlap``,
-``get_timeline`` and ``itertracks``, and a Timeline with ``gaps``,
-``crop_timeline`` and ``extent``. Host-side, plain Python.
+pipelines, the oracles, the metrics and RTTM input and output use: tracks
+(set, read, deleted), labels, ``rename_labels``, ``support``, ``crop``,
+``extrude``, ``subset``, ``update``, ``get_overlap``, ``get_timeline`` and
+``write_rttm``, and a Timeline with ``gaps``, ``crop``, ``union``,
+``covers`` and ``to_annotation``. Host-side, plain Python.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Hashable, Iterator, List, Optional, Tuple, Union
+import io
+import itertools
+from typing import (Dict, Hashable, Iterator, List, Optional, Set, TextIO,
+                    Tuple, Union)
 
 from .segment import Segment
 
 Label = Hashable
 TrackName = Union[str, int]
+
+
+def string_generator() -> Iterator[str]:
+    """A, B, ..., Z, AA, AB, ..."""
+    for size in itertools.count(1):
+        for letters in itertools.product(
+                [chr(ord("A") + i) for i in range(26)], repeat=size):
+            yield "".join(letters)
 
 
 class Timeline:
@@ -51,11 +63,25 @@ class Timeline:
         self._sort()
         return iter(self._segments)
 
+    def __getitem__(self, i: int) -> Segment:
+        self._sort()
+        return self._segments[i]
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, Timeline) and list(self) == list(other)
+
+    def __contains__(self, segment: Segment) -> bool:
+        return segment in self._seen
+
     def extent(self) -> Segment:
         if not self._segments:
             return Segment(0.0, 0.0)
         return Segment(min(s.start for s in self._segments),
                        max(s.end for s in self._segments))
+
+    def duration(self) -> float:
+        """Total duration of the support (overlaps counted once)."""
+        return sum(s.duration for s in self.support())
 
     def support(self, collar: float = 0.0) -> "Timeline":
         """Merge overlapping (or within-collar) segments."""
@@ -98,8 +124,63 @@ class Timeline:
                 out.add(inter)
         return out
 
+    def crop(self, support: Union[Segment, "Timeline"],
+             mode: str = "intersection") -> "Timeline":
+        """The segments within ``support``: intersected with it, or kept
+        whole when inside it ("strict") or touching it ("loose"); a
+        segment touching several support segments is kept once."""
+        if isinstance(support, Segment):
+            support = Timeline([support], uri=self.uri)
+        out = Timeline(uri=self.uri)
+        seen = set()
+        for seg in support.support():
+            for s in self:
+                inter = s & seg
+                if not inter:
+                    continue
+                if mode == "intersection":
+                    out.add(inter)
+                elif mode in ("strict", "loose"):
+                    if s not in seen and (mode == "loose" or s in seg):
+                        seen.add(s)
+                        out.add(s)
+                else:
+                    raise ValueError(f"unknown mode {mode!r}")
+        return out
+
+    def overlapping(self, t: float) -> List[Segment]:
+        return [s for s in self if s.overlaps(t)]
+
+    def union(self, other: "Timeline") -> "Timeline":
+        return Timeline(list(self) + list(other), uri=self.uri)
+
+    def update(self, other: "Timeline") -> "Timeline":
+        for s in other:
+            self.add(s)
+        return self
+
+    def copy(self) -> "Timeline":
+        return Timeline(list(self), uri=self.uri)
+
+    def covers(self, other: "Timeline") -> bool:
+        """Does the timeline cover every segment of ``other``?"""
+        gaps = self.gaps(support=other.support())
+        return len(gaps.crop(other)) == 0
+
+    def to_annotation(self, generator: str = "string") -> "Annotation":
+        """One track per segment, labelled A, B, ... (or 0, 1, ...)."""
+        annotation = Annotation(uri=self.uri)
+        names = string_generator() if generator == "string" \
+            else itertools.count()
+        for s in self:
+            annotation[s] = next(names)
+        return annotation
+
     def __repr__(self) -> str:
         return f"<Timeline uri={self.uri} segments={len(self)}>"
+
+    def __str__(self) -> str:
+        return "[" + " ".join(str(s) for s in self) + "]"
 
 
 class Annotation:
@@ -115,6 +196,21 @@ class Annotation:
         if not segment:
             return
         self._tracks.setdefault(segment, {})[track] = label
+
+    def __getitem__(self, key: Union[Segment, Tuple[Segment, TrackName]]
+                    ) -> Label:
+        segment, track = (key, "_") if isinstance(key, Segment) else key
+        return self._tracks[segment][track]
+
+    def __delitem__(self, key: Union[Segment, Tuple[Segment, TrackName]]):
+        """Delete a segment's every track, or one (segment, track)."""
+        if isinstance(key, Segment):
+            del self._tracks[key]
+            return
+        segment, track = key
+        del self._tracks[segment][track]
+        if not self._tracks[segment]:
+            del self._tracks[segment]
 
     def new_track(self, segment: Segment, prefix: str = "") -> TrackName:
         existing = set(self._tracks.get(segment, {}))
@@ -154,8 +250,17 @@ class Annotation:
                          self.itertracks(yield_label=True) if lbl == label],
                         uri=self.uri)
 
+    def label_duration(self, label: Label) -> float:
+        return self.label_timeline(label).duration()
+
     def get_timeline(self) -> Timeline:
         return Timeline(list(self._tracks), uri=self.uri)
+
+    def get_tracks(self, segment: Segment) -> Set[TrackName]:
+        return set(self._tracks.get(segment, {}))
+
+    def get_labels(self, segment: Segment) -> Set[Label]:
+        return set(self._tracks.get(segment, {}).values())
 
     def get_overlap(self) -> Timeline:
         """Regions where two or more tracks overlap."""
@@ -178,8 +283,20 @@ class Annotation:
                        for seg, tracks in self._tracks.items()}
         return out
 
-    def crop(self, support: Union[Segment, Timeline]) -> "Annotation":
-        """Tracks intersected with ``support`` (intersection mode)."""
+    def subset(self, labels: List[Label], invert: bool = False
+               ) -> "Annotation":
+        """The tracks whose label is in ``labels`` (or not, ``invert``)."""
+        labels = set(labels)
+        out = Annotation(uri=self.uri)
+        for seg, track, lbl in self.itertracks(yield_label=True):
+            if (lbl in labels) != invert:
+                out[seg, track] = lbl
+        return out
+
+    def crop(self, support: Union[Segment, Timeline],
+             mode: str = "intersection") -> "Annotation":
+        """Tracks intersected with ``support`` ("intersection"), or kept
+        whole when inside it ("strict") or touching it ("loose")."""
         if isinstance(support, Segment):
             support = Timeline([support], uri=self.uri)
         support = support.support()
@@ -189,12 +306,25 @@ class Annotation:
                 inter = seg & sup
                 if not inter:
                     continue
-                # distinct source tracks may crop to the same segment
-                if track in out._tracks.get(inter, {}):
-                    out[inter, out.new_track(inter)] = lbl
-                else:
-                    out[inter, track] = lbl
+                if mode == "intersection":
+                    # distinct source tracks may crop to the same segment
+                    if track in out._tracks.get(inter, {}):
+                        out[inter, out.new_track(inter)] = lbl
+                    else:
+                        out[inter, track] = lbl
+                elif mode == "loose" or (mode == "strict" and seg in sup):
+                    out[seg, track] = lbl
         return out
+
+    def extrude(self, removed: Union[Segment, Timeline],
+                mode: str = "intersection") -> "Annotation":
+        """The tracks with ``removed`` cut out of them."""
+        if isinstance(removed, Segment):
+            removed = Timeline([removed], uri=self.uri)
+        extent = self.get_timeline().extent() | removed.extent()
+        keep = removed.gaps(support=extent)
+        inverted = {"strict": "loose", "loose": "strict"}.get(mode, mode)
+        return self.crop(keep, mode=inverted)
 
     def support(self, collar: float = 0.0) -> "Annotation":
         """Merge same-label segments closer than ``collar``."""
@@ -203,6 +333,31 @@ class Annotation:
             for seg in self.label_timeline(label).support(collar):
                 out[seg, out.new_track(seg)] = label
         return out
+
+    def update(self, other: "Annotation", copy: bool = False
+               ) -> "Annotation":
+        """Add ``other``'s tracks (to a copy with ``copy``)."""
+        target = self.copy() if copy else self
+        for seg, track, lbl in other.itertracks(yield_label=True):
+            target[seg, track] = lbl
+        return target
+
+    def copy(self) -> "Annotation":
+        out = Annotation(uri=self.uri)
+        out._tracks = {seg: dict(tracks)
+                       for seg, tracks in self._tracks.items()}
+        return out
+
+    def write_rttm(self, file: TextIO) -> None:
+        """One RTTM SPEAKER line per track."""
+        for seg, _, lbl in self.itertracks(yield_label=True):
+            file.write(f"SPEAKER {self.uri or '<NA>'} 1 {seg.start:.3f} "
+                       f"{seg.duration:.3f} <NA> <NA> {lbl} <NA> <NA>\n")
+
+    def to_rttm(self) -> str:
+        buffer = io.StringIO()
+        self.write_rttm(buffer)
+        return buffer.getvalue()
 
     def __repr__(self) -> str:
         return (f"<Annotation uri={self.uri} segments={len(self)} "

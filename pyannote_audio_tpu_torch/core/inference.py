@@ -1,13 +1,22 @@
 """Sliding-window batched inference.
 
-Counterpart of pyannote_audio_tpu/core/inference.py (``_chunk_grid``, the
-device-waveform cache, ``_slide_scores``, the batched ``slide`` and its
-long-file slices, ``preload``) for the diarization path: the waveform is
+Counterpart of pyannote_audio_tpu/core/inference.py (``Inference`` with
+its ``window="sliding"`` / ``"whole"``, ``pre_aggregation_hook``,
+``skip_aggregation`` and ``skip_conversion`` options, ``infer``,
+``crop``, the static ``aggregate`` and ``trim``, and underneath
+``_chunk_grid``, the device-waveform cache, ``_slide_scores``, the
+batched ``slide`` and its long-file slices, ``preload``): the waveform is
 uploaded once per file, chunks are strided views of it, each batch runs
 the model eagerly, and powerset outputs are decoded to multilabel scores.
-The result stays chunk-level and on the device (the JAX package's
-``skip_aggregation=True`` path); the last chunk is zero-padded and a
-short last batch runs at its own size.
+The last chunk is zero-padded and a short last batch runs at its own
+size.
+
+``slide`` keeps chunk-level scores on the device (the diarization path)
+when ``skip_aggregation`` is set or the output is permutation-invariant
+with no ``pre_aggregation_hook``; otherwise it aggregates them on the
+device into frame-level scores (hamming and warm-up weighted overlap-add)
+and returns those on the host. The hook takes and returns a (chunks,
+frames, classes) tensor on the device.
 
 Models that advertise ``FRONTEND_SHARED`` (PyanNet) may take the shared
 front-end (the JAX package's ``_shared_frontend`` /
@@ -19,7 +28,9 @@ stride; otherwise the chunks run one by one, as in the JAX package.
 
 Files past the device-memory budget run in halo'd slices
 (core/longfile.py): each slice is uploaded and run on its own, with its
-chunk starts translated, and the per-chunk scores are concatenated.
+chunk starts translated, and the per-chunk scores are concatenated. Slice
+uploads stay cached for a later stage only where one reuses them (the
+chunk-level path); aggregating runs release each after its batches.
 
 Uploads to a CUDA device go through page-locked host memory with
 ``non_blocking=True``: a copy from pageable memory would make the host
@@ -28,19 +39,24 @@ wait for all the work already queued on the stream.
 
 from __future__ import annotations
 
+import math
+import warnings
 from collections.abc import MutableMapping
-from typing import Callable, Optional, Tuple, Union
+from pathlib import Path
+from typing import Callable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
+from ..ops.aggregate import aggregate_scores
 from ..ops.powerset import Powerset
-from ..utils.runtime import device_flag
-from .io import Audio
+from ..utils.runtime import check_device, device_flag
+from .io import Audio, AudioFile
 from .longfile import (plan_slices, retained_upload_bytes_ok,
                        slice_uploads)
-from .segment import SlidingWindow, SlidingWindowFeature
+from .model import Model, Resolution
+from .segment import Segment, SlidingWindow, SlidingWindowFeature
 
 
 def _chunk_grid(num_samples: int, window_size: int,
@@ -187,28 +203,59 @@ def _upload_waveform_cached(waveform, cache, device) -> torch.Tensor:
 
 
 class Inference:
-    """Run a segmentation model over a file with a sliding window.
+    """Run a model over a file with a sliding (or whole-file) window.
 
-    ``model`` is a frame-resolution ``nn.Module`` with ``specifications``
-    (e.g. PyanNet); waveforms run on the device of its parameters.
+    ``model`` is an ``nn.Module`` with ``specifications`` (e.g. PyanNet),
+    or a checkpoint path for ``Model.from_pretrained``. It is moved to
+    ``device``: the CUDA card when None (a CUDA device without a card
+    raises; ``device="cpu"`` runs on the CPU). ``step`` defaults to the
+    model's left warm-up, else a tenth of ``duration`` (by default the
+    model's training duration).
     """
 
-    def __init__(self, model: nn.Module, duration: Optional[float] = None,
-                 step: Optional[float] = None, batch_size: int = 32):
-        spec = model.specifications
-        self.model = model
-        self.duration = duration or spec.duration
-        self.step = 0.1 * self.duration if step is None else step
-        if self.step > self.duration:
-            raise ValueError("step must not be larger than duration")
+    def __init__(self, model: Union[nn.Module, str, Path],
+                 window: str = "sliding", duration: Optional[float] = None,
+                 step: Optional[float] = None,
+                 pre_aggregation_hook: Optional[Callable] = None,
+                 skip_aggregation: bool = False,
+                 skip_conversion: bool = False, batch_size: int = 32,
+                 device: Union[str, torch.device, None] = None):
+        if window not in ("sliding", "whole"):
+            raise ValueError('`window` must be "sliding" or "whole".')
+        self.model = model if isinstance(model, nn.Module) \
+            else Model.from_pretrained(model)
+        spec = self.model.specifications
+        if window == "whole" and spec.resolution == Resolution.FRAME:
+            warnings.warn(
+                'Using "whole" window on a frame-resolution model.')
+        self.window = window
+        self.skip_aggregation = skip_aggregation
+        self.skip_conversion = skip_conversion
+        self.pre_aggregation_hook = pre_aggregation_hook
         self.batch_size = batch_size
+        training_duration = spec.duration
+        duration = duration or training_duration
+        if training_duration and training_duration != duration:
+            warnings.warn(
+                f"Duration ({duration:g}s) != training duration "
+                f"({training_duration:g}s); this may hurt performance.")
+        self.duration = duration
+        self.warm_up = spec.warm_up or (0.0, 0.0)
+        if step is None:
+            step = 0.1 * duration if self.warm_up[0] == 0.0 \
+                else self.warm_up[0]
+        if step > self.duration:
+            raise ValueError("step must not be larger than duration")
+        self.step = step
         self._powerset = Powerset(len(spec.classes),
                                   spec.powerset_max_classes) \
             if spec.powerset else None
-        self.audio = Audio(sample_rate=getattr(model, "sample_rate", 16000))
+        self.audio = Audio(sample_rate=getattr(self.model, "sample_rate",
+                                               16000), mono="downmix")
         # whole-file front-end convs run: one per file (or slice) on the
         # shared path
         self.counts = {"whole_conv": 0}
+        self.to(check_device(device))
 
     @property
     def device(self) -> torch.device:
@@ -236,8 +283,18 @@ class Inference:
         return step_size % self.model.frontend_stride == 0
 
     def _convert(self, out: torch.Tensor) -> torch.Tensor:
-        return self._powerset.to_multilabel(out) \
-            if self._powerset is not None else out
+        if self._powerset is None or self.skip_conversion:
+            return out
+        return self._powerset.to_multilabel(out)
+
+    @torch.inference_mode()
+    def infer(self, chunks) -> np.ndarray:
+        """Forward an explicit (batch, channel, samples) array or tensor;
+        returns the (converted) outputs on the host."""
+        x = torch.as_tensor(np.asarray(chunks, dtype=np.float32)) \
+            if not isinstance(chunks, torch.Tensor) else chunks
+        out = self._convert(self.model(x.to(self.device)))
+        return out.float().cpu().numpy()
 
     def _slide_scores(self, device_waveform: torch.Tensor,
                       starts: np.ndarray, window_size: int, shared: bool,
@@ -310,13 +367,20 @@ class Inference:
         the model's device. Files past the memory budget run slice by
         slice (core/longfile.py). Returns a SlidingWindowFeature whose
         data is a (num_chunks, frames_per_chunk, num_classes) tensor on
-        the device. ``hook(completed=, total=)`` follows each batch.
+        the device, unless the output is aggregated: then a host
+        SlidingWindowFeature of (frames, classes) on the model's receptive
+        field, cut at the end of the file. ``hook(completed=, total=)``
+        follows each batch.
         """
         window_size = round(self.duration * sample_rate)
         step_size = round(self.step * sample_rate)
         num_samples = waveform.shape[1]
         starts, _ = _chunk_grid(num_samples, window_size, step_size)
         device = self.device
+        spec = self.model.specifications
+        frame_resolution = spec.resolution == Resolution.FRAME
+        chunk_level = self.skip_aggregation or (
+            spec.permutation_invariant and self.pre_aggregation_hook is None)
         shared = waveform.shape[0] == 1 and self._shared_frontend(
             window_size, step_size, device)
         plan = plan_slices(num_samples, window_size, step_size, sample_rate,
@@ -325,10 +389,12 @@ class Inference:
             get_upload, release_upload = slice_uploads(
                 cache, waveform, plan, sample_rate, starts, window_size,
                 device)
-            # the scores feed the embedding stage, which reuses the slice
-            # uploads, but only while all of them together stay a small
-            # share of the budget; past it each slice goes as it came
-            keep_for_later = retained_upload_bytes_ok(num_samples)
+            # chunk-level scores feed the embedding stage, which reuses
+            # the slice uploads, but only while all of them together stay
+            # a small share of the budget; aggregated outputs have no
+            # later stage, so each slice goes as it came
+            keep_for_later = frame_resolution and chunk_level and \
+                retained_upload_bytes_ok(num_samples)
             parts = []
             for k, sl in enumerate(plan):
                 parts.append(self._slide_scores(
@@ -344,16 +410,42 @@ class Inference:
                 window_size, step_size)
             scores = self._slide_scores(buffer, starts, window_size, shared,
                                         hook=hook, hook_total=len(starts))
+        chunk_window = SlidingWindow(start=0.0, duration=self.duration,
+                                     step=self.step)
+        if not frame_resolution:
+            return SlidingWindowFeature(scores.cpu().numpy(), chunk_window)
+        if chunk_level:
+            return SlidingWindowFeature(scores, chunk_window)
+        if self.pre_aggregation_hook is not None:
+            scores = torch.as_tensor(self.pre_aggregation_hook(scores),
+                                     device=device)
+        # per-chunk output-frame offsets, with the op order of
+        # SlidingWindow.closest_frame
+        frames = self.model.receptive_field
+        t = starts.astype(np.float64) / sample_rate
+        offsets = np.rint((t + 0.5 * frames.duration - frames.start
+                           - 0.5 * frames.duration) / frames.step
+                          ).astype(np.int64)
+        num_output_frames = int(math.floor(num_samples / sample_rate
+                                           / frames.step))
+        total_frames = max(num_output_frames, int(offsets[-1])
+                           + self.model.num_frames(window_size))
+        aggregated = aggregate_scores(
+            scores, to_device(offsets, device), total_frames, hamming=True,
+            # Specifications.warm_up is in seconds, the weights want ratios
+            warm_up=(self.warm_up[0] / self.duration,
+                     self.warm_up[1] / self.duration),
+            missing=0.0)
         return SlidingWindowFeature(
-            scores, SlidingWindow(start=0.0, duration=self.duration,
-                                  step=self.step))
+            aggregated[:num_output_frames].cpu().numpy(), frames)
 
     def preload(self, file) -> None:
         """Start the upload of a file's waveform early (into the file
         dict's cache, where ``slide`` finds it). A file past the memory
         budget warms only its first slice: a whole-file buffer is what its
-        slice plan avoids. Does nothing for an immutable mapping."""
-        if not isinstance(file, MutableMapping):
+        slice plan avoids. Does nothing for whole-window inference or an
+        immutable mapping."""
+        if self.window != "sliding" or not isinstance(file, MutableMapping):
             return
         waveform, sample_rate = self.audio(file)
         window_size = round(self.duration * sample_rate)
@@ -368,10 +460,91 @@ class Inference:
             return
         _upload_waveform_cached(waveform, file, self.device)
 
-    def __call__(self, file, hook: Optional[Callable] = None
-                 ) -> SlidingWindowFeature:
+    def __call__(self, file: AudioFile, hook: Optional[Callable] = None):
         """``slide`` over a whole file (a path or a mapping), uploads
-        cached in the file dict."""
+        cached in the file dict; with ``window="whole"`` one forward of
+        the whole file, on the host."""
         waveform, sample_rate = self.audio(file)
-        cache = file if isinstance(file, MutableMapping) else None
-        return self.slide(waveform, sample_rate, hook=hook, cache=cache)
+        if self.window == "sliding":
+            cache = file if isinstance(file, MutableMapping) else None
+            return self.slide(waveform, sample_rate, hook=hook, cache=cache)
+        return self.infer(waveform[None])[0]
+
+    def crop(self, file: AudioFile, chunk: Union[Segment, List[Segment]],
+             duration: Optional[float] = None,
+             hook: Optional[Callable] = None):
+        """Inference on an excerpt of the file, zero-padded where it lies
+        outside. Sliding: over the hull of ``chunk`` (a Segment or a list
+        of them), the output's window shifted to its start. Whole: one
+        forward per segment; a list gives the padded crops stacked."""
+        if self.window == "sliding":
+            if not isinstance(chunk, Segment):
+                chunk = Segment(min(c.start for c in chunk),
+                                max(c.end for c in chunk))
+            waveform, sample_rate = self.audio.crop(
+                file, chunk, duration=duration, mode="pad")
+            output = self.slide(waveform, sample_rate, hook=hook)
+            window = output.sliding_window
+            return SlidingWindowFeature(
+                output.data, SlidingWindow(start=window.start + chunk.start,
+                                           duration=window.duration,
+                                           step=window.step))
+        if isinstance(chunk, Segment):
+            waveform, _ = self.audio.crop(file, chunk, duration=duration,
+                                          mode="pad")
+            return self.infer(waveform[None])[0]
+        return self.infer(np.stack([
+            self.audio.crop(file, c, duration=duration, mode="pad")[0]
+            for c in chunk]))
+
+    @staticmethod
+    def aggregate(scores: SlidingWindowFeature, frames: SlidingWindow,
+                  warm_up: Tuple[float, float] = (0.0, 0.0),
+                  epsilon: float = 1e-12, hamming: bool = False,
+                  missing: float = np.nan, skip_average: bool = False
+                  ) -> SlidingWindowFeature:
+        """Chunk-level (chunks, frames, classes) scores -> frame-level
+        scores on ``frames``' grid, rebased to the chunks' start;
+        ``warm_up`` in seconds. Runs where the data is: a tensor stays on
+        its device, a numpy array gives a numpy array."""
+        data = scores.data
+        as_numpy = not isinstance(data, torch.Tensor)
+        if as_numpy:
+            data = torch.from_numpy(np.asarray(data, dtype=np.float32))
+        num_chunks = data.shape[0]
+        chunk_window = scores.sliding_window
+        window = SlidingWindow(start=chunk_window.start,
+                               duration=frames.duration, step=frames.step)
+        offsets = np.array([window.closest_frame(
+            chunk_window[i].start + 0.5 * frames.duration)
+            for i in range(num_chunks)], dtype=np.int64)
+        num_output_frames = window.closest_frame(
+            chunk_window.start + chunk_window.duration
+            + (num_chunks - 1) * chunk_window.step
+            + 0.5 * frames.duration) + 1
+        out = aggregate_scores(
+            data.float(), to_device(offsets, data.device), num_output_frames,
+            hamming=hamming,
+            warm_up=(warm_up[0] / chunk_window.duration,
+                     warm_up[1] / chunk_window.duration),
+            missing=missing, skip_average=skip_average)
+        return SlidingWindowFeature(out.cpu().numpy() if as_numpy else out,
+                                    window)
+
+    @staticmethod
+    def trim(scores: SlidingWindowFeature,
+             warm_up: Tuple[float, float] = (0.1, 0.1)
+             ) -> SlidingWindowFeature:
+        """Cut the warm-up frames (ratios of a chunk) off each end of
+        chunk-level scores."""
+        chunk_window = scores.sliding_window
+        _, num_frames, _ = scores.data.shape
+        left = int(round(warm_up[0] * num_frames))
+        right = int(round(warm_up[1] * num_frames))
+        frame_duration = chunk_window.duration / num_frames
+        return SlidingWindowFeature(
+            scores.data[:, left:num_frames - right],
+            SlidingWindow(start=chunk_window.start + left * frame_duration,
+                          duration=chunk_window.duration
+                          - (left + right) * frame_duration,
+                          step=chunk_window.step))

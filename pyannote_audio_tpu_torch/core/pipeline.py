@@ -31,8 +31,10 @@ from typing import Any, Callable, Dict, List, Optional, Union
 import torch
 from torch import nn
 
+from ..utils import native
+from ..utils.runtime import check_device
 from .inference import Inference, pin_waveform
-from .io import Audio, AudioFile
+from .io import Audio, AudioFile, get_audio_metadata
 from .parameter import Frozen, ParamDict, Parameter
 
 PIPELINE_CONFIG = "config.yaml"
@@ -93,17 +95,6 @@ def get_class_by_name(name: str,
     return getattr(module, class_name)
 
 
-def check_device(device: Union[str, torch.device]) -> torch.device:
-    """``device`` as a ``torch.device``; a CUDA device without a card
-    raises, so that nothing carries on on the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("the pipeline runs on a CUDA device by default "
-                           "and none is available: pass device=\"cpu\" to "
-                           "run on the CPU")
-    return device
-
-
 class _DotDict(dict):
     """Attribute access over an instantiated ``ParamDict``."""
 
@@ -120,6 +111,8 @@ class Pipeline:
     """
 
     instantiated = False
+    # pipelines with a training cache reuse their segmentation while set
+    training = False
 
     def __init__(self):
         for name in _REGISTRIES:
@@ -371,7 +364,17 @@ class Pipeline:
         """Apply to one file, or to a list (any iterable that is not a
         path or a mapping) of files through ``_apply_batch``."""
         if not self.instantiated:
-            self.instantiate(self.default_parameters())
+            try:
+                self.instantiate(self.default_parameters())
+            except NotImplementedError:
+                concrete = self.parameters(instantiated=True)
+                missing = [k for k in self.parameters() if k not in concrete]
+                if missing:
+                    raise RuntimeError(
+                        f"{type(self).__name__} has no default parameters "
+                        f"and {missing} are not instantiated; call "
+                        f"instantiate(...) before applying it.") from None
+                self.instantiated = True
         if isinstance(file, (list, tuple)) or (
                 hasattr(file, "__iter__")
                 and not isinstance(file, (str, Path, Mapping))
@@ -455,12 +458,41 @@ class Pipeline:
                 pass               # the consumer uploads and raises
 
     def _predecode_batch(self, files: List[Dict]) -> None:
-        """Decode a batch's path-backed files ahead of ``apply_batch``.
+        """Decode a batch's path-backed WAV files ahead of
+        ``apply_batch``, in parallel, with the native batch decoder
+        (decode, downmix, resample to the pipeline's rate).
 
-        The JAX package decodes them in parallel with its native C++
-        decoder here. That decoder is not ported yet, so this does
-        nothing: files decode where they are consumed.
+        Files with a ``channel`` key, or a batch with a file the decoder
+        cannot read, are left to be decoded where they are consumed. The
+        waveforms land with the ``_batch_decoded`` marker (in page-locked
+        memory for a pipeline on a CUDA device), as ``_decode_into`` puts
+        them.
         """
+        audio = getattr(self, "_audio", None) or Audio(sample_rate=16000)
+        pending = [f for f in files
+                   if isinstance(f, MutableMapping) and "waveform" not in f
+                   and isinstance(f.get("audio"), (str, Path))
+                   and f.get("channel") is None]
+        if len(pending) < 2 or audio.mono not in (None, "downmix"):
+            return
+        sample_rate = audio.sample_rate or 16000
+        try:
+            max_seconds = max(get_audio_metadata(f).duration
+                              for f in pending)
+        except (ValueError, OSError):
+            return
+        decoded = native.batch_decode_resample(
+            [str(f["audio"]) for f in pending], sample_rate,
+            max_seconds=max_seconds + 0.1)
+        if decoded is None:
+            return
+        device = getattr(self, "device", None)
+        pin = device is not None and torch.device(device).type == "cuda"
+        for f, row, n in zip(pending, *decoded):
+            waveform = row[None, :int(n)]
+            f["waveform"] = pin_waveform(waveform) if pin else waveform.copy()
+            f["sample_rate"] = sample_rate
+            f["_batch_decoded"] = True
 
     def preload(self, file: Dict) -> None:
         """Start a file's device upload early; subclasses with a device

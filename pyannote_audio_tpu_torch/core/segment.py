@@ -30,6 +30,10 @@ class Segment:
     def duration(self) -> float:
         return self.end - self.start if self.end > self.start else 0.0
 
+    @property
+    def middle(self) -> float:
+        return 0.5 * (self.start + self.end)
+
     def __bool__(self) -> bool:
         """A segment is false-y when empty (duration below precision)."""
         return bool((self.end - self.start) > SEGMENT_PRECISION)
@@ -40,6 +44,17 @@ class Segment:
     def __and__(self, other: "Segment") -> "Segment":
         """Intersection (may be empty / false-y)."""
         return Segment(max(self.start, other.start), min(self.end, other.end))
+
+    def __or__(self, other: "Segment") -> "Segment":
+        """Union hull (the smallest segment holding both)."""
+        if not self:
+            return other
+        if not other:
+            return self
+        return Segment(min(self.start, other.start), max(self.end, other.end))
+
+    def overlaps(self, t: float) -> bool:
+        return self.start <= t <= self.end
 
     def __str__(self) -> str:
         return f"[{self.start:.3f} --> {self.end:.3f}]"

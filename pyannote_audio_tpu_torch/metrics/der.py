@@ -1,11 +1,13 @@
 """Diarization error rate: an exact interval sweep on the host.
 
-Counterpart of the part of pyannote_audio_tpu/metrics/der.py that the
-diarization pipeline uses (the reference's ``pyannote.metrics``):
-``cooccurrence_matrix``, the Hungarian ``optimal_mapping`` that renames a
-hypothesis after a reference annotation, ``DiarizationErrorRate`` and
-``GreedyDiarizationErrorRate`` with their component sweep. The other
-metrics of that file are not ported yet.
+Counterpart of pyannote_audio_tpu/metrics/der.py (the reference's
+``pyannote.metrics``): ``cooccurrence_matrix``, the Hungarian
+``optimal_mapping`` that renames a hypothesis after a reference
+annotation, ``DiarizationErrorRate`` and ``GreedyDiarizationErrorRate``
+with their component sweep, ``JaccardErrorRate``, the detection metrics
+of voice activity detection (``DetectionErrorRate``,
+``DetectionPrecisionRecallFMeasure``) and the ``IdentificationErrorRate``
+of multilabel segmentation.
 """
 
 from __future__ import annotations
@@ -331,3 +333,288 @@ class GreedyDiarizationErrorRate(DiarizationErrorRate):
                 "total": comp.total,
             }
         return comp.der
+
+
+def _timeline_overlap_durations(a: Timeline, b: Timeline,
+                                uem: Optional[Timeline] = None
+                                ) -> Tuple[float, float, float]:
+    """(intersection, a_only, b_only) durations via a boundary sweep."""
+    pts = set()
+    for tl in (a, b):
+        for s in tl:
+            pts.add(s.start)
+            pts.add(s.end)
+    if uem is not None:
+        for s in uem:
+            pts.add(s.start)
+            pts.add(s.end)
+    pts = np.array(sorted(pts))
+    inter = a_only = b_only = 0.0
+    for lo, hi in zip(pts[:-1], pts[1:]):
+        mid, dur = 0.5 * (lo + hi), hi - lo
+        if dur <= 0:
+            continue
+        if uem is not None and not any(
+                s.start <= mid < s.end for s in uem):
+            continue
+        in_a = any(s.start <= mid < s.end for s in a)
+        in_b = any(s.start <= mid < s.end for s in b)
+        if in_a and in_b:
+            inter += dur
+        elif in_a:
+            a_only += dur
+        elif in_b:
+            b_only += dur
+    return inter, a_only, b_only
+
+
+class JaccardErrorRate:
+    """Jaccard error rate (DIHARD): per-reference-speaker Jaccard distance
+    to the optimally mapped system speaker, averaged over reference
+    speakers. For each reference speaker r with Hungarian-mapped system
+    speaker s,
+    JER_r = 1 - |r ∩ s| / |r ∪ s| (durations); unmapped reference speakers
+    score 1.0. The corpus value averages over every reference speaker seen.
+    """
+
+    def __init__(self, collar: float = 0.0, skip_overlap: bool = False):
+        self.collar = collar
+        self.skip_overlap = skip_overlap
+        self.speaker_error_ = 0.0
+        self.speaker_count_ = 0
+        self.uris_: List[str] = []
+
+    def __call__(self, reference: Annotation, hypothesis: Annotation,
+                 uem: Optional[Timeline] = None, detailed: bool = False):
+        uem2 = _scoring_uem(reference, hypothesis, self.collar, uem,
+                            skip_overlap=self.skip_overlap)
+        if uem2 is not None:
+            uem2 = uem2.support()
+            # crop both annotations to the scoring region first: a
+            # reference speaker whose every turn falls outside the
+            # uem/collar is not counted
+            reference = reference.crop(uem2, mode="intersection")
+            hypothesis = hypothesis.crop(uem2, mode="intersection")
+        mapping = optimal_mapping(reference, hypothesis, uem=uem2)
+        ref_of_hyp = dict(mapping)              # hyp label -> ref label
+        hyp_of_ref = {r: h for h, r in ref_of_hyp.items()}
+        error = 0.0
+        count = 0
+        for ref_speaker in reference.labels():
+            ref_tl = reference.label_timeline(ref_speaker).support()
+            count += 1
+            hyp_speaker = hyp_of_ref.get(ref_speaker)
+            if hyp_speaker is None:
+                error += 1.0
+                continue
+            hyp_tl = hypothesis.label_timeline(hyp_speaker).support()
+            inter, a_only, b_only = _timeline_overlap_durations(
+                ref_tl, hyp_tl, uem=uem2)
+            union = inter + a_only + b_only
+            error += (union - inter) / union if union > 0 else 0.0
+        self.speaker_error_ += error
+        self.speaker_count_ += count
+        self.uris_.append(reference.uri)
+        rate = error / count if count else 0.0
+        if detailed:
+            return {"jaccard error rate": rate, "speaker error": error,
+                    "speaker count": count}
+        return rate
+
+    def __abs__(self) -> float:
+        return self.speaker_error_ / self.speaker_count_ \
+            if self.speaker_count_ else 0.0
+
+    def reset(self) -> None:
+        self.speaker_error_ = 0.0
+        self.speaker_count_ = 0
+        self.uris_ = []
+
+    def report(self) -> Dict[str, float]:
+        return {"jaccard error rate": abs(self),
+                "speaker error": self.speaker_error_,
+                "speaker count": self.speaker_count_}
+
+
+def detection_error_rate(reference: Annotation, hypothesis: Annotation,
+                         uem: Optional[Timeline] = None) -> float:
+    """Speech-activity detection error (any-speaker vs any-speaker)."""
+    fa, miss, total = _detection_components(reference, hypothesis, uem)
+    return _rate(fa + miss, total)
+
+
+def _rate(errors: float, total: float) -> float:
+    """errors/total with the empty-reference convention of
+    DERComponents.der: a file with no reference speech scores 0.0 only
+    when the hypothesis made no errors either, inf otherwise — an
+    always-on detector must not look perfect on noise-only files."""
+    if total > 0:
+        return errors / total
+    return 0.0 if errors == 0.0 else np.inf
+
+
+def _detection_components(reference: Annotation, hypothesis: Annotation,
+                          uem: Optional[Timeline] = None
+                          ) -> Tuple[float, float, float]:
+    """(false_alarm, missed, total) durations of speech-activity detection."""
+    ref = reference.get_timeline().support()
+    hyp = hypothesis.get_timeline().support()
+    pts = set()
+    for tl in (ref, hyp):
+        for s in tl:
+            pts.add(s.start)
+            pts.add(s.end)
+    if uem is not None:
+        for s in uem:
+            pts.add(s.start)
+            pts.add(s.end)
+    pts = np.array(sorted(pts))
+    # support()ed timelines are disjoint+sorted: one pointer sweep each
+    inside = _uem_flags(uem.support() if uem is not None else None, pts)
+    in_ref = _uem_flags(ref, pts)
+    in_hyp = _uem_flags(hyp, pts)
+    fa = miss = total = 0.0
+    for i in range(len(pts) - 1):
+        dur = pts[i + 1] - pts[i]
+        if not inside[i]:
+            continue
+        if in_ref[i]:
+            total += dur
+            if not in_hyp[i]:
+                miss += dur
+        elif in_hyp[i]:
+            fa += dur
+    return fa, miss, total
+
+
+class DetectionErrorRate:
+    """Accumulating detection error rate (what
+    VoiceActivityDetection.get_metric returns)."""
+
+    def __init__(self, collar: float = 0.0, skip_overlap: bool = False):
+        self.collar = collar
+        self.skip_overlap = skip_overlap
+        self.fa_ = 0.0
+        self.miss_ = 0.0
+        self.total_ = 0.0
+
+    def __call__(self, reference: Annotation, hypothesis: Annotation,
+                 uem: Optional[Timeline] = None, detailed: bool = False):
+        uem = _scoring_uem(reference, hypothesis, self.collar, uem,
+                           self.skip_overlap)
+        fa, miss, total = _detection_components(reference, hypothesis, uem)
+        self.fa_ += fa
+        self.miss_ += miss
+        self.total_ += total
+        rate = _rate(fa + miss, total)
+        if detailed:
+            return {"detection error rate": rate, "false alarm": fa,
+                    "miss": miss, "total": total}
+        return rate
+
+    def __abs__(self) -> float:
+        return _rate(self.fa_ + self.miss_, self.total_)
+
+
+class DetectionPrecisionRecallFMeasure:
+    """Accumulating detection F-measure (VoiceActivityDetection's
+    get_metric with fscore=True)."""
+
+    def __init__(self, collar: float = 0.0, skip_overlap: bool = False):
+        self.collar = collar
+        self.skip_overlap = skip_overlap
+        self.tp_ = 0.0
+        self.fp_ = 0.0
+        self.fn_ = 0.0
+
+    def __call__(self, reference: Annotation, hypothesis: Annotation,
+                 uem: Optional[Timeline] = None, detailed: bool = False):
+        uem = _scoring_uem(reference, hypothesis, self.collar, uem,
+                           self.skip_overlap)
+        fa, miss, total = _detection_components(reference, hypothesis, uem)
+        tp = total - miss
+        self.tp_ += tp
+        self.fp_ += fa
+        self.fn_ += miss
+        precision = tp / (tp + fa) if tp + fa > 0 else 1.0
+        recall = tp / total if total > 0 else 1.0
+        f = 2 * precision * recall / (precision + recall) \
+            if precision + recall > 0 else 0.0
+        if detailed:
+            return {"precision": precision, "recall": recall, "fscore": f}
+        return f
+
+    def __abs__(self) -> float:
+        p = self.tp_ / (self.tp_ + self.fp_) \
+            if self.tp_ + self.fp_ > 0 else 1.0
+        r = self.tp_ / (self.tp_ + self.fn_) \
+            if self.tp_ + self.fn_ > 0 else 1.0
+        return 2 * p * r / (p + r) if p + r > 0 else 0.0
+
+
+class IdentificationErrorRate:
+    """Accumulating identification error rate: labels compared directly
+    (no optimal mapping), what MultiLabelSegmentation.get_metric returns.
+
+    Per region with reference label set R and hypothesis label set H:
+    confusion = min(|R\\H|, |H\\R|), miss = |R\\H| - confusion,
+    false alarm = |H\\R| - confusion, total = |R| (duration-weighted).
+    """
+
+    def __init__(self, collar: float = 0.0, skip_overlap: bool = False):
+        self.collar = collar
+        self.skip_overlap = skip_overlap
+        self.fa_ = 0.0
+        self.miss_ = 0.0
+        self.conf_ = 0.0
+        self.total_ = 0.0
+
+    @staticmethod
+    def _components(reference: Annotation, hypothesis: Annotation,
+                    uem: Optional[Timeline] = None):
+        pts = set()
+        for ann in (reference, hypothesis):
+            for seg in ann.get_timeline():
+                pts.add(seg.start)
+                pts.add(seg.end)
+        if uem is not None:
+            for s in uem:
+                pts.add(s.start)
+                pts.add(s.end)
+        pts = np.array(sorted(pts))
+        inside = _uem_flags(uem.support() if uem is not None else None,
+                            pts)
+        ref_active = _interval_active_labels(reference, pts)
+        hyp_active = _interval_active_labels(hypothesis, pts)
+        fa = miss = conf = total = 0.0
+        for i in range(len(pts) - 1):
+            dur = pts[i + 1] - pts[i]
+            if not inside[i]:
+                continue
+            r = set(ref_active[i])
+            h = set(hyp_active[i])
+            n_conf = min(len(r - h), len(h - r))
+            conf += n_conf * dur
+            miss += (len(r - h) - n_conf) * dur
+            fa += (len(h - r) - n_conf) * dur
+            total += len(r) * dur
+        return fa, miss, conf, total
+
+    def __call__(self, reference: Annotation, hypothesis: Annotation,
+                 uem: Optional[Timeline] = None, detailed: bool = False):
+        uem = _scoring_uem(reference, hypothesis, self.collar, uem,
+                           self.skip_overlap)
+        fa, miss, conf, total = self._components(reference, hypothesis, uem)
+        self.fa_ += fa
+        self.miss_ += miss
+        self.conf_ += conf
+        self.total_ += total
+        rate = _rate(fa + miss + conf, total)
+        if detailed:
+            return {"identification error rate": rate, "false alarm": fa,
+                    "missed detection": miss, "confusion": conf,
+                    "total": total}
+        return rate
+
+    def __abs__(self) -> float:
+        return _rate(self.fa_ + self.miss_ + self.conf_, self.total_)

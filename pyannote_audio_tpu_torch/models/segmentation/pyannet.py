@@ -1,4 +1,4 @@
-"""PyanNet: SincNet -> BiLSTM -> feed-forward -> powerset classifier.
+"""PyanNet: SincNet -> BiLSTM -> feed-forward -> classifier.
 
 Counterpart of pyannote_audio_tpu/models/segmentation/pyannet.py
 (``PyanNetModule`` and ``PyanNet``'s frame math). Parameter names follow
@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...core.model import FrameModel, Specifications
+from ...core.model import FrameModel, Problem, Specifications
 from ...utils.runtime import exact_float32
 from ..blocks.rnn import LSTM
 from ..blocks.sincnet import SincNet
@@ -34,11 +34,13 @@ def _linear(in_features: int, out_features: int,
 
 
 class PyanNet(FrameModel, nn.Module):
-    """(B, 1, samples) -> (B, frames, dimension) log-probabilities.
+    """(B, 1, samples) -> (B, frames, dimension) scores.
 
     ``specifications`` fixes the chunk duration and the output classes;
     the default is the diarization setting: 10 s chunks, 3 speakers with
-    at most 2 active, i.e. a 7-class powerset log-softmax.
+    at most 2 active, i.e. a 7-class powerset log-softmax. A mono-label
+    problem ends in a log-softmax, any other (multi-label, binary) in a
+    sigmoid, as the JAX model's activation follows its problem.
     """
 
     def __init__(self, specifications: Optional[Specifications] = None,
@@ -76,7 +78,8 @@ class PyanNet(FrameModel, nn.Module):
             for layer in self.linear:
                 x = F.leaky_relu(layer(x), 0.01)
             x = self.classifier(x)
-            if self.specifications.powerset:
+            if self.specifications.problem == \
+                    Problem.MONO_LABEL_CLASSIFICATION:
                 return F.log_softmax(x, dim=-1)
             return torch.sigmoid(x)
 

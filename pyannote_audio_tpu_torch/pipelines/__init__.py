@@ -1,8 +1,11 @@
-"""Pipelines. ``SpeakerDiarization`` is importable from here, the path a
-config's ``pipeline.name`` gives (``pyannote.audio.pipelines.
-SpeakerDiarization``); it is imported on first access."""
+"""Pipelines, importable from here, the path a config's ``pipeline.name``
+gives (``pyannote.audio.pipelines.SpeakerDiarization``, ...); each is
+imported on first access."""
 
-_LAZY = {"SpeakerDiarization": ".speaker_diarization"}
+_LAZY = {"SpeakerDiarization": ".speaker_diarization",
+         "VoiceActivityDetection": ".voice_activity_detection",
+         "OracleVoiceActivityDetection": ".voice_activity_detection",
+         "MultiLabelSegmentation": ".multilabel"}
 
 
 def __getattr__(name):

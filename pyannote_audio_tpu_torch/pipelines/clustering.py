@@ -8,7 +8,10 @@ count constraints. The embedding matrices are small, so numpy and scipy
 do it on the host. KMeans is the port's own ``ops/kmeans.py`` (not
 scikit-learn's), on the host or, where PYANNOTE_TPU_DEVICE_KMEANS is "1",
 on the pipeline's device; VBx's EM runs on the device where
-PYANNOTE_TPU_DEVICE_VBX is "1" (``utils/vbx.py``).
+PYANNOTE_TPU_DEVICE_VBX is "1" (``utils/vbx.py``); the centroid linkage of
+agglomerative clustering runs on the device where PYANNOTE_TPU_DEVICE_AHC
+is "1" (``ops/ahc.py``). VBx's initial linkage stays on the host, as in
+the JAX package. All three gates are off by default.
 
 A call takes the embeddings and the per-(chunk, speaker) clean-speech
 frame counts that ``ops.diarize_fused.fused_count_stats`` computes, with
@@ -32,6 +35,7 @@ from ..core.parameter import Categorical, Integer, Uniform
 from ..core.pipeline import Pipeline
 from ..core.plda import PLDA
 from ..core.segment import SlidingWindow, SlidingWindowFeature
+from ..ops.ahc import device_linkage
 from ..ops.kmeans import kmeans
 from ..utils.runtime import device_flag
 from ..utils.vbx import cluster_vbx
@@ -196,8 +200,14 @@ class AgglomerativeClustering(BaseClustering):
         # centroid/median/ward need euclidean: unit-normalize instead
         if self.metric == "cosine" and \
                 self.method in ("centroid", "median", "ward"):
-            dendrogram = linkage(_unit(embeddings), method=self.method,
-                                 metric="euclidean")
+            if self.method == "centroid" and device_flag(
+                    "PYANNOTE_TPU_DEVICE_AHC", self.device,
+                    accelerator_default=False):
+                dendrogram = device_linkage(_unit(embeddings),
+                                            device=self.device)
+            else:
+                dendrogram = linkage(_unit(embeddings), method=self.method,
+                                     metric="euclidean")
         else:
             dendrogram = linkage(embeddings, method=self.method,
                                  metric=self.metric)

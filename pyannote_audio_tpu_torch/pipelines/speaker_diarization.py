@@ -39,8 +39,15 @@ Clusterings that expect a speaker count take it from
 ``file["annotation"]`` when the caller gives none; oracle clustering
 without an embedding model skips the embedding program. Labels follow
 ``file["annotation"]`` when a file carries one (Hungarian mapping, the
-centroids reordered to match), else SPEAKER_00, ... Non-powerset
-segmentation models are not ported yet.
+centroids reordered to match), else SPEAKER_00, ...
+
+A non-powerset (multi-label, sigmoid) segmentation model's scores are
+binarized at ``segmentation.threshold`` with the initial state off, as
+the JAX package's ``binarize_swf`` does on the host; here the hysteresis
+runs on the device (``ops/binarize.py``), so the file stays on the
+zero-sync ``_stage`` path. The binarized scores drive the count, the
+embedding masks and oracle clustering; the soft scores drive the
+reconstruction.
 """
 
 from __future__ import annotations
@@ -70,6 +77,7 @@ from ..core.pipeline import Pipeline, _evict, check_device
 from ..core.segment import SlidingWindow, SlidingWindowFeature
 from ..metrics.der import GreedyDiarizationErrorRate
 from ..ops import fbank as fbank_ops
+from ..ops.binarize import hysteresis
 from ..ops.diarize_fused import (fused_count_stats, fused_reconstruct,
                                  make_embedding_masks)
 from ..ops.fbank import fbank_num_frames, whole_fbank
@@ -91,7 +99,8 @@ class DiarizeOutput:
 class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
     """Segmentation + embedding + clustering speaker diarization.
 
-    ``segmentation`` is a PyanNet-like powerset model and ``embedding`` a
+    ``segmentation`` is a PyanNet-like model (powerset, or multi-label
+    with a sigmoid head) and ``embedding`` a
     WeSpeakerResNet34-like model (``frames`` / ``frames_from_fbank`` /
     ``embed``), each an instance, a local checkpoint path or a
     ``{checkpoint, subfolder}`` dict; both are moved to ``device`` and run
@@ -137,9 +146,7 @@ class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
         segmentation = get_model(segmentation)
         if embedding is None and Klustering is not OracleClustering:
             raise ValueError(f"{clustering} needs an embedding model")
-        if not segmentation.specifications.powerset:
-            raise ValueError("non-powerset segmentation models are not "
-                             "ported yet")
+        self._powerset = segmentation.specifications.powerset
         self.legacy = legacy
         self.segmentation_step = segmentation_step
         self.embedding_exclude_overlap = embedding_exclude_overlap
@@ -153,9 +160,13 @@ class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
         duration = segmentation.specifications.duration
         self._segmentation = Inference(
             segmentation, duration=duration,
-            step=segmentation_step * duration,
-            batch_size=segmentation_batch_size)
-        self.segmentation = ParamDict(min_duration_off=Uniform(0.0, 1.0))
+            step=segmentation_step * duration, skip_aggregation=True,
+            batch_size=segmentation_batch_size, device=self.device)
+        if self._powerset:
+            self.segmentation = ParamDict(min_duration_off=Uniform(0.0, 1.0))
+        else:
+            self.segmentation = ParamDict(threshold=Uniform(0.1, 0.9),
+                                          min_duration_off=Uniform(0.0, 1.0))
         self._audio = Audio(sample_rate=16000)
         if Klustering is OracleClustering:
             self.clustering = OracleClustering()
@@ -170,9 +181,13 @@ class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
                        "chunk_trunk_batches": 0}
 
     def default_parameters(self) -> Dict[str, Any]:
+        """The JAX package's defaults; a non-powerset model has none
+        (except with VBx), so it must be instantiated first."""
         if self.klustering == "VBxClustering":
             return {"segmentation": {"min_duration_off": 0.0},
                     "clustering": {"threshold": 0.6, "Fa": 0.07, "Fb": 0.8}}
+        if not self._powerset:
+            raise NotImplementedError
         return {"segmentation": {"min_duration_off": 0.0},
                 "clustering": {"method": "centroid", "min_cluster_size": 15,
                                "threshold": 0.7}}
@@ -550,17 +565,24 @@ class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
         trunk = self._start_shared_trunk(source) \
             if self._embedding is not None else None
         scores = segmentations.data                           # (C, F, S)
+        binarized = segmentations
+        if not self._powerset:
+            threshold = self.segmentation.threshold
+            binarized = SlidingWindowFeature(
+                hysteresis(scores.transpose(0, 1), threshold, threshold,
+                           initial_on=False).transpose(0, 1).to(
+                               scores.dtype), segmentations.sliding_window)
         offsets, num_output_frames, window = self._aggregation_grid(
             segmentations.sliding_window,
             self._segmentation.model.receptive_field, scores.shape[0])
         offsets_dev = to_device(offsets, self.device)
         count, speaker_frames, clean_frames = fused_count_stats(
-            scores, offsets_dev, num_output_frames)
+            binarized.data, offsets_dev, num_output_frames)
         fetch = {"count": count, "speaker_frames": speaker_frames,
                  "clean_frames": clean_frames}
         if self._embedding is not None:
             fetch["embeddings"] = self.get_embeddings(
-                source, segmentations,
+                source, binarized,
                 exclude_overlap=self.embedding_exclude_overlap, trunk=trunk,
                 hook=hook, cache=file, defer_fetch=True)
         host, event = self._fetch_async(fetch)
@@ -569,6 +591,7 @@ class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
                 # the host waveform stays referenced until the file is
                 # finalized: a pinned one is what its upload reads
                 "waveform": waveform, "scores": scores,
+                "binarized": binarized.data,
                 "chunk_window": segmentations.sliding_window,
                 "offsets": offsets_dev,
                 "num_output_frames": num_output_frames, "window": window,
@@ -684,7 +707,7 @@ class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
         oracle = {}
         if isinstance(self.clustering, OracleClustering):
             oracle = {"segmentations": SlidingWindowFeature(
-                          staged["scores"].cpu().numpy(),
+                          staged["binarized"].cpu().numpy(),
                           staged["chunk_window"]),
                       "file": file,
                       "frames": self._segmentation.model.receptive_field}

@@ -1,7 +1,9 @@
-"""Device gates of the accelerator fast paths.
+"""Device gates of the accelerator fast paths, and device resolution.
 
 Counterpart of pyannote_audio_tpu/utils/runtime.py: the same environment
-names, with "accelerator" read as "CUDA device".
+names, with "accelerator" read as "CUDA device". ``check_device`` is the
+one place where an entry point's device is resolved: the CUDA card by
+default, and a CUDA device without a card raises.
 """
 
 from __future__ import annotations
@@ -13,6 +15,18 @@ from typing import Union
 import torch
 
 LSTM_PRECISIONS = ("default", "high", "highest")
+
+
+def check_device(device: Union[str, torch.device, None]) -> torch.device:
+    """``device`` as a ``torch.device``, the CUDA card when it is None; a
+    CUDA device without a card raises, so that nothing carries on on the
+    CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("the pipeline runs on a CUDA device by default "
+                           "and none is available: pass device=\"cpu\" to "
+                           "run on the CPU")
+    return device
 
 
 @contextlib.contextmanager

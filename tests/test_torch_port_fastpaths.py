@@ -189,7 +189,8 @@ def _jax_slide(model, waveform, step):
 
 
 def _port_slide(port, waveform, step):
-    inf = Inference(port, duration=2.0, step=step, batch_size=8)
+    inf = Inference(port, duration=2.0, step=step, batch_size=8,
+                    skip_aggregation=True, device="cpu")
     out = inf.slide(torch.from_numpy(waveform), SR).data.numpy()
     return out, inf.counts["whole_conv"]
 

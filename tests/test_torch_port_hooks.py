@@ -166,8 +166,9 @@ def test_sliced_inference_progress_matches_jax(pipelines, monkeypatch):
     monkeypatch.setenv("PYANNOTE_TPU_SEGMENT_HALO_SECONDS", "4.0")
     calls = {"port": [], "jax": []}
     Inference(port._segmentation.model, duration=10.0, step=1.0,
-              batch_size=8)(dict(file), hook=lambda **kw: calls["port"]
-                            .append((kw["completed"], kw["total"])))
+              batch_size=8, skip_aggregation=True, device="cpu")(
+        dict(file), hook=lambda **kw: calls["port"].append(
+            (kw["completed"], kw["total"])))
     JaxInference(jax_pipeline._segmentation.model, duration=10.0, step=1.0,
                  batch_size=8, skip_aggregation=True)(
         dict(file), hook=lambda **kw: calls["jax"].append(

@@ -231,7 +231,8 @@ def segmentation():
 
 
 def _logprobs(port, waveform, cache=None):
-    inference = Inference(port, duration=2.0, step=0.5, batch_size=8)
+    inference = Inference(port, duration=2.0, step=0.5, batch_size=8,
+                          skip_aggregation=True, device="cpu")
     inference._powerset = None
     return inference.slide(waveform, SR, cache=cache).data.numpy()
 
@@ -288,7 +289,8 @@ def test_preload_uploads_one_slice_or_the_whole_file(monkeypatch,
     _, port = segmentation
     path = tmp_path / "long.wav"
     write_wav(path, _long_wave(30 * SR, seed=34), SR)
-    inference = Inference(port, duration=2.0, step=0.5, batch_size=8)
+    inference = Inference(port, duration=2.0, step=0.5, batch_size=8,
+                          skip_aggregation=True, device="cpu")
     set_knobs(monkeypatch, minutes="0.15", halo="1.0")
     file = {"audio": str(path)}
     inference.preload(file)

@@ -141,6 +141,8 @@ def test_port_imports_no_jax():
         "pyannote_audio_tpu_torch.models.embedding.wespeaker",
         "pyannote_audio_tpu_torch.models.segmentation.pyannet",
         "pyannote_audio_tpu_torch.ops.aggregate",
+        "pyannote_audio_tpu_torch.ops.ahc",
+        "pyannote_audio_tpu_torch.ops.binarize",
         "pyannote_audio_tpu_torch.ops.diarize_fused",
         "pyannote_audio_tpu_torch.ops.fbank",
         "pyannote_audio_tpu_torch.ops.kmeans",
@@ -150,16 +152,21 @@ def test_port_imports_no_jax():
         "pyannote_audio_tpu_torch.ops.powerset",
         "pyannote_audio_tpu_torch.pipelines",
         "pyannote_audio_tpu_torch.pipelines.clustering",
+        "pyannote_audio_tpu_torch.pipelines.multilabel",
         "pyannote_audio_tpu_torch.pipelines.parameter",
         "pyannote_audio_tpu_torch.pipelines.speaker_diarization",
         "pyannote_audio_tpu_torch.pipelines.utils.diarization",
         "pyannote_audio_tpu_torch.pipelines.utils.getter",
         "pyannote_audio_tpu_torch.pipelines.utils.hook",
         "pyannote_audio_tpu_torch.pipelines.utils.oracle",
+        "pyannote_audio_tpu_torch.pipelines.voice_activity_detection",
         "pyannote_audio_tpu_torch.utils.build",
         "pyannote_audio_tpu_torch.utils.convert",
         "pyannote_audio_tpu_torch.utils.flops",
+        "pyannote_audio_tpu_torch.utils.metric",
+        "pyannote_audio_tpu_torch.utils.native",
         "pyannote_audio_tpu_torch.utils.receptive_field",
+        "pyannote_audio_tpu_torch.utils.rttm",
         "pyannote_audio_tpu_torch.utils.runtime",
         "pyannote_audio_tpu_torch.utils.signal",
         "pyannote_audio_tpu_torch.utils.vbx",
@@ -171,9 +178,16 @@ def test_port_imports_no_jax():
             "port.Pipeline, port.Model\n"
             "from pyannote_audio_tpu_torch.core.pipeline import \\\n"
             "    get_class_by_name\n"
-            "klass = get_class_by_name('pyannote_audio_tpu.pipelines.'\n"
-            "                          'speaker_diarization.SpeakerDiarization')\n"
-            "assert klass.__module__.startswith('pyannote_audio_tpu_torch.')\n"
+            "for name in ('pyannote_audio_tpu.pipelines.speaker_diarization.'\n"
+            "             'SpeakerDiarization',\n"
+            "             'pyannote.audio.pipelines.VoiceActivityDetection',\n"
+            "             'pyannote.audio.pipelines.'\n"
+            "             'OracleVoiceActivityDetection',\n"
+            "             'pyannote_audio_tpu.pipelines.multilabel.'\n"
+            "             'MultiLabelSegmentation'):\n"
+            "    klass = get_class_by_name(name)\n"
+            "    assert klass.__module__.startswith(\n"
+            "        'pyannote_audio_tpu_torch.'), name\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in (\n"
             "    'jax', 'flax', 'jaxlib', 'pyannote_audio_tpu', 'sklearn',\n"
             "    'yaml'))\n"

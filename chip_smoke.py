@@ -63,7 +63,22 @@ Phases, each fatal on failure:
      PCM16, and ``_predecode_batch`` against one-by-one decode; (p)
      PYANNOTE_TPU_DEVICE_AHC=1 against host scipy on the serving list;
      (q) the device hysteresis and aggregation against the CPU at the
-     VAD's serving-list sizes.
+     VAD's serving-list sizes;
+  9. embedders: (r) WeSpeaker ResNet34 and ResNet293 from .onnx files of
+     initializers, ECAPA-TDNN from a SpeechBrain snapshot directory,
+     TitaNet-large from a NeMo state dict, XVectorSincNet and XVectorMFCC
+     from reference checkpoints, each at its published width with seeded
+     weights, on one batch of 32 five-second chunks, unmasked and with
+     masks that leave some rows too short (NaN), card against CPU, with
+     its time per batch; (s) SpeakerEmbedding from a config dict over
+     (l)'s PyanNet and the ECAPA snapshot on three 1-minute files (card
+     against CPU on the exact path, LSTM launches), then
+     verification_trials_eer over seeded trials; (t) SpeakerDiarization
+     with the XVectorSincNet checkpoint on 10 + 3 min through
+     ``apply_batch`` (the per-chunk path, LSTM launches) and card against
+     CPU on the 3-minute file by (g)'s near-tie rule; (u) with a
+     full-width ResNet293 (bf16 trunk) on the 3-minute file: the shared
+     trunk, its panels against one unpanelled pass, peak memory.
 
 The line before the last is a JSON object describing each kernel (its
 ``launches`` is the accelerator path's; ``launches_per_path`` has every
@@ -816,7 +831,8 @@ def check_shared_fbank(pipeline, waveform: torch.Tensor) -> None:
         raise AssertionError("whole-file fbank slices disagree")
 
 
-def check_panels(pipeline, waveform: torch.Tensor) -> None:
+def check_panels(pipeline, waveform: torch.Tensor, label: str = "(c)"
+                 ) -> None:
     """(c) The panelled trunk against one unpanelled pass over the same
     padded layout, float32 and bf16."""
     from pyannote_audio_tpu_torch.core.inference import pad_to_grid
@@ -844,7 +860,7 @@ def check_panels(pipeline, waveform: torch.Tensor) -> None:
                            <= PANEL_BF16_ATOL
                            + PANEL_BF16_RTOL * ref.abs()).all())
                 limit = f"atol {PANEL_BF16_ATOL} + rtol {PANEL_BF16_RTOL}"
-            log(f"(c) panel trunk vs one pass, {compute_dtype}: "
+            log(f"{label} panel trunk vs one pass, {compute_dtype}: "
                 f"{tuple(ours.shape)} trunk frames, max_abs_err {err:.3e} "
                 f"(scale {ref.abs().max().item():.3e}, limit {limit})")
             if not (ok and torch.isfinite(trunk).all()):
@@ -2302,13 +2318,368 @@ def phase_vad_multilabel_audio(device, workdir: Path, pipeline,
     return launches
 
 
+# -- phase 9 ------------------------------------------------------------------
+
+# (r): one batch of 32 five-second chunks per embedder, card against the
+# CPU on the whole batch, unmasked and masked; float32 models at cosine > 0.9999 and relative L2 <= 1e-3 per finite
+# row; the bf16 WeSpeaker trunks by the bound of
+# tests/test_torch_port_models.py (card against CPU within 2e-2 of the
+# largest float32 value, 2e-3 in the mean, and no farther from the CPU's
+# float32 embeddings than twice the CPU's bf16 ones); NaN at the same rows
+EMBED_BATCH = 32
+EMBED_SECONDS = 5.0
+EMBED_MIN_COS = 0.9999
+EMBED_REL_L2 = 1e-3
+EMBED_BF16_MAX, EMBED_BF16_MEAN = 2e-2, 2e-3
+EMBED_RUNS = 20
+# (s): three 1-minute files; the Inference's default batch of 32 chunks
+SPEAKER_EMBEDDING_MINUTES = (1.0, 1.0, 1.0)
+INFERENCE_BATCH = 32
+ECAPA_HYPERPARAMS = ("sample_rate: 16000\nn_mels: 80\n"
+                     "embedding_model: !new:speechbrain.lobes.models."
+                     "ECAPA_TDNN.ECAPA_TDNN\n"
+                     "    channels: [1024, 1024, 1024, 1024, 3072]\n"
+                     "    kernel_sizes: [5, 3, 3, 3, 1]\n"
+                     "    dilations: [1, 2, 3, 4, 1]\n"
+                     "    attention_channels: 128\n    lin_neurons: 192\n")
+
+
+def embed_batch():
+    """(32, 1, 80000) chunks of a synthetic minute, and (32, 293) masks
+    cycling over: all speech, random speech, 2 frames (too short for every
+    embedder: 546 samples), the first half."""
+    audio = synth(1.0, seed=20)
+    n = int(EMBED_SECONDS * SAMPLE_RATE)
+    starts = (np.arange(EMBED_BATCH) * 1.7 * SAMPLE_RATE).astype(int) \
+        % (len(audio) - n)
+    wav = np.stack([audio[s:s + n] for s in starts])[:, None]
+    rng = np.random.default_rng(21)
+    masks = np.zeros((EMBED_BATCH, 293), np.float32)
+    masks[0::4] = 1.0
+    masks[1::4] = rng.uniform(size=(EMBED_BATCH // 4, 293)) > 0.3
+    masks[2::4, :2] = 1.0
+    masks[3::4, :146] = 1.0
+    return wav, masks
+
+
+def _onnx_of(model, path: Path) -> str:
+    """A WeSpeaker-style .onnx file of ``model``'s weights (the bare
+    ResNet's names, no BatchNorm counters)."""
+    from pyannote_audio_tpu_torch.utils.onnx import write_onnx_initializers
+    write_onnx_initializers(path, {
+        k[len("resnet."):]: v.numpy() for k, v in model.state_dict().items()
+        if not k.endswith("num_batches_tracked")})
+    return str(path)
+
+
+def write_embedders(root: Path) -> list:
+    """Each embedder at its published width with seeded weights, written
+    where its real route reads it; returns (label, build(device) -> the
+    route's wrapper, "float32" | "bf16")."""
+    from pyannote_audio_tpu_torch.models.embedding import (
+        ECAPA_TDNN, TitaNet, WeSpeakerResNet34, WeSpeakerResNet293,
+        XVectorMFCC, XVectorSincNet)
+    from pyannote_audio_tpu_torch.models.embedding.titanet import \
+        export_nemo_state_dict
+    from pyannote_audio_tpu_torch.pipelines.speaker_verification import (
+        NeMoPretrainedSpeakerEmbedding, PretrainedSpeakerEmbedding)
+    from pyannote_audio_tpu_torch.utils.convert import \
+        write_reference_checkpoint
+    root.mkdir(parents=True, exist_ok=True)
+
+    def seeded(seed):
+        return torch.Generator().manual_seed(seed)
+
+    routes = []
+    for depth, klass, seed in ((34, WeSpeakerResNet34, 40),
+                               (293, WeSpeakerResNet293, 41)):
+        path = _onnx_of(klass(generator=seeded(seed)),
+                        root / f"wespeaker-resnet{depth}.onnx")
+        routes.append((f"WeSpeakerResNet{depth} (.onnx)",
+                       lambda device, path=path:
+                       PretrainedSpeakerEmbedding(path, device=device),
+                       "bf16"))
+    ecapa_dir = root / "spkrec-ecapa"
+    ecapa_dir.mkdir(exist_ok=True)
+    torch.save({k: torch.from_numpy(v) for k, v in ECAPA_TDNN(
+        generator=seeded(42)).export_speechbrain_state_dict().items()},
+        ecapa_dir / "embedding_model.ckpt")
+    (ecapa_dir / "hyperparams.yaml").write_text(ECAPA_HYPERPARAMS)
+    routes.append(("ECAPA_TDNN (SpeechBrain snapshot)",
+                   lambda device: PretrainedSpeakerEmbedding(
+                       str(ecapa_dir), device=device), "float32"))
+    nemo_state = export_nemo_state_dict(TitaNet(generator=seeded(43)))
+    routes.append(("TitaNet-large (NeMo state dict)",
+                   lambda device: NeMoPretrainedSpeakerEmbedding(
+                       TitaNet().convert_nemo_state_dict(nemo_state),
+                       device=device), "float32"))
+    for klass, seed in ((XVectorSincNet, 44), (XVectorMFCC, 45)):
+        model = klass(generator=seeded(seed))
+        path = write_reference_checkpoint(
+            model.state_dict(), klass.__name__, model.reference_hparams(),
+            None, root / klass.__name__)
+        routes.append((f"{klass.__name__} (pytorch_model.bin)",
+                       lambda device, path=path:
+                       PretrainedSpeakerEmbedding(str(path), device=device),
+                       "float32"))
+    return routes, ecapa_dir
+
+
+def embedding_agreement(label: str, ours: np.ndarray, theirs: np.ndarray,
+                        ref_f32: np.ndarray = None) -> str:
+    """Hold card embeddings ``ours`` to the CPU's ``theirs`` (NaN rows
+    equal; float32 by cosine and relative L2, bf16 by the trunk bound
+    against the CPU's float32 ``ref_f32``); returns the printed values."""
+    nan_ours, nan_theirs = np.isnan(ours).all(-1), np.isnan(theirs).all(-1)
+    if not (np.array_equal(nan_ours, nan_theirs)
+            and np.isfinite(ours[~nan_ours]).all()):
+        raise AssertionError(f"(r) {label}: NaN rows differ between the "
+                             f"card ({np.flatnonzero(nan_ours)}) and the "
+                             f"CPU ({np.flatnonzero(nan_theirs)})")
+    a, b = ours[~nan_ours], theirs[~nan_theirs]
+    if ref_f32 is None:
+        cos = cosines(a, b).min()
+        rel = (np.linalg.norm(a - b, axis=-1)
+               / np.linalg.norm(b, axis=-1)).max()
+        ok = cos > EMBED_MIN_COS and rel <= EMBED_REL_L2
+        text = (f"cosine min {cos:.7f} (limit > {EMBED_MIN_COS}), "
+                f"relative L2 max {rel:.3e} (limit {EMBED_REL_L2})")
+    else:
+        f32 = ref_f32[~nan_theirs]
+        scale = np.abs(f32).max()
+        err = np.abs(a - b)
+        ours_f32, cpu_f32 = np.abs(a - f32), np.abs(b - f32)
+        ok = (err.max() <= EMBED_BF16_MAX * scale
+              and err.mean() <= EMBED_BF16_MEAN * scale
+              and ours_f32.max() <= 2 * cpu_f32.max()
+              and ours_f32.mean() <= 2 * cpu_f32.mean())
+        text = (f"card vs CPU bf16 max {err.max() / scale:.3e} / mean "
+                f"{err.mean() / scale:.3e} of the float32 scale (limits "
+                f"{EMBED_BF16_MAX} / {EMBED_BF16_MEAN}); from float32: card "
+                f"max {ours_f32.max():.3e} mean {ours_f32.mean():.3e}, CPU "
+                f"bf16 max {cpu_f32.max():.3e} mean {cpu_f32.mean():.3e} "
+                f"(limit 2x)")
+    if not ok or not len(a):
+        raise AssertionError(f"(r) {label}: the card disagrees with the "
+                             f"CPU: {text}")
+    return text
+
+
+def check_embedders(device, workdir: Path, card: str) -> Path:
+    """(r) Each embedder through its route, card against CPU, unmasked and
+    masked, and its time per batch with the operations it counts;
+    returns the ECAPA snapshot."""
+    from torch.utils.flop_counter import FlopCounterMode
+    routes, ecapa_dir = write_embedders(workdir / "embedders")
+    wav, masks = embed_batch()
+    # the x-vectors' SincNet on the exact path (its bf16 gate off), as
+    # every float32 module of the slice
+    with environ({"PYANNOTE_TPU_SEG_BF16": "0"}):
+        for label, build, precision in routes:
+            ours, cpu = build(device), build("cpu")
+            texts = []
+            start = time.perf_counter()
+            for name, m in (("unmasked", None), ("masked", masks)):
+                a, b = ours(wav, m), cpu(wav, m)
+                ref = None
+                if precision == "bf16":
+                    cpu.model.compute_dtype = torch.float32
+                    ref = cpu(wav, m)
+                    cpu.model.compute_dtype = torch.bfloat16
+                texts.append(f"{name}: {embedding_agreement(label, a, b, ref)}"
+                             f"; NaN rows {np.flatnonzero(np.isnan(a).all(-1))}"
+                             )
+            check_s = time.perf_counter() - start
+            x = torch.from_numpy(wav).to(device)
+            with torch.inference_mode():
+                ms = cuda_ms(lambda: ours.model(x), runs=EMBED_RUNS)
+                with FlopCounterMode(display=False) as counter:
+                    ours.model(x)
+            flops = counter.get_total_flops()
+            log(f"(r) {label}, {EMBED_BATCH} x {EMBED_SECONDS:g} s chunks, "
+                f"{precision}, {ours.dimension}-d: {ms:.3f} ms per batch "
+                f"(median of {EMBED_RUNS}, CUDA events; {card}); "
+                f"{flops / 1e12:.4f} TFLOP of convolutions and matmuls "
+                f"(torch's FlopCounterMode) = {flops / ms / 1e9:.1f} "
+                f"TFLOP/s; card vs CPU on all {EMBED_BATCH} rows "
+                f"({check_s:.1f} s with the CPU's passes)")
+            for text in texts:
+                log(f"    {text}")
+            del ours, cpu
+    return ecapa_dir
+
+
+def check_speaker_embedding(device, workdir: Path, config: dict,
+                            ecapa_dir: Path, card: str) -> int:
+    """(s) SpeakerEmbedding from a config dict, VAD-weighted by (l)'s
+    PyanNet, over the ECAPA snapshot: card against CPU on the exact path
+    with its LSTM launches, a timed warm pass at the defaults, then the
+    EER over seeded trials; returns the LSTM launches."""
+    import math
+
+    from pyannote_audio_tpu_torch import Pipeline
+    from pyannote_audio_tpu_torch.core.inference import _chunk_grid
+    from pyannote_audio_tpu_torch.pipelines.speaker_verification import (
+        SpeakerEmbedding, verification_trials_eer)
+    cfg = {"checkpoint": config["checkpoint"], "pipeline": {
+        "name": "pyannote.audio.pipelines.SpeakerEmbedding",
+        "params": {"embedding": str(ecapa_dir),
+                   "segmentation": "$model/segmentation"}}}
+    files = write_files(workdir, SPEAKER_EMBEDDING_MINUTES)
+    window = 10 * SAMPLE_RATE
+    expected = 2 * sum(math.ceil(len(_chunk_grid(
+        int(m * 60 * SAMPLE_RATE), window, window // 10)[0])
+        / INFERENCE_BATCH) for m in SPEAKER_EMBEDDING_MINUTES)
+    with exact_path():
+        pipeline = Pipeline.from_pretrained(cfg, device=device)
+        cpu = Pipeline.from_pretrained(cfg, device="cpu")
+        if not isinstance(pipeline, SpeakerEmbedding) or \
+                pipeline._embedding.device.type != torch.device(device).type:
+            raise AssertionError("(s) SpeakerEmbedding did not load onto "
+                                 "the card")
+        reset_lstm()
+        ours = np.concatenate([pipeline(dict(f)) for f in files])
+        torch.cuda.synchronize()
+        launches = lstm_launches()
+        theirs = np.concatenate([cpu(dict(f)) for f in files])
+    text = embedding_agreement("(s) SpeakerEmbedding", ours, theirs)
+    log(f"(s) SpeakerEmbedding (ECAPA, VAD-weighted by PyanNet) on 3 x 1 "
+        f"min, exact path, card vs CPU: {text}; lstm_recurrence launches "
+        f"{launches} (expected {expected}: 2 layers x {expected // 2} "
+        f"batches of {INFERENCE_BATCH} chunks)")
+    if launches != expected or ours.shape != (3, 192):
+        raise AssertionError("(s) SpeakerEmbedding did not run through the "
+                             "LSTM kernel as expected")
+    del cpu
+    pipeline = Pipeline.from_pretrained(cfg, device=device)
+    [pipeline(dict(f)) for f in files]                      # warm
+    wall = wall_seconds(lambda: [pipeline(dict(f)) for f in files])
+    rng = np.random.default_rng(22)
+    trials = [{"file1": dict(files[i]), "file2": dict(files[j]),
+               "reference": int(rng.integers(2))}
+              for i in range(3) for j in range(i, 3)]
+    eer = verification_trials_eer(pipeline, trials)
+    log(f"(s) at the defaults: warm pass {wall:.3f} s for 3 min of audio "
+        f"({card}); verification_trials_eer over {len(trials)} seeded "
+        f"trials = {eer:.4f} (random weights: not a quality claim)")
+    if not np.isfinite(eer):
+        raise AssertionError("(s) the EER is not finite")
+    return launches
+
+
+def xvector_pipeline(config: dict, embedding: str, device):
+    from pyannote_audio_tpu_torch.pipelines.speaker_diarization import \
+        SpeakerDiarization
+    pipeline = SpeakerDiarization(
+        segmentation=str(Path(config["checkpoint"]) / "segmentation"),
+        embedding=embedding, clustering="AgglomerativeClustering",
+        segmentation_batch_size=BATCH_SIZE, embedding_batch_size=BATCH_SIZE,
+        device=device)
+    return pipeline.instantiate(PARAMS)
+
+
+def check_xvector_diarization(device, workdir: Path, config: dict,
+                              card: str) -> int:
+    """(t) SpeakerDiarization with an XVectorSincNet embedding (a reference
+    checkpoint) on 10 + 3 min through apply_batch at the defaults, then
+    the card against the CPU on the 3-minute file on the exact path by
+    (g)'s near-tie rule; returns the LSTM launches."""
+    import math
+
+    from pyannote_audio_tpu_torch.core.inference import _chunk_grid
+    embedding = str(workdir / "embedders" / "XVectorSincNet")
+    files = write_files(workdir, FILE_MINUTES)
+    set_gates(None)
+    pipeline = xvector_pipeline(config, embedding, device)
+    run_batch(pipeline, files)                                  # warm
+    torch.cuda.synchronize()
+    reset_counts(pipeline)
+    outputs = run_batch(pipeline, files)
+    torch.cuda.synchronize()
+    counts = read_counts(pipeline)
+    wall = wall_seconds(lambda: run_batch(pipeline, files))
+    check_outputs(files, outputs)
+    window = 10 * SAMPLE_RATE
+    batches = len(segmentation_batches())
+    chunk_batches = sum(math.ceil(len(_chunk_grid(
+        int(m * 60 * SAMPLE_RATE), window, window // 10)[0]) / BATCH_SIZE)
+        for m in FILE_MINUTES)
+    expected = {"whole_conv": len(files), "whole_fbank": 0,
+                "trunk_panel_batches": 0,
+                "chunk_trunk_batches": chunk_batches,
+                "lstm_launches": 2 * batches}
+    log(f"(t) x-vector diarization, 10 + 3 min through apply_batch: counts "
+        f"{counts} (expected {expected}: the per-chunk embedding path); "
+        f"warm pass {wall:.3f} s = {wall * 60 / sum(FILE_MINUTES):.3f} s "
+        f"per audio-hour ({card})")
+    if counts != expected:
+        raise AssertionError("(t) the x-vector pipeline did not take the "
+                             "per-chunk path through the LSTM kernel")
+    with exact_path():
+        ours = xvector_pipeline(config, embedding, device)
+        theirs = xvector_pipeline(config, embedding, "cpu")
+        waveform = synth(FILE_MINUTES[1], seed=1)[None]
+        check_same_diarization(
+            "(t) x-vector diarization on 3 min, card vs CPU, exact path",
+            traced_run(ours, files[1]), traced_run(theirs, files[1]),
+            logprobs(ours, waveform).cpu(), logprobs(theirs, waveform),
+            ours._segmentation.model.receptive_field)
+    return counts["lstm_launches"]
+
+
+def check_resnet293_diarization(device, workdir: Path, card: str) -> int:
+    """(u) SpeakerDiarization with a full-width ResNet293 (bf16 trunk) on
+    the 3-minute file: the shared-trunk path, its panels against one
+    unpanelled pass, peak memory; returns the LSTM launches."""
+    from pyannote_audio_tpu_torch.models.embedding import WeSpeakerResNet293
+    set_gates(None)
+    segmentation, _ = make_models(torch.bfloat16)
+    pipeline = build_pipeline(
+        segmentation, WeSpeakerResNet293(
+            generator=torch.Generator().manual_seed(41)), device)
+    file = write_files(workdir, FILE_MINUTES)[1]
+    pipeline(dict(file), max_speakers=4)                        # warm
+    torch.cuda.synchronize()
+    reset_counts(pipeline)
+    peak, wall = peak_and_wall(
+        device, lambda: check_outputs([file], [pipeline(
+            dict(file), max_speakers=4)]))
+    counts = read_counts(pipeline)
+    log(f"(u) ResNet293 (bf16) diarization on 3 min: counts {counts}; wall "
+        f"{wall:.3f} s; peak device memory {peak / 2**30:.3f} GiB "
+        f"(torch.cuda.max_memory_allocated; {card})")
+    if not (counts["trunk_panel_batches"] > 0
+            and counts["chunk_trunk_batches"] == 0):
+        raise AssertionError("(u) ResNet293 did not take the shared trunk")
+    waveform = torch.from_numpy(synth(FILE_MINUTES[1], seed=1)[None]).to(
+        device)
+    with torch.inference_mode():
+        check_panels(pipeline, waveform, "(u)")
+    return counts["lstm_launches"]
+
+
+def phase_embedders(device, workdir: Path, config: dict, card: str) -> dict:
+    """Phase 9: every embedder through its route, SpeakerEmbedding with
+    VAD weighting, diarization with an x-vector and with ResNet293;
+    returns the LSTM launches of each new path."""
+    log(f"phase 9, embedders, on {card}")
+    ecapa_dir = check_embedders(device, workdir, card)
+    launches = {"speaker embedding (s)": check_speaker_embedding(
+        device, workdir, config, ecapa_dir, card)}
+    launches["x-vector diarization (t)"] = check_xvector_diarization(
+        device, workdir, config, card)
+    launches["ResNet293 diarization (u)"] = check_resnet293_diarization(
+        device, workdir, card)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run",
               file=sys.stderr)
         return 1
     device = torch.device("cuda", 0)
-    phase_environment()
+    card = phase_environment()
     phase_build()
     record = phase_kernels(device)
     launches = {}
@@ -2322,6 +2693,7 @@ def main() -> int:
             device, Path(tmp), pipeline)
         launches.update(phase_vad_multilabel_audio(device, Path(tmp),
                                                    pipeline, config))
+        launches.update(phase_embedders(device, Path(tmp), config, card))
     log(f"lstm_recurrence launches per path: {launches}")
     record["launches"] = launches["accelerator"]
     record["launches_per_path"] = launches

@@ -8,7 +8,8 @@ and of its ``Model.from_pretrained`` for reference-layout checkpoints
 specifications). The port's models are ``torch.nn.Module``s;
 ``FrameModel`` adds the frame arithmetic that Inference and the
 diarization pipeline read, and ``Model.from_pretrained`` builds one of the
-ported architectures from such a checkpoint.
+ported architectures (PyanNet, XVectorMFCC, XVectorSincNet and every
+WeSpeaker ResNet depth) from such a checkpoint.
 """
 
 from __future__ import annotations
@@ -203,13 +204,24 @@ def _wespeaker(hparams: Dict[str, Any], specs) -> Dict[str, Any]:
     return kwargs
 
 
+def _xvector(hparams: Dict[str, Any], specs) -> Dict[str, Any]:
+    return {k: hparams[k] for k in ("sample_rate", "mfcc", "sincnet",
+                                    "dimension") if k in hparams}
+
+
+_WESPEAKER = "pyannote_audio_tpu_torch.models.embedding.wespeaker"
+_XVECTOR = "pyannote_audio_tpu_torch.models.embedding.xvector"
+
 # architecture class name -> (module, class, hyper-parameters -> the
 # port's constructor arguments)
 _ARCHITECTURES = {
     "PyanNet": ("pyannote_audio_tpu_torch.models.segmentation.pyannet",
                 "PyanNet", _pyannet),
-    "WeSpeakerResNet34": ("pyannote_audio_tpu_torch.models.embedding."
-                          "wespeaker", "WeSpeakerResNet34", _wespeaker),
+    "XVectorMFCC": (_XVECTOR, "XVectorMFCC", _xvector),
+    "XVectorSincNet": (_XVECTOR, "XVectorSincNet", _xvector),
+    **{f"WeSpeakerResNet{depth}": (_WESPEAKER, f"WeSpeakerResNet{depth}",
+                                   _wespeaker)
+       for depth in (18, 34, 50, 101, 152, 221, 293)},
 }
 
 # buffers a reference state dict may carry that the port derives itself

@@ -1,9 +1,12 @@
-"""WeSpeaker ResNet speaker embeddings.
+"""WeSpeaker ResNet speaker embeddings, every published depth.
 
 Counterpart of pyannote_audio_tpu/models/embedding/wespeaker.py
-(``BasicBlock``, ``ResNetTrunk``, the ``frames`` / ``embed`` split and
-``seg_1``): kaldi fbank -> ResNet (NCHW, the reference layout: input
-(B, 1, mel, frames)) -> weighted TSTP statistics pooling -> linear.
+(``BasicBlock``, ``Bottleneck``, ``ResNetTrunk``, ``BaseWeSpeakerResNet``
+and ResNet18/34/50/101/152/221/293 with the bare ``ResNet*`` aliases,
+the ``frames`` / ``embed`` split and ``seg_1``): kaldi fbank -> ResNet
+(NCHW, the reference layout: input (B, 1, mel, frames)) -> weighted TSTP
+statistics pooling -> linear. Every depth has ``frames_from_fbank``, so
+the diarization pipeline's shared-fbank and shared-trunk paths serve it.
 BatchNorm uses running statistics (the module is meant to run in eval
 mode). Parameter names follow the reference ``resnet.*`` layout, which
 the JAX model's ``export_torch_state_dict`` emits.
@@ -21,7 +24,7 @@ and a process may allow it for matmuls.
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Sequence
+from typing import Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +55,8 @@ def _apply_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
 
 
 class BasicBlock(nn.Module):
+    expansion = 1
+
     def __init__(self, in_planes: int, planes: int, stride: int = 1,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -59,39 +64,77 @@ class BasicBlock(nn.Module):
         self.bn1 = nn.BatchNorm2d(planes)
         self.conv2 = _conv(planes, planes, 3, 1, generator)
         self.bn2 = nn.BatchNorm2d(planes)
-        self.shortcut = nn.Sequential()
-        if stride != 1 or in_planes != planes:
-            self.shortcut = nn.Sequential(
-                _conv(in_planes, planes, 1, stride, generator),
-                nn.BatchNorm2d(planes))
+        self.shortcut = _shortcut(in_planes, planes, stride, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = F.relu(self.bn1(_apply_conv(self.conv1, x)))
         out = self.bn2(_apply_conv(self.conv2, out))
-        if len(self.shortcut):
-            x = self.shortcut[1](_apply_conv(self.shortcut[0], x))
-        return F.relu(out + x)
+        return F.relu(out + _apply_shortcut(self.shortcut, x))
 
 
-class ResNet(nn.Module):
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3 (strided) -> 1x1 to ``expansion * planes`` channels."""
+
+    expansion = 4
+
+    def __init__(self, in_planes: int, planes: int, stride: int = 1,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        out_planes = self.expansion * planes
+        self.conv1 = _conv(in_planes, planes, 1, 1, generator)
+        self.bn1 = nn.BatchNorm2d(planes)
+        self.conv2 = _conv(planes, planes, 3, stride, generator)
+        self.bn2 = nn.BatchNorm2d(planes)
+        self.conv3 = _conv(planes, out_planes, 1, 1, generator)
+        self.bn3 = nn.BatchNorm2d(out_planes)
+        self.shortcut = _shortcut(in_planes, out_planes, stride, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(self.bn1(_apply_conv(self.conv1, x)))
+        out = F.relu(self.bn2(_apply_conv(self.conv2, out)))
+        out = self.bn3(_apply_conv(self.conv3, out))
+        return F.relu(out + _apply_shortcut(self.shortcut, x))
+
+
+def _shortcut(in_planes: int, out_planes: int, stride: int,
+              generator: Optional[torch.Generator]) -> nn.Sequential:
+    """Strided 1x1 conv + BatchNorm where the shape changes, else empty."""
+    if stride == 1 and in_planes == out_planes:
+        return nn.Sequential()
+    return nn.Sequential(_conv(in_planes, out_planes, 1, stride, generator),
+                         nn.BatchNorm2d(out_planes))
+
+
+def _apply_shortcut(shortcut: nn.Sequential, x: torch.Tensor
+                    ) -> torch.Tensor:
+    if len(shortcut):
+        return shortcut[1](_apply_conv(shortcut[0], x))
+    return x
+
+
+# time strides of the four stages (stage 1 keeps the frame rate)
+STAGE_STRIDES = (1, 2, 2, 2)
+
+
+class ResNetTrunk(nn.Module):
     """conv1 + 4 stages + seg_1; (B, 1, F, T) -> frames (B, T', C*F')."""
 
     def __init__(self, num_blocks: Sequence[int] = (3, 4, 6, 3),
                  m_channels: int = 32, num_mel_bins: int = 80,
-                 embed_dim: int = 256,
+                 embed_dim: int = 256, bottleneck: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        Block = Bottleneck if bottleneck else BasicBlock
         self.conv1 = _conv(1, m_channels, 3, 1, generator)
         self.bn1 = nn.BatchNorm2d(m_channels)
         in_planes = m_channels
         for stage, (n, mult, stride) in enumerate(
-                zip(num_blocks, (1, 2, 4, 8), (1, 2, 2, 2))):
+                zip(num_blocks, (1, 2, 4, 8), STAGE_STRIDES)):
             blocks = []
             for i in range(n):
-                blocks.append(BasicBlock(in_planes, m_channels * mult,
-                                         stride if i == 0 else 1,
-                                         generator))
-                in_planes = m_channels * mult
+                blocks.append(Block(in_planes, m_channels * mult,
+                                    stride if i == 0 else 1, generator))
+                in_planes = m_channels * mult * Block.expansion
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
         freq = num_mel_bins
         for _ in range(3):              # stages 2-4 halve it (k3 s2 p1)
@@ -117,20 +160,28 @@ class ResNet(nn.Module):
             x = stage(x)
         return x
 
-    def num_frames(self, num_frames: int) -> int:
-        """Trunk output frames for ``num_frames`` input frames, from the
-        strides and paddings of the trunk's convs."""
-        for conv in [self.conv1] + [stage[0].conv1 for stage in (
-                self.layer1, self.layer2, self.layer3, self.layer4)]:
-            num_frames = (num_frames + 2 * conv.padding[1]
-                          - conv.kernel_size[1]) // conv.stride[1] + 1
+    @staticmethod
+    def num_frames(num_frames: int) -> int:
+        """Trunk output frames for ``num_frames`` input frames: conv1 keeps
+        them, each stage's first 3x3 conv (padding 1) divides them by its
+        stride."""
+        for stride in STAGE_STRIDES:
+            num_frames = (num_frames - 1) // stride + 1
         return num_frames
 
 
-class WeSpeakerResNet34(nn.Module):
-    """fbank -> ResNet34 trunk -> masked TSTP -> 256-d embedding."""
+class BaseWeSpeakerResNet(nn.Module):
+    """fbank -> ResNet trunk -> masked TSTP -> 256-d embedding.
 
-    def __init__(self, num_blocks: Sequence[int] = (3, 4, 6, 3),
+    The depth is ``NUM_BLOCKS`` per stage and ``BOTTLENECK`` picks the
+    block, as in the JAX package's classes; ``num_blocks`` overrides the
+    depth (a shallow trunk for tests).
+    """
+
+    NUM_BLOCKS: Tuple[int, ...] = (3, 4, 6, 3)
+    BOTTLENECK = False
+
+    def __init__(self, num_blocks: Optional[Sequence[int]] = None,
                  m_channels: int = 32, num_mel_bins: int = 80,
                  embed_dim: int = 256, sample_rate: int = 16000,
                  frame_length: float = 25.0, frame_shift: float = 10.0,
@@ -145,10 +196,11 @@ class WeSpeakerResNet34(nn.Module):
         self.frame_shift = frame_shift
         self.window_type = window_type
         self.dimension = embed_dim
-        self.num_blocks = tuple(num_blocks)
+        self.num_blocks = tuple(self.NUM_BLOCKS if num_blocks is None
+                                else num_blocks)
         self.m_channels = m_channels
-        self.resnet = ResNet(num_blocks, m_channels, num_mel_bins, embed_dim,
-                             generator)
+        self.resnet = ResNetTrunk(self.num_blocks, m_channels, num_mel_bins,
+                                  embed_dim, self.BOTTLENECK, generator)
 
     def frames(self, waveforms: torch.Tensor) -> torch.Tensor:
         """(B, 1, samples) -> frame-wise features (B, T', C*F')."""
@@ -190,7 +242,7 @@ class WeSpeakerResNet34(nn.Module):
     def reference_hparams(self) -> dict:
         """Hyper-parameters in the reference checkpoint layout, with the
         port's trunk shape and dtype (which a reference checkpoint of the
-        published ResNet34 leaves at their defaults)."""
+        published depths leave at their defaults)."""
         return {"sample_rate": self.sample_rate,
                 "num_mel_bins": self.num_mel_bins,
                 "frame_length": self.frame_length,
@@ -206,3 +258,47 @@ class WeSpeakerResNet34(nn.Module):
         self.load_state_dict({k: torch.tensor(np.asarray(v))
                               for k, v in state.items()}, strict=True)
         return self
+
+
+class WeSpeakerResNet18(BaseWeSpeakerResNet):
+    NUM_BLOCKS = (2, 2, 2, 2)
+
+
+class WeSpeakerResNet34(BaseWeSpeakerResNet):
+    NUM_BLOCKS = (3, 4, 6, 3)
+
+
+class WeSpeakerResNet50(BaseWeSpeakerResNet):
+    NUM_BLOCKS = (3, 4, 6, 3)
+    BOTTLENECK = True
+
+
+class WeSpeakerResNet101(BaseWeSpeakerResNet):
+    NUM_BLOCKS = (3, 4, 23, 3)
+    BOTTLENECK = True
+
+
+class WeSpeakerResNet152(BaseWeSpeakerResNet):
+    NUM_BLOCKS = (3, 8, 36, 3)
+    BOTTLENECK = True
+
+
+class WeSpeakerResNet221(BaseWeSpeakerResNet):
+    NUM_BLOCKS = (6, 16, 48, 3)
+    BOTTLENECK = True
+
+
+class WeSpeakerResNet293(BaseWeSpeakerResNet):
+    NUM_BLOCKS = (10, 20, 64, 3)
+    BOTTLENECK = True
+
+
+# the reference's bare ResNet names, as the JAX package exports them
+ResNet = BaseWeSpeakerResNet
+ResNet18 = WeSpeakerResNet18
+ResNet34 = WeSpeakerResNet34
+ResNet50 = WeSpeakerResNet50
+ResNet101 = WeSpeakerResNet101
+ResNet152 = WeSpeakerResNet152
+ResNet221 = WeSpeakerResNet221
+ResNet293 = WeSpeakerResNet293

@@ -7,6 +7,10 @@ Counterpart of pyannote_audio_tpu/ops/fbank.py's exact path
 float-eps floor, then the WeSpeaker per-chunk mean subtraction.
 ``whole_fbank`` is the uncentered whole-file fbank that the diarization
 pipeline slices per chunk (the JAX pipeline's ``_make_whole_fbank_fn``).
+``speechbrain_fbank`` (ECAPA-TDNN), ``nemo_mel_spectrogram`` (TitaNet)
+and ``mfcc_features`` (the x-vectors; the JAX package's
+models/embedding/xvector.py) are the other front-ends: centred STFTs
+through the rfft, their mel matmuls in float32 with TF32 off.
 
 The power spectrum takes one of the JAX package's three routes:
 
@@ -29,6 +33,7 @@ from __future__ import annotations
 
 import functools
 import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -227,3 +232,253 @@ def whole_fbank(waveform: torch.Tensor, num_mel_bins: int = 80,
     return fbank(waveform[0] * 32768.0, sample_rate=sample_rate,
                  num_mel_bins=num_mel_bins, frame_length=frame_length,
                  frame_shift=frame_shift, window_type=window_type)
+
+
+# -- the SpeechBrain (ECAPA-TDNN) and NeMo (TitaNet) front-ends --------------
+
+@functools.lru_cache(maxsize=None)
+def _speechbrain_mel_banks(n_mels: int, n_fft: int, sample_rate: int,
+                           f_min: float, f_max: float) -> np.ndarray:
+    """(n_fft//2+1, n_mels) SpeechBrain filterbank: n_mels+2 points on the
+    HTK mel scale, each triangle symmetric around its centre with
+    half-width the gap to its left neighbour."""
+    def to_mel(hz):
+        return 2595.0 * np.log10(1.0 + hz / 700.0)
+
+    def to_hz(mel):
+        return 700.0 * (10.0 ** (mel / 2595.0) - 1.0)
+
+    hz = to_hz(np.linspace(to_mel(f_min), to_mel(f_max), n_mels + 2))
+    band = (hz[1:] - hz[:-1])[:-1]          # (n_mels,) left gaps
+    f_central = hz[1:-1]
+    all_freqs = np.linspace(0, sample_rate // 2, n_fft // 2 + 1)
+    slope = (all_freqs[:, None] - f_central[None, :]) / band[None, :]
+    banks = np.maximum(0.0, np.minimum(slope + 1.0, -slope + 1.0))
+    return banks.astype(np.float32)
+
+
+def speechbrain_fbank_num_frames(num_samples: int, hop: int = 160) -> int:
+    """Centred STFT frame count: 1 + num_samples // hop."""
+    return 1 + num_samples // hop
+
+
+@functools.lru_cache(maxsize=None)
+def _centered_window(kind: str, win_length: int, n_fft: int) -> np.ndarray:
+    """A ``win_length`` window zero-padded to ``n_fft`` on both sides, as
+    torch.stft centres a short window: "hamming" periodic (SpeechBrain),
+    "hann" symmetric (NeMo), "periodic_hann" (torchaudio's MFCC)."""
+    n = np.arange(win_length, dtype=np.float64)
+    if kind == "hamming":
+        window = 0.54 - 0.46 * np.cos(2 * np.pi * n / win_length)
+    elif kind == "periodic_hann":
+        window = 0.5 - 0.5 * np.cos(2 * np.pi * n / win_length)
+    else:
+        window = 0.5 - 0.5 * np.cos(2 * np.pi * n / (win_length - 1))
+    full = np.zeros(n_fft, dtype=np.float32)
+    left = (n_fft - win_length) // 2
+    full[left:left + win_length] = window
+    return full
+
+
+def _centered_stft_power(x: torch.Tensor, n_fft: int, hop_length: int,
+                         num_frames: int, window: torch.Tensor,
+                         pad_mode: str = "constant") -> torch.Tensor:
+    """torch.stft(center=True) power spectrum: (batch, samples) ->
+    (batch, num_frames, n_fft//2+1). Pads ``n_fft//2`` on both sides in
+    ``pad_mode``, then zeros up to the last frame's end."""
+    pad = n_fft // 2
+    x = torch.nn.functional.pad(x[:, None], (pad, pad), mode=pad_mode)[:, 0]
+    needed = (num_frames - 1) * hop_length + n_fft
+    if x.shape[-1] < needed:
+        x = torch.nn.functional.pad(x, (0, needed - x.shape[-1]))
+    frames = x.unfold(-1, n_fft, hop_length)[:, :num_frames] * window
+    spectrum = torch.fft.rfft(frames, dim=-1)
+    return spectrum.real.square() + spectrum.imag.square()
+
+
+def _power_to_db(power: torch.Tensor, amin: float, top_db: float
+                 ) -> torch.Tensor:
+    """10 log10(max(power, amin)), floored at ``top_db`` below each item's
+    maximum (torchaudio's ``amplitude_to_DB``, SpeechBrain's ``Fbank``)."""
+    db = 10.0 * torch.log10(torch.clamp(power, min=amin))
+    return torch.maximum(db, db.amax(dim=(-2, -1), keepdim=True) - top_db)
+
+
+def speechbrain_fbank(waveforms: torch.Tensor, n_mels: int = 80,
+                      sample_rate: int = 16000, n_fft: int = 400,
+                      win_length: Optional[int] = None,
+                      hop_length: Optional[int] = None,
+                      f_min: float = 0.0, f_max: float = 8000.0,
+                      amin: float = 1e-10, top_db: float = 80.0
+                      ) -> torch.Tensor:
+    """SpeechBrain ``Fbank`` (ECAPA-TDNN's input): centred STFT with zero
+    padding and a periodic hamming window, power spectrum, SpeechBrain's
+    mel banks, 10 log10 with a per-utterance ``max - top_db`` floor.
+
+    (batch[, 1], samples) -> (batch, 1 + samples // hop, n_mels).
+    ``win_length`` / ``hop_length`` default to 25 / 10 ms.
+    """
+    if win_length is None:
+        win_length = int(round(sample_rate * 0.025))
+    if hop_length is None:
+        hop_length = int(round(sample_rate * 0.010))
+    x = waveforms[..., 0, :] if waveforms.dim() == 3 else waveforms
+    device = x.device
+    num_frames = speechbrain_fbank_num_frames(x.shape[-1], hop_length)
+    with exact_float32():
+        power = _centered_stft_power(
+            x, n_fft, hop_length, num_frames,
+            _constant(_centered_window, ("hamming", win_length, n_fft),
+                      device))
+        mel = torch.matmul(power, _constant(_speechbrain_mel_banks, (
+            n_mels, n_fft, sample_rate, f_min, f_max), device))
+    return _power_to_db(mel, amin, top_db)
+
+
+@functools.lru_cache(maxsize=None)
+def _htk_mel_fbanks(n_freqs: int, n_mels: int, sample_rate: int
+                    ) -> np.ndarray:
+    """(n_freqs, n_mels) triangular filterbank, torchaudio
+    ``melscale_fbanks`` with mel_scale="htk", norm=None, 0 Hz to
+    Nyquist."""
+    def hz_to_mel(f):
+        return 2595.0 * np.log10(1.0 + np.asarray(f) / 700.0)
+
+    def mel_to_hz(m):
+        return 700.0 * (10.0 ** (np.asarray(m) / 2595.0) - 1.0)
+
+    all_freqs = np.linspace(0, sample_rate // 2, n_freqs)
+    f_pts = mel_to_hz(np.linspace(hz_to_mel(0.0),
+                                  hz_to_mel(sample_rate / 2.0), n_mels + 2))
+    f_diff = f_pts[1:] - f_pts[:-1]
+    slopes = f_pts[None, :] - all_freqs[:, None]
+    down = -slopes[:, :-2] / f_diff[:-1]
+    up = slopes[:, 2:] / f_diff[1:]
+    return np.maximum(0.0, np.minimum(down, up)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _dct_ortho(n_mfcc: int, n_mels: int) -> np.ndarray:
+    """(n_mels, n_mfcc) DCT-II basis with ortho norm (torchaudio
+    ``create_dct``)."""
+    k = np.arange(n_mfcc)[:, None]
+    m = np.arange(n_mels)[None, :]
+    basis = np.cos(np.pi / n_mels * (m + 0.5) * k) * np.sqrt(2.0 / n_mels)
+    basis[0] *= 1.0 / np.sqrt(2.0)
+    return basis.T.astype(np.float32)
+
+
+def mfcc_features(waveforms: torch.Tensor, sample_rate: int = 16000,
+                  n_mfcc: int = 40, n_mels: int = 128, n_fft: int = 400,
+                  hop: int = 200, top_db: float = 80.0) -> torch.Tensor:
+    """torchaudio ``transforms.MFCC`` at its defaults (the x-vector's
+    input): reflect-padded centred STFT with a periodic hann window (hop
+    ``n_fft // 2``), power, HTK mel banks with no norm,
+    ``amplitude_to_DB`` floored at ``top_db`` below each item's maximum,
+    then an ortho DCT-II.
+
+    (batch[, 1], samples) -> (batch, 1 + samples // hop, n_mfcc).
+    """
+    x = waveforms[..., 0, :] if waveforms.dim() == 3 else waveforms
+    device = x.device
+    with exact_float32():
+        power = _centered_stft_power(
+            x, n_fft, hop, 1 + x.shape[-1] // hop,
+            _constant(_centered_window, ("periodic_hann", n_fft, n_fft),
+                      device), pad_mode="reflect")
+        mel = torch.matmul(power, _constant(
+            _htk_mel_fbanks, (n_fft // 2 + 1, n_mels, sample_rate), device))
+        return torch.matmul(_power_to_db(mel, 1e-10, top_db), _constant(
+            _dct_ortho, (n_mfcc, n_mels), device))
+
+
+@functools.lru_cache(maxsize=None)
+def _slaney_mel_banks(n_mels: int, n_fft: int, sample_rate: int,
+                      f_min: float, f_max: float) -> np.ndarray:
+    """(n_fft//2+1, n_mels) librosa mel filterbank: Slaney mel scale
+    (linear below 1 kHz, log above) with Slaney area normalisation, as
+    NeMo's FilterbankFeatures builds it."""
+    f_sp = 200.0 / 3.0
+    min_log_hz = 1000.0
+    min_log_mel = min_log_hz / f_sp
+    logstep = np.log(6.4) / 27.0
+
+    def to_mel(hz):
+        hz = np.asarray(hz, dtype=np.float64)
+        return np.where(hz >= min_log_hz,
+                        min_log_mel + np.log(np.maximum(hz, min_log_hz)
+                                             / min_log_hz) / logstep,
+                        hz / f_sp)
+
+    def to_hz(mel):
+        mel = np.asarray(mel, dtype=np.float64)
+        return np.where(mel >= min_log_mel,
+                        min_log_hz * np.exp(logstep * (mel - min_log_mel)),
+                        f_sp * mel)
+
+    pts = to_hz(np.linspace(to_mel(f_min), to_mel(f_max), n_mels + 2))
+    all_freqs = np.linspace(0, sample_rate / 2, n_fft // 2 + 1)
+    fdiff = np.diff(pts)
+    ramps = pts[:, None] - all_freqs[None, :]       # (n_mels+2, F)
+    lower = -ramps[:-2] / fdiff[:-1, None]
+    upper = ramps[2:] / fdiff[1:, None]
+    weights = np.maximum(0.0, np.minimum(lower, upper))
+    weights *= (2.0 / (pts[2:] - pts[:-2]))[:, None]
+    return weights.T.astype(np.float32)
+
+
+def nemo_mel_num_frames(num_samples: int, hop: int = 160) -> int:
+    """Centred STFT frame count: 1 + num_samples // hop."""
+    return 1 + num_samples // hop
+
+
+def nemo_mel_spectrogram(waveforms: torch.Tensor,
+                         lengths: Optional[torch.Tensor] = None,
+                         n_mels: int = 80, sample_rate: int = 16000,
+                         n_fft: int = 512, win_length: int = 400,
+                         hop_length: int = 160, preemph: float = 0.97,
+                         log_zero_guard: float = 2.0 ** -24,
+                         normalize: str = "per_feature",
+                         frame_mask: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """NeMo ``AudioToMelSpectrogramPreprocessor`` (TitaNet's input) in eval
+    mode: pre-emphasis, centred reflect-padded STFT with a symmetric hann
+    window of ``win_length`` centred in ``n_fft``, power, Slaney mel
+    banks, log(mel + 2^-24), then per-feature normalisation (unbiased std
+    + 1e-5) over the valid frames, padded frames zeroed.
+
+    ``lengths`` are sample counts (valid frames ``1 + lengths // hop``);
+    a (batch, frames) ``frame_mask`` replaces them and may have holes.
+    (batch[, 1], samples) -> (batch, 1 + samples // hop, n_mels).
+    """
+    x = waveforms[..., 0, :] if waveforms.dim() == 3 else waveforms
+    device = x.device
+    num_frames = nemo_mel_num_frames(x.shape[-1], hop_length)
+    x = torch.cat([x[:, :1], x[:, 1:] - preemph * x[:, :-1]], dim=-1)
+    with exact_float32():
+        power = _centered_stft_power(
+            x, n_fft, hop_length, num_frames,
+            _constant(_centered_window, ("hann", win_length, n_fft), device),
+            pad_mode="reflect")
+        mel = torch.matmul(power, _constant(_slaney_mel_banks, (
+            n_mels, n_fft, sample_rate, 0.0, sample_rate / 2.0), device))
+    feats = torch.log(mel + log_zero_guard)               # (B, T, M)
+    if frame_mask is not None:
+        mask = frame_mask[:, :, None].to(feats.dtype)
+    else:
+        if lengths is None:
+            valid = torch.full((x.shape[0],), num_frames, device=device)
+        else:
+            valid = 1 + torch.as_tensor(lengths, device=device).long() \
+                // hop_length
+        mask = (torch.arange(num_frames, device=device)[None, :, None]
+                < valid[:, None, None]).to(feats.dtype)
+    if normalize == "per_feature":
+        count = torch.clamp(mask.sum(dim=1, keepdim=True), min=1.0)
+        mean = (feats * mask).sum(dim=1, keepdim=True) / count
+        var = ((feats - mean).square() * mask).sum(dim=1, keepdim=True) \
+            / torch.clamp(count - 1.0, min=1.0)
+        feats = (feats - mean) / (var.sqrt() + 1e-5)
+    elif normalize not in (None, "none"):
+        raise ValueError(f"unsupported normalize mode {normalize!r}")
+    return feats * mask

@@ -1,11 +1,14 @@
 """Pipelines, importable from here, the path a config's ``pipeline.name``
-gives (``pyannote.audio.pipelines.SpeakerDiarization``, ...); each is
+gives (``pyannote.audio.pipelines.SpeakerDiarization``,
+``...SpeakerEmbedding``, ...); each is
 imported on first access."""
 
 _LAZY = {"SpeakerDiarization": ".speaker_diarization",
          "VoiceActivityDetection": ".voice_activity_detection",
          "OracleVoiceActivityDetection": ".voice_activity_detection",
-         "MultiLabelSegmentation": ".multilabel"}
+         "MultiLabelSegmentation": ".multilabel",
+         "SpeakerEmbedding": ".speaker_verification",
+         "PretrainedSpeakerEmbedding": ".speaker_verification"}
 
 
 def __getattr__(name):

@@ -18,7 +18,11 @@ The embedding stage takes one of the JAX package's three paths:
   the mean subtracted per chunk, the trunk per chunk. Exact;
 - per chunk: fbank and trunk per chunk, the reference semantics.
 
-The two shared paths need chunk starts on the 160-sample fbank shift.
+The two shared paths need chunk starts on the 160-sample fbank shift
+and a model with ``frames_from_fbank`` (the WeSpeaker family); any other
+embedder (the x-vectors) takes the per-chunk path, in batches, on
+long-file slices too, and its minimum speech comes from
+``speaker_verification.analytic_min_num_samples``.
 
 ``apply`` is ``_finalize(_stage(file))``. ``_stage`` queues a file's whole
 device program (segmentation, the early shared trunk, count and
@@ -83,6 +87,7 @@ from ..ops.diarize_fused import (fused_count_stats, fused_reconstruct,
 from ..ops.fbank import fbank_num_frames, whole_fbank
 from ..utils.runtime import device_flag
 from .clustering import Clustering, OracleClustering
+from .speaker_verification import analytic_min_num_samples
 from .utils.diarization import SpeakerDiarizationMixin, set_num_speakers
 from .utils.getter import PipelineModel, get_model, get_plda
 
@@ -100,9 +105,10 @@ class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
     """Segmentation + embedding + clustering speaker diarization.
 
     ``segmentation`` is a PyanNet-like model (powerset, or multi-label
-    with a sigmoid head) and ``embedding`` a
-    WeSpeakerResNet34-like model (``frames`` / ``frames_from_fbank`` /
-    ``embed``), each an instance, a local checkpoint path or a
+    with a sigmoid head) and ``embedding`` any model with ``frames`` and
+    ``embed`` (every WeSpeaker depth, which also has
+    ``frames_from_fbank`` for the shared paths, or an x-vector, which
+    takes the per-chunk path), each an instance, a local checkpoint path or a
     ``{checkpoint, subfolder}`` dict; both are moved to ``device`` and run
     in eval mode. ``embedding`` may be None only for oracle clustering.
     ``plda`` (an instance, a directory or such a dict) serves
@@ -239,8 +245,11 @@ class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
         return int(emb.sample_rate * emb.frame_shift * 0.001)
 
     def _shared_fbank(self, step_samples: int) -> bool:
-        """Slice one whole-file fbank per chunk? Exact when chunk starts
-        lie on the fbank frame shift."""
+        """Slice one whole-file fbank per chunk? Only for a model with
+        ``frames_from_fbank`` (the WeSpeaker family), and exact when chunk
+        starts lie on the fbank frame shift."""
+        if not hasattr(self._embedding, "frames_from_fbank"):
+            return False
         shift = self._frame_shift_samples()
         return shift > 0 and step_samples % shift == 0
 
@@ -391,12 +400,9 @@ class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
         scores = binarized.data
         num_chunks, num_frames, _ = scores.shape
         emb = self._embedding
-        # smallest input still giving one pooled frame: one fbank window
-        # widened by the trunk's 8x time reduction
-        window = int(emb.sample_rate * emb.frame_length * 0.001)
-        shift = self._frame_shift_samples()
         duration = binarized.sliding_window.duration
-        min_num_frames = math.ceil(num_frames * (window + 7 * shift)
+        # the model's smallest input that still gives one pooled frame
+        min_num_frames = math.ceil(num_frames * analytic_min_num_samples(emb)
                                    / (duration * emb.sample_rate))
         masks = make_embedding_masks(scores, exclude_overlap,
                                      min_num_frames)          # (C, S, F)
@@ -413,6 +419,7 @@ class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
             geometry = self.trunk_geometry(window_samples)
             stride = geometry["stride"]
             width = geometry["trunk_frames_per_chunk"]
+            shift = self._frame_shift_samples()
 
             def input_for(buffer, num_real_samples):
                 return self.compute_trunk(buffer, fbank_num_frames(
@@ -426,6 +433,7 @@ class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
                 return emb.embed(frames, masks)
         elif self._shared_fbank(step_samples):
             width = self._fbank_frames_per_chunk(window_samples)
+            shift = self._frame_shift_samples()
 
             def input_for(buffer, num_real_samples):
                 return self._whole_fbank(buffer)

@@ -9,6 +9,7 @@ and ``Binarize`` keep the JAX package's two semantics: the first decides
 an undecided frame 0 by the band's midpoint and scans from frame 0, the
 second starts from ``y[0] > onset`` and scans transitions from frame 1.
 The device hysteresis of ``binarize_ndarray`` is ``ops/binarize.py``.
+``nearest_binary_mask`` is the embedding wrappers' speech mask.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import numpy as np
+import torch
 
 from ..core.annotation import Annotation, Timeline
 from ..core.segment import Segment, SlidingWindowFeature
@@ -227,3 +229,19 @@ class Peak:
             [Segment(a, b) for a, b in zip(edges[:-1], edges[1:])
              if Segment(a, b)])
         return segmentation
+
+
+def nearest_binary_mask(weights, size: int):
+    """Nearest-neighbour upsampling of ``(..., frames)`` weights to
+    ``size`` points, binarized at 0.5: the embedding wrappers' mask
+    (F.interpolate(mode="nearest") > 0.5). A boolean array of shape
+    ``(..., size)``, a tensor on the weights' device for a tensor."""
+    if isinstance(weights, torch.Tensor):
+        idx = torch.clamp(torch.arange(size, device=weights.device)
+                          * weights.shape[-1] // size,
+                          max=weights.shape[-1] - 1)
+        return weights.float()[..., idx] > 0.5
+    weights = np.asarray(weights, dtype=np.float32)
+    idx = np.minimum((np.arange(size) * weights.shape[-1]) // size,
+                     weights.shape[-1] - 1)
+    return weights[..., idx] > 0.5

@@ -135,10 +135,15 @@ def test_port_imports_no_jax():
         "pyannote_audio_tpu_torch.core.plda",
         "pyannote_audio_tpu_torch.core.segment",
         "pyannote_audio_tpu_torch.metrics.der",
+        "pyannote_audio_tpu_torch.metrics.streaming",
         "pyannote_audio_tpu_torch.models.blocks.pooling",
         "pyannote_audio_tpu_torch.models.blocks.rnn",
         "pyannote_audio_tpu_torch.models.blocks.sincnet",
+        "pyannote_audio_tpu_torch.models.embedding",
+        "pyannote_audio_tpu_torch.models.embedding.ecapa",
+        "pyannote_audio_tpu_torch.models.embedding.titanet",
         "pyannote_audio_tpu_torch.models.embedding.wespeaker",
+        "pyannote_audio_tpu_torch.models.embedding.xvector",
         "pyannote_audio_tpu_torch.models.segmentation.pyannet",
         "pyannote_audio_tpu_torch.ops.aggregate",
         "pyannote_audio_tpu_torch.ops.ahc",
@@ -155,6 +160,7 @@ def test_port_imports_no_jax():
         "pyannote_audio_tpu_torch.pipelines.multilabel",
         "pyannote_audio_tpu_torch.pipelines.parameter",
         "pyannote_audio_tpu_torch.pipelines.speaker_diarization",
+        "pyannote_audio_tpu_torch.pipelines.speaker_verification",
         "pyannote_audio_tpu_torch.pipelines.utils.diarization",
         "pyannote_audio_tpu_torch.pipelines.utils.getter",
         "pyannote_audio_tpu_torch.pipelines.utils.hook",
@@ -165,6 +171,7 @@ def test_port_imports_no_jax():
         "pyannote_audio_tpu_torch.utils.flops",
         "pyannote_audio_tpu_torch.utils.metric",
         "pyannote_audio_tpu_torch.utils.native",
+        "pyannote_audio_tpu_torch.utils.onnx",
         "pyannote_audio_tpu_torch.utils.receptive_field",
         "pyannote_audio_tpu_torch.utils.rttm",
         "pyannote_audio_tpu_torch.utils.runtime",
@@ -184,7 +191,9 @@ def test_port_imports_no_jax():
             "             'pyannote.audio.pipelines.'\n"
             "             'OracleVoiceActivityDetection',\n"
             "             'pyannote_audio_tpu.pipelines.multilabel.'\n"
-            "             'MultiLabelSegmentation'):\n"
+            "             'MultiLabelSegmentation',\n"
+            "             'pyannote.audio.pipelines.SpeakerEmbedding',\n"
+            "             'pyannote_audio_tpu.pipelines.SpeakerEmbedding'):\n"
             "    klass = get_class_by_name(name)\n"
             "    assert klass.__module__.startswith(\n"
             "        'pyannote_audio_tpu_torch.'), name\n"

@@ -1,4 +1,4 @@
-"""Run the PyTorch/CUDA port's diarization main path on one CUDA card.
+"""Run the PyTorch/CUDA port's main paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -8,10 +8,13 @@ Phases, each fatal on failure:
      pins float32 at its own float32 sites);
   2. build every kernel of the path from the sources in this checkout;
   3. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes and at ragged ones, in each LSTM precision
-     ("default", "high", "highest"), with kernel and plain times, the
-     bound of each mode, and cuDNN's torch.nn.LSTM over the same layer
-     beside the port's projection + kernel (a yardstick only);
+     main path's shapes, at phase 10's (DPRNN's intra- and inter-chunk
+     BiLSTMs at a full batch and the tail, SSeRiouSS's at each batch
+     size) and at ragged ones, in each LSTM precision ("default", "high",
+     "highest"), with kernel and plain times, the bound of each mode, and
+     cuDNN's torch.nn.LSTM over the same layer beside the port's
+     projection + kernel (a yardstick only), phase 10's shapes each
+     timed on its own;
   4. the exact path (the accelerator gates PYANNOTE_TPU_SEG_BF16,
      _SHARED_SINC and _SHARED_TRUNK forced to "0", a float32 trunk,
      PYANNOTE_TPU_LSTM_PRECISION=highest):
@@ -78,7 +81,20 @@ Phases, each fatal on failure:
      ``apply_batch`` (the per-chunk path, LSTM launches) and card against
      CPU on the 3-minute file by (g)'s near-tie rule; (u) with a
      full-width ResNet293 (bf16 trunk) on the 3-minute file: the shared
-     trunk, its panels against one unpanelled pass, peak memory.
+     trunk, its panels against one unpanelled pass, peak memory;
+ 10. SSeRiouSS and speech separation: (v) SSeRiouSS at its defaults
+     (WAVLM_BASE trunk, seeded), one batch of 32 ten-second chunks card
+     against CPU (the seeded model's log-probs under "highest"; then,
+     its BiLSTM and linears scaled and its head calibrated so that it
+     marks speech, every powerset flip a near tie in both precisions),
+     and SpeakerDiarization with ResNet34 on 10 + 3 min through
+     ``apply_batch`` (LSTM launches exact, wall, peak); (w) ToTaToNet at
+     its defaults with the WavLM-large branch, one batch of 32
+     five-second chunks card against CPU in "highest" and "default"
+     (diarization and sources), ``Inference``'s (diarization, sources)
+     tuple, SpeechSeparation on 3 min (launches, wall, peak, sources)
+     and on 15 s against the CPU's run by the near-tie rule (its head
+     calibrated).
 
 The line before the last is a JSON object describing each kernel (its
 ``launches`` is the accelerator path's; ``launches_per_path`` has every
@@ -215,18 +231,19 @@ def set_gates(value) -> None:
             os.environ[name] = value
 
 
-def segmentation_batches(file_minutes=None, chunk_seconds=10.0) -> list:
-    """Batch sizes the main path gives PyanNet, file after file (of
-    FILE_MINUTES by default), on chunks of ``chunk_seconds`` with a step
-    of a tenth of that."""
+def segmentation_batches(file_minutes=None, chunk_seconds=10.0,
+                         batch: int = BATCH_SIZE) -> list:
+    """Batch sizes (of ``batch`` chunks) the main path gives its
+    segmentation model, file after file (of FILE_MINUTES by default), on
+    chunks of ``chunk_seconds`` with a step of a tenth of that."""
     from pyannote_audio_tpu_torch.core.inference import _chunk_grid
     sizes = []
     for minutes in file_minutes or FILE_MINUTES:
         starts, _ = _chunk_grid(int(minutes * 60 * SAMPLE_RATE),
                                 int(chunk_seconds * SAMPLE_RATE),
                                 int(chunk_seconds * SAMPLE_RATE) // 10)
-        sizes += [min(BATCH_SIZE, len(starts) - b)
-                  for b in range(0, len(starts), BATCH_SIZE)]
+        sizes += [min(batch, len(starts) - b)
+                  for b in range(0, len(starts), batch)]
     return sizes
 
 
@@ -336,6 +353,13 @@ def phase_kernels(device: torch.device) -> dict:
                for B in sorted(set(segmentation_batches(
                    FILE_MINUTES[:1], 5.0)), reverse=True)
                for name, D_in in (("0", 60), ("1-3", 256))]
+    # phase 10's shapes: DPRNN's intra-chunk (T = chunk size, B = chunks x
+    # 102 folds) and inter-chunk (T = 102 folds, B = chunks x 100 frames)
+    # BiLSTMs at a full batch and the 3-minute file's tail, and
+    # SSeRiouSS's 4-layer BiLSTM over WavLM-base on 10 s chunks (layer 0
+    # reads 768 features, layers 1-3 the 256 of the layer before)
+    shapes += [(name, T, B, D_in, 128, 2)
+               for name, T, B, D_in in phase10_lstm_shapes()]
     shapes += [("B=1 T=1 H=8", 1, 1, 5, 8, 2),
                ("H=96", 33, 4, 60, 96, 2),
                ("B=3", 40, 3, 60, 128, 2),
@@ -418,6 +442,36 @@ def phase_kernels(device: torch.device) -> dict:
         + ", ".join(f"{k} {'%.3f ms' % v if v is not None else 'n/a'}"
                     for k, v in library5.items()))
 
+    # each phase-10 shape: the kernel in each precision against its bound,
+    # the plain version ("default") and cuDNN's whole layer
+    new_shapes = {}
+    for name, T, B, D_in in phase10_lstm_shapes():
+        xw, w_hh, _ = layer_inputs(device, T, B, D_in, H, D)
+        entry = {"T": T, "B": B, "D_in": D_in}
+        for precision in KERNEL_ATOL:
+            prepared = prepare_recurrent_weights(w_hh, precision)
+            entry[precision] = dict(
+                ms=cuda_ms(lambda: lstm_bidirectional_recurrence(
+                    xw, w_hh, precision, prepared), runs=10),
+                **lstm_bound(T, B, H, D, precision,
+                             prepared.packed.numel()
+                             * prepared.packed.element_size()))
+        entry["plain_ms"] = cuda_ms(
+            lambda: lstm_bidirectional_recurrence_plain(xw, w_hh, "default"),
+            runs=3, warmup=1)
+        del xw
+        entry["library"] = library_lstm_ms(device, T, B, D_in, H)
+        new_shapes[name] = entry
+        log(f"lstm_recurrence at {name} (T={T}, B={B}, D_in={D_in}): "
+            + "; ".join(f"{p} {entry[p]['ms']:.3f} ms (bound "
+                        f"{entry[p]['bound_ms']:.4f} ms, "
+                        f"{entry[p]['bound_by']})" for p in KERNEL_ATOL)
+            + f"; plain (default) {entry['plain_ms']:.3f} ms; cuDNN "
+            "torch.nn.LSTM layer "
+            + ", ".join(f"{k} {'%.3f ms' % v if v is not None else 'n/a'}"
+                        for k, v in entry["library"].items()))
+        torch.cuda.empty_cache()
+
     main = modes["default"]
     return {"name": "lstm_recurrence", "route": "cuda",
             "source": "pyannote_audio_tpu_torch/csrc/lstm_recurrence.cu",
@@ -427,7 +481,7 @@ def phase_kernels(device: torch.device) -> dict:
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": library["float32"], "modes": modes,
             "layer_ms": layer_ms, "projection_ms": projection_ms,
-            "library": library, "t293": t293}
+            "library": library, "t293": t293, "phase10_shapes": new_shapes}
 
 
 def build_pipeline(segmentation, embedding, device):
@@ -1842,17 +1896,27 @@ def powerset_flips(label: str, model_gpu, model_cpu, device,
         with torch.inference_mode():
             out = inference.slide(waveform, SAMPLE_RATE, cache={})
         logp[name] = out.data.float().cpu()
-    err = (logp["card"] - logp["cpu"]).abs().max().item()
-    top_gpu, top_cpu = logp["card"].argmax(-1), logp["cpu"].argmax(-1)
-    flips = np.argwhere((top_gpu != top_cpu).numpy())
-    margins = [(logp["cpu"][c, f, top_cpu[c, f]]
-                - logp["cpu"][c, f, top_gpu[c, f]]).item() for c, f in flips]
+    flips = hold_powerset(label, logp["card"], logp["cpu"])
+    return flips, out.sliding_window, len(logp["cpu"])
+
+
+def hold_powerset(label: str, logp_card: torch.Tensor,
+                  logp_cpu: torch.Tensor) -> np.ndarray:
+    """Every powerset flip between the card's and the CPU's (chunks,
+    frames, classes) log-probs must be a near tie: its CPU margin within
+    twice the log-prob error. Returns the flipped (chunk, frame) pairs."""
+    err = (logp_card - logp_cpu).abs().max().item()
+    top_card, top_cpu = logp_card.argmax(-1), logp_cpu.argmax(-1)
+    flips = np.argwhere((top_card != top_cpu).numpy())
+    margins = [(logp_cpu[c, f, top_cpu[c, f]]
+                - logp_cpu[c, f, top_card[c, f]]).item() for c, f in flips]
     log(f"{label}: log-prob max_abs_err {err:.3e}; {len(flips)} of "
         f"{top_cpu.numel()} chunk frames flip their powerset class, largest "
         f"CPU margin {max(margins, default=0.0):.3e} (limit {2 * err:.3e})")
-    if max(margins, default=0.0) > 2 * err:
+    if not torch.isfinite(logp_card).all() or \
+            max(margins, default=0.0) > 2 * err:
         raise AssertionError(f"{label}: a powerset flip is not a near tie")
-    return flips, out.sliding_window, len(logp["cpu"])
+    return flips
 
 
 def vad_config(config: dict) -> dict:
@@ -2673,6 +2737,442 @@ def phase_embedders(device, workdir: Path, config: dict, card: str) -> dict:
     return launches
 
 
+# -- phase 10 -----------------------------------------------------------------
+
+# (v): SSeRiouSS at its defaults (WAVLM_BASE: 768 x 12 layers, 12 heads,
+# FFN 3072, WavLM's relative position bias; a 4 x 128 BiLSTM, 2 x 128
+# linears, 10 s chunks as a 7-class powerset; seeded, its head
+# calibrated) in SpeakerDiarization with ResNet34, segmentation batches
+# of 32 (the JAX package's default). The
+# card's log-probs under "highest" against the CPU's on SSL_CPU_CHUNKS
+# rows of one batch, within the exact path's bound; under "default"
+# (the LSTM's bf16 products) within SSL_DEFAULT_LOGP_ATOL, about twice
+# what the first card runs measured (2.547e-01; PERF.md), and every
+# powerset flip a near tie (the rule of (m) and (n))
+SSL_BATCH = 32
+SSL_CPU_CHUNKS = 8
+SSL_CHUNK_SECONDS = 10.0
+SSL_DEFAULT_LOGP_ATOL = 0.5
+# (w): ToTaToNet at its defaults (64 filters, k 32, s 16; DPRNN 6 repeats,
+# bn 128, hid 128, chunk 100; 3 sources) with the WAVLM_LARGE branch, on 5
+# s chunks at a step of 0.5 s, batches of 32; SEP_CPU_CHUNKS rows of one
+# batch held to the CPU, and SpeechSeparation on a SEP_SHORT_SECONDS file
+# held to the CPU's run of the same pipeline
+SEP_BATCH = 32
+SEP_CHUNK_SECONDS = 5.0
+SEP_MINUTES = 3.0
+SEP_CPU_CHUNKS = 8
+SEP_SHORT_SECONDS = 15.0
+SEP_DIAR_ATOL = 1e-4
+SEP_SOURCES_REL_L2 = 1e-4
+# under "default" (the LSTM's bf16 products): about 10x and 4x what the
+# first card run measured (2.0e-06 and 2.7e-03; PERF.md)
+SEP_DEFAULT_DIAR_ATOL = 2e-5
+SEP_DEFAULT_SOURCES_REL_L2 = 1e-2
+SEP_PARAMS = {"segmentation": {"min_duration_off": 0.0, "threshold": 0.5},
+              "separation": {"leakage_removal": True, "asr_collar": 0.1},
+              "clustering": {"method": "centroid", "threshold": 0.1,
+                             "min_cluster_size": 1}}
+# the random head's logits are calibrated to this spread around 0 on the
+# synthetic audio (at init they barely move: every score a near tie)
+SEP_LOGIT_SPREAD = 1.5
+
+
+def phase10_lstm_shapes() -> list:
+    """(name, T, B, D_in) of the LSTM launches of phase 10: DPRNN's at a
+    full batch and at the 3-minute file's tail, SSeRiouSS's at every
+    batch size of (v)."""
+    frames = 1 + (int(SEP_CHUNK_SECONDS * SAMPLE_RATE) - 32) // 16
+    K = 100
+    folds = (frames + 2 * K - K) // (K // 2) + 1
+    shapes = []
+    for B in sorted(set(segmentation_batches(
+            (SEP_MINUTES,), SEP_CHUNK_SECONDS, SEP_BATCH)), reverse=True):
+        shapes += [(f"DPRNN intra B={B}x{folds}", K, B * folds, 128),
+                   (f"DPRNN inter B={B}x{K}", folds, B * K, 128)]
+    T = 1 + (int(SSL_CHUNK_SECONDS * SAMPLE_RATE) - 400) // 320
+    for B in sorted(set(segmentation_batches(
+            FILE_MINUTES, SSL_CHUNK_SECONDS, SSL_BATCH)), reverse=True):
+        shapes += [(f"SSeRiouSS B={B} layer 0", T, B, 768),
+                   (f"SSeRiouSS B={B} layers 1-3", T, B, 256)]
+    return shapes
+
+
+def chunk_batch(minutes: float, seconds: float, batch: int, seed: int):
+    """(batch, 1, seconds) chunks of a synthetic file at a step of a tenth
+    of a chunk, host float32."""
+    audio = synth(minutes, seed=seed)
+    n = int(seconds * SAMPLE_RATE)
+    step = n // 10
+    return np.stack([audio[i * step:i * step + n]
+                     for i in range(batch)])[:, None]
+
+
+def calibrate_powerset(model, x: torch.Tensor) -> None:
+    """Centre each logit of a random powerset head on its median over
+    ``x`` and scale it to SEP_LOGIT_SPREAD (float32 throughout), so that
+    the argmax moves with the audio: a random head settles on one class
+    everywhere (the seeded model's 10-minute file had no speech)."""
+    logits = []
+    hook = model.classifier.register_forward_hook(
+        lambda module, args, out: logits.append(out))
+    try:
+        with torch.inference_mode(), lstm_precision_env("highest"):
+            model(x)
+    finally:
+        hook.remove()
+    logit = logits[0].flatten(0, 1).double()
+    gain = SEP_LOGIT_SPREAD / logit.std(0)
+    with torch.no_grad():
+        head = model.classifier
+        head.weight.mul_(gain[:, None].float())
+        head.bias.sub_(logit.median(0).values.float()).mul_(gain.float())
+
+
+def check_sseriouss(device, workdir: Path, card: str) -> int:
+    """(v) SSeRiouSS: one batch card vs CPU, then SpeakerDiarization on 10
+    + 3 min through apply_batch (warm wall, exact LSTM launches, peak);
+    returns the launches."""
+    from pyannote_audio_tpu_torch.models.embedding.wespeaker import \
+        WeSpeakerResNet34
+    from pyannote_audio_tpu_torch.models.segmentation.sseriouss import \
+        SSeRiouSS
+    from pyannote_audio_tpu_torch.pipelines.speaker_diarization import \
+        SpeakerDiarization
+    model = SSeRiouSS(generator=torch.Generator().manual_seed(50)).eval()
+    chunks = chunk_batch(1.0, SSL_CHUNK_SECONDS, SSL_BATCH, seed=51)
+    x = torch.from_numpy(chunks).to(device)
+    cpu_x = torch.from_numpy(chunks[:SSL_CPU_CHUNKS])
+    # made to mark speech as (n)'s PyanNet is (the seeded model settles on
+    # "no speaker" everywhere): the BiLSTM and linear weights at
+    # ML_WEIGHT_SCALE x their bound, the head calibrated
+    model.to(device)
+    with torch.no_grad():
+        for name, p in model.lstm.named_parameters():
+            if name.startswith("weight"):
+                p.mul_(ML_WEIGHT_SCALE)
+        for layer in model.linear:
+            layer.weight.mul_(ML_WEIGHT_SCALE)
+    calibrate_powerset(model, torch.from_numpy(chunk_batch(
+        0.5, SSL_CHUNK_SECONDS, 16, seed=52)).to(device))
+    cpu_model = copy.deepcopy(model).to("cpu")
+    with torch.inference_mode():
+        start = time.perf_counter()
+        logp_cpu = cpu_model(cpu_x)
+        cpu_seconds = time.perf_counter() - start
+        for precision, atol in (("highest", REFERENCE_LOGP_ATOL),
+                                ("default", SSL_DEFAULT_LOGP_ATOL)):
+            with lstm_precision_env(precision):
+                reset_lstm()
+                logp = model(x)
+                launches = lstm_launches()
+                ms = cuda_ms(lambda: model(x), runs=3, warmup=1)
+            logp_card = logp[:SSL_CPU_CHUNKS].float().cpu()
+            err = (logp_card - logp_cpu).abs().max().item()
+            log(f"(v) SSeRiouSS ({precision}) one batch {tuple(x.shape)} -> "
+                f"{tuple(logp.shape)}: {ms:.3f} ms per batch on the card "
+                f"(median of 3; {card}), {launches} LSTM launches; "
+                f"log-probs card vs the CPU's {SSL_CPU_CHUNKS} rows "
+                f"({cpu_seconds:.1f} s): max_abs_err {err:.3e} (limit "
+                f"{atol}); they spread by {logp.std((0, 1)).min().item():.3f}"
+                f" or more")
+            if launches != 4:
+                raise AssertionError("(v) SSeRiouSS's BiLSTM did not launch "
+                                     "the kernel once per layer")
+            if not (torch.isfinite(logp).all() and err <= atol):
+                raise AssertionError(f"(v) SSeRiouSS ({precision}) disagrees "
+                                     f"with the CPU")
+            if precision == "default":
+                hold_powerset("(v) log-probs card vs CPU (default)",
+                              logp_card, logp_cpu)
+    del x, logp, cpu_model
+    files = write_files(workdir, FILE_MINUTES)
+    set_gates(None)
+    pipeline = SpeakerDiarization(
+        segmentation=model,
+        embedding=WeSpeakerResNet34(generator=torch.Generator()
+                                    .manual_seed(2)),
+        segmentation_batch_size=SSL_BATCH, embedding_batch_size=BATCH_SIZE,
+        device=device)
+    pipeline.instantiate(PARAMS)
+    run_batch(pipeline, files)                                  # warm
+    torch.cuda.synchronize()
+    reset_counts(pipeline)
+    peak, wall = peak_and_wall(device, lambda: check_outputs(
+        files, run_batch(pipeline, files)))
+    counts = read_counts(pipeline)
+    expected = 4 * len(segmentation_batches(
+        FILE_MINUTES, SSL_CHUNK_SECONDS, SSL_BATCH))
+    log(f"(v) SSeRiouSS diarization, {' + '.join(map(str, FILE_MINUTES))} "
+        f"min through apply_batch: "
+        f"counts {counts} (LSTM launches expected {expected}); warm pass "
+        f"{wall:.3f} s = {wall * 60 / sum(FILE_MINUTES):.3f} s per "
+        f"audio-hour; peak device memory {peak / 2**30:.3f} GiB "
+        f"(torch.cuda.max_memory_allocated; {card})")
+    if counts["lstm_launches"] != expected:
+        raise AssertionError("(v) the SSeRiouSS pass did not launch the "
+                             "LSTM kernel once per layer and batch")
+    return counts["lstm_launches"]
+
+
+def make_totatonet(device):
+    """ToTaToNet at its defaults with the WAVLM_LARGE branch, seeded, on
+    ``device``."""
+    from pyannote_audio_tpu_torch.models.segmentation.sseriouss import \
+        SSL_CONFIGS
+    from pyannote_audio_tpu_torch.models.separation.totatonet import \
+        ToTaToNet
+    model = ToTaToNet(use_wavlm=True,
+                      wavlm_config=SSL_CONFIGS["WAVLM_LARGE"],
+                      generator=torch.Generator().manual_seed(60))
+    return model.eval().to(device)
+
+
+def calibrate_sigmoid(model, x: torch.Tensor) -> None:
+    """Centre a random diarization head's logits on their median over
+    ``x`` and scale them to SEP_LOGIT_SPREAD (float32 throughout): at
+    init its scores are 0.5 within about 1e-2, a near tie everywhere."""
+    with torch.inference_mode(), lstm_precision_env("highest"):
+        logit = torch.logit(model(x)[0].double().flatten())
+    gain = SEP_LOGIT_SPREAD / logit.std()
+    with torch.no_grad():
+        head = model.classifier
+        head.weight.mul_(gain.float())
+        head.bias.sub_(logit.median().float()).mul_(gain.float())
+
+
+def rel_l2(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def separation_pipeline(model, device):
+    from pyannote_audio_tpu_torch.pipelines.speech_separation import \
+        SpeechSeparation
+    pipeline = SpeechSeparation(model, segmentation_batch_size=SEP_BATCH,
+                                device=device)
+    return pipeline.instantiate(SEP_PARAMS)
+
+
+def traced_separation(pipeline, file: dict) -> tuple:
+    """(output, {"clusters": hard clusters, "binarized": binarized chunk
+    scores, "chunks": their sliding window, "scores": chunk scores}) of
+    one run."""
+    seen = {}
+    klass = type(pipeline.clustering)
+    original = klass.__call__
+
+    def capture(self, *args, **kwargs):
+        out = original(self, *args, **kwargs)
+        seen["clusters"] = np.array(out[0])
+        seen["binarized"] = np.array(kwargs["segmentations"].data)
+        seen["chunks"] = kwargs["segmentations"].sliding_window
+        return out
+
+    def hook(name, artifact, file=None, total=None, completed=None):
+        if name == "segmentation" and artifact is not None:
+            seen["scores"] = np.array(artifact.data)
+    klass.__call__ = capture
+    try:
+        output = pipeline(dict(file), max_speakers=4, hook=hook)
+    finally:
+        klass.__call__ = original
+    return output, seen
+
+
+def hold_separation(ours, seen_ours: dict, theirs, seen_theirs: dict,
+                    frame: float) -> None:
+    """Hold the card's SpeechSeparation run (``ours``, with what
+    ``traced_separation`` saw) to the CPU's (``theirs``): binarized
+    scores that differ must be near ties; outside the chunks they touch,
+    equal hard clusters, annotations (boundaries within ``frame``) and
+    sources (relative L2)."""
+    differ = (seen_ours["binarized"] != seen_theirs["binarized"])
+    touched = differ.any(axis=(1, 2))
+    cpu_scores = seen_theirs["scores"]
+    err = np.abs(seen_ours["scores"] - cpu_scores).max()
+    threshold = SEP_PARAMS["segmentation"]["threshold"]
+    near = np.abs(cpu_scores - threshold) <= 2 * err
+    log(f"(w) SpeechSeparation on {SEP_SHORT_SECONDS:g} s, card (highest) "
+        f"vs CPU: diarization scores max_abs_err {err:.3e}; "
+        f"{int(differ.sum())} binarized values differ, "
+        f"{int((differ & ~near).sum())} of them farther than twice that "
+        f"from the threshold (limit 0); {int(touched.sum())} of "
+        f"{len(touched)} chunks touched")
+    if (differ & ~near).any():
+        raise AssertionError("(w) the card binarizes otherwise than the "
+                             "CPU away from the threshold")
+    if not np.array_equal(seen_ours["clusters"][~touched],
+                          seen_theirs["clusters"][~touched]):
+        raise AssertionError("(w) hard clusters differ outside the chunks "
+                             "a near tie touches")
+    # outside the touched chunks (widened by two frames, and the sources
+    # also by the leakage mask's collar) the discrete diarization is the
+    # same, so the same annotations (boundaries within one frame) and
+    # sources; with no chunk touched, that is the whole file
+    chunks_sw = seen_ours["chunks"]
+    spans = [(chunks_sw.start + i * chunks_sw.step - 2 * frame,
+              chunks_sw.start + i * chunks_sw.step + chunks_sw.duration
+              + 2 * frame) for i in np.flatnonzero(touched)]
+
+    def outside(annotation):
+        return [(seg, label) for seg, _, label in
+                annotation.itertracks(yield_label=True)
+                if all(seg.end <= a or seg.start >= b for a, b in spans)]
+    ta = outside(ours.speaker_diarization)
+    tb = outside(theirs.speaker_diarization)
+    same = ours.speaker_diarization.labels() == \
+        theirs.speaker_diarization.labels() and len(ta) == len(tb) and all(
+            la == lb and abs(sa.start - sb.start) <= frame
+            and abs(sa.end - sb.end) <= frame
+            for (sa, la), (sb, lb) in zip(ta, tb))
+    collar = SEP_PARAMS["separation"]["asr_collar"]
+    held = np.ones(ours.sources.shape[0], dtype=bool)
+    for a, b in spans:
+        held[max(0, int((a - collar) * SAMPLE_RATE)):
+             max(0, int(np.ceil((b + collar) * SAMPLE_RATE)))] = False
+    comparable = ours.sources.shape == theirs.sources.shape
+    whole = rel_l2(ours.sources, theirs.sources) if comparable else np.inf
+    rel = np.inf if not comparable else (
+        rel_l2(ours.sources[held], theirs.sources[held]) if held.any()
+        else 0.0)
+    log(f"(w) outside the touched chunks: {len(ta)} vs {len(tb)} segments, "
+        f"labels {ours.speaker_diarization.labels()} vs "
+        f"{theirs.speaker_diarization.labels()}, boundaries within one "
+        f"frame: {same}; sources {ours.sources.shape} vs "
+        f"{theirs.sources.shape}, relative L2 {rel:.3e} over "
+        f"{int(held.sum())} of {len(held)} samples (limit "
+        f"{SEP_SOURCES_REL_L2}), {whole:.3e} over the whole file")
+    if not (same and rel <= SEP_SOURCES_REL_L2):
+        raise AssertionError("(w) SpeechSeparation on the card differs "
+                             "from the CPU's outside the chunks a near tie "
+                             "touches")
+
+
+def check_separation(device, workdir: Path, card: str) -> int:
+    """(w) ToTaToNet + WavLM-large: one batch card vs CPU in "highest"
+    and "default", Inference's tuple, SpeechSeparation on 3 min (warm
+    wall, exact LSTM launches, peak, sources), and the card's pipeline on
+    a short file against the CPU's; returns the launches."""
+    import math
+
+    from pyannote_audio_tpu_torch.core.inference import (Inference,
+                                                         _chunk_grid)
+    from pyannote_audio_tpu_torch.core.io import write_wav
+    model = make_totatonet(device)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    chunks = chunk_batch(1.0, SEP_CHUNK_SECONDS, SEP_BATCH, seed=62)
+    # the seeded model as it is, then with its head calibrated
+    with torch.inference_mode():
+        start = time.perf_counter()
+        diar_cpu, src_cpu = (o.numpy() for o in cpu_model(
+            torch.from_numpy(chunks[:SEP_CPU_CHUNKS])))
+        cpu_seconds = time.perf_counter() - start
+        x = torch.from_numpy(chunks).to(device)
+        for precision, diar_atol, src_rel in (
+                ("highest", SEP_DIAR_ATOL, SEP_SOURCES_REL_L2),
+                ("default", SEP_DEFAULT_DIAR_ATOL,
+                 SEP_DEFAULT_SOURCES_REL_L2)):
+            with lstm_precision_env(precision):
+                reset_lstm()
+                diar, src = model(x)
+                launches = lstm_launches()
+                ms = cuda_ms(lambda: model(x), runs=3, warmup=1)
+            d = diar[:SEP_CPU_CHUNKS].cpu().numpy()
+            sr = src[:SEP_CPU_CHUNKS].cpu().numpy()
+            err, rel = np.abs(d - diar_cpu).max(), rel_l2(sr, src_cpu)
+            log(f"(w) ToTaToNet + WavLM-large as seeded ({precision}) "
+                f"one batch "
+                f"{tuple(x.shape)} -> diarization {tuple(diar.shape)}, "
+                f"sources {tuple(src.shape)}: {ms:.3f} ms per batch on the "
+                f"card (median of 3; {card}), {launches} LSTM launches; "
+                f"against the CPU's {SEP_CPU_CHUNKS} rows ({cpu_seconds:.1f}"
+                f" s): diarization max_abs_err {err:.3e} (limit "
+                f"{diar_atol}), sources relative L2 {rel:.3e} (limit "
+                f"{src_rel})")
+            if not (np.isfinite(d).all() and np.isfinite(sr).all()
+                    and err <= diar_atol and rel <= src_rel
+                    and launches == 12):
+                raise AssertionError(f"(w) ToTaToNet ({precision}) "
+                                     f"disagrees with the CPU")
+    calibrate_sigmoid(model, torch.from_numpy(chunk_batch(
+        0.5, SEP_CHUNK_SECONDS, 16, seed=61)).to(device))
+    cpu_model.classifier.load_state_dict(model.classifier.state_dict())
+    with torch.inference_mode(), lstm_precision_env("highest"):
+        diar = model(x[:2])[0].cpu().numpy()
+        diar_cpu = cpu_model(torch.from_numpy(chunks[:2]))[0].numpy()
+    err = np.abs(diar - diar_cpu).max()
+    log(f"(w) the head calibrated: diarization card vs CPU (highest) "
+        f"max_abs_err {err:.3e} (limit {SEP_DIAR_ATOL}), scores spread by "
+        f"{diar.std():.3f}")
+    if not (np.isfinite(diar).all() and err <= SEP_DIAR_ATOL):
+        raise AssertionError("(w) the calibrated ToTaToNet disagrees with "
+                             "the CPU")
+    del x, diar, src
+    torch.cuda.empty_cache()
+
+    short = workdir / f"synth_sep_{SEP_SHORT_SECONDS:g}_s.wav"
+    write_wav(short, synth(SEP_SHORT_SECONDS / 60, seed=63)[None],
+              SAMPLE_RATE)
+    short = {"audio": str(short), "uri": "short"}
+    out = Inference(model, batch_size=SEP_BATCH, device=device)(dict(short))
+    if not (isinstance(out, tuple) and len(out) == 2
+            and out[0].data.shape[1:] == (model.num_frames(80000), 3)
+            and out[1].data.shape[1:] == (80000, 3)
+            and all(np.isfinite(o.data).all() for o in out)):
+        raise AssertionError("(w) Inference(ToTaToNet) did not return the "
+                             "(diarization, sources) tuple")
+    log(f"(w) Inference(ToTaToNet) on {SEP_SHORT_SECONDS:g} s: "
+        f"{out[0].data.shape} diarization, {out[1].data.shape} sources")
+
+    file = {"audio": str(workdir / "synth_sep_3_min.wav"), "uri": "sep"}
+    write_wav(file["audio"], synth(SEP_MINUTES, seed=64)[None], SAMPLE_RATE)
+    pipeline = separation_pipeline(model, device)
+    pipeline(dict(file), max_speakers=4)                        # warm
+    torch.cuda.synchronize()
+    reset_lstm()
+    output = {}
+    peak, wall = peak_and_wall(device, lambda: output.update(
+        out=pipeline(dict(file), max_speakers=4)))
+    output = output["out"]
+    launches = lstm_launches()
+    starts, _ = _chunk_grid(int(SEP_MINUTES * 60 * SAMPLE_RATE),
+                            int(SEP_CHUNK_SECONDS * SAMPLE_RATE),
+                            int(SEP_CHUNK_SECONDS * SAMPLE_RATE) // 10)
+    expected = 12 * math.ceil(len(starts) / SEP_BATCH)
+    sources = output.sources
+    log(f"(w) SpeechSeparation on {SEP_MINUTES:g} min: warm pass {wall:.3f} "
+        f"s = {wall * 60 / SEP_MINUTES:.3f} s per audio-hour; LSTM launches "
+        f"{launches} (expected {expected}); peak device memory "
+        f"{peak / 2**30:.3f} GiB; sources {sources.shape}, peak "
+        f"{np.abs(sources).max():.4f}; {len(output.speaker_diarization)} "
+        f"segments, labels {output.speaker_diarization.labels()} ({card})")
+    if launches != expected or \
+            sources.shape[0] != int(SEP_MINUTES * 60 * SAMPLE_RATE) or \
+            not np.isfinite(sources).all() or \
+            not len(output.speaker_diarization):
+        raise AssertionError("(w) SpeechSeparation's pass is wrong")
+
+    # the card's pipeline ("highest") against the CPU's on the short file
+    with lstm_precision_env("highest"):
+        ours, seen_ours = traced_separation(pipeline, short)
+        theirs, seen_theirs = traced_separation(
+            separation_pipeline(cpu_model, "cpu"), short)
+    hold_separation(ours, seen_ours, theirs, seen_theirs,
+                    model.receptive_field.step)
+    return launches
+
+
+def phase_separation(device, workdir: Path, card: str) -> dict:
+    """Phase 10: SSeRiouSS diarization (v) and speech separation (w);
+    returns the LSTM launches of each path."""
+    log(f"phase 10, SSeRiouSS and speech separation, on {card}")
+    return {"SSeRiouSS diarization (v)": check_sseriouss(device, workdir,
+                                                          card),
+            "speech separation (w)": check_separation(device, workdir,
+                                                       card)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run",
@@ -2694,6 +3194,7 @@ def main() -> int:
         launches.update(phase_vad_multilabel_audio(device, Path(tmp),
                                                    pipeline, config))
         launches.update(phase_embedders(device, Path(tmp), config, card))
+        launches.update(phase_separation(device, Path(tmp), card))
     log(f"lstm_recurrence launches per path: {launches}")
     record["launches"] = launches["accelerator"]
     record["launches_per_path"] = launches

@@ -55,7 +55,7 @@ from ..utils.runtime import check_device, device_flag
 from .io import Audio, AudioFile
 from .longfile import (plan_slices, retained_upload_bytes_ok,
                        slice_uploads)
-from .model import Model, Resolution
+from .model import Model, Resolution, first_specifications
 from .segment import Segment, SlidingWindow, SlidingWindowFeature
 
 
@@ -202,6 +202,16 @@ def _upload_waveform_cached(waveform, cache, device) -> torch.Tensor:
     return buf
 
 
+def _concat(parts: list):
+    """Concatenate per-batch outputs along the chunks, per output of a
+    multi-task model."""
+    if len(parts) == 1:
+        return parts[0]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(p) for p in zip(*parts))
+    return torch.cat(parts)
+
+
 class Inference:
     """Run a model over a file with a sliding (or whole-file) window.
 
@@ -224,7 +234,8 @@ class Inference:
             raise ValueError('`window` must be "sliding" or "whole".')
         self.model = model if isinstance(model, nn.Module) \
             else Model.from_pretrained(model)
-        spec = self.model.specifications
+        specs = self.model.specifications
+        spec = first_specifications(specs)
         if window == "whole" and spec.resolution == Resolution.FRAME:
             warnings.warn(
                 'Using "whole" window on a frame-resolution model.')
@@ -247,9 +258,17 @@ class Inference:
         if step > self.duration:
             raise ValueError("step must not be larger than duration")
         self.step = step
-        self._powerset = Powerset(len(spec.classes),
-                                  spec.powerset_max_classes) \
-            if spec.powerset else None
+        # one powerset converter per output (None where it is not one):
+        # a multi-task model's tuple gets a tuple
+        converters = tuple(
+            Powerset(len(s.classes), s.powerset_max_classes)
+            if s.powerset else None
+            for s in (specs if isinstance(specs, tuple) else (specs,)))
+        self._powerset = converters if isinstance(specs, tuple) \
+            else converters[0]
+        if isinstance(self._powerset, tuple) and \
+                all(c is None for c in self._powerset):
+            self._powerset = None
         self.audio = Audio(sample_rate=getattr(self.model, "sample_rate",
                                                16000), mono="downmix")
         # whole-file front-end convs run: one per file (or slice) on the
@@ -265,8 +284,10 @@ class Inference:
         """Move the model to ``device`` and drop the per-device constants
         cached for it (the powerset mapping, the LSTM's packed weights)."""
         self.model.to(device)
-        if self._powerset is not None:
-            self._powerset._mapping_on.clear()
+        for converter in (self._powerset if isinstance(self._powerset, tuple)
+                          else (self._powerset,)):
+            if converter is not None:
+                converter._mapping_on.clear()
         for module in self.model.modules():
             prepared = getattr(module, "_prepared", None)
             if isinstance(prepared, dict):
@@ -282,18 +303,26 @@ class Inference:
             return False
         return step_size % self.model.frontend_stride == 0
 
-    def _convert(self, out: torch.Tensor) -> torch.Tensor:
+    def _convert(self, out):
+        """Powerset outputs to multi-label scores, per output of a
+        multi-task model."""
         if self._powerset is None or self.skip_conversion:
             return out
+        if isinstance(self._powerset, tuple):
+            return tuple(o if c is None else c.to_multilabel(o)
+                         for c, o in zip(self._powerset, out))
         return self._powerset.to_multilabel(out)
 
     @torch.inference_mode()
-    def infer(self, chunks) -> np.ndarray:
+    def infer(self, chunks):
         """Forward an explicit (batch, channel, samples) array or tensor;
-        returns the (converted) outputs on the host."""
+        returns the (converted) outputs on the host, a tuple of them for a
+        multi-task model."""
         x = torch.as_tensor(np.asarray(chunks, dtype=np.float32)) \
             if not isinstance(chunks, torch.Tensor) else chunks
         out = self._convert(self.model(x.to(self.device)))
+        if isinstance(out, tuple):
+            return tuple(o.float().cpu().numpy() for o in out)
         return out.float().cpu().numpy()
 
     def _slide_scores(self, device_waveform: torch.Tensor,
@@ -302,7 +331,8 @@ class Inference:
                       hook_total: int = 0) -> torch.Tensor:
         """Batched forwards over the chunks at ``starts`` (evenly spaced
         sample offsets) of one uploaded (slice of a) waveform; returns the
-        (len(starts), frames, classes) scores on the device.
+        (len(starts), frames, classes) scores on the device (a tuple of
+        outputs for a multi-task model).
 
         ``hook(completed=, total=)`` follows each batch, counted from
         ``hook_base`` chunks out of ``hook_total`` (a slice's place in its
@@ -354,7 +384,7 @@ class Inference:
             if hook is not None:
                 hook(completed=hook_base + min(b + B, num_chunks),
                      total=hook_total or num_chunks)
-        return torch.cat(outputs) if len(outputs) > 1 else outputs[0]
+        return _concat(outputs)
 
     @torch.inference_mode()
     def slide(self, waveform, sample_rate: int,
@@ -369,15 +399,17 @@ class Inference:
         data is a (num_chunks, frames_per_chunk, num_classes) tensor on
         the device, unless the output is aggregated: then a host
         SlidingWindowFeature of (frames, classes) on the model's receptive
-        field, cut at the end of the file. ``hook(completed=, total=)``
-        follows each batch.
+        field, cut at the end of the file. A multi-task model gives a
+        tuple of chunk-level host SlidingWindowFeatures, one per output,
+        without aggregation, as the JAX package does.
+        ``hook(completed=, total=)`` follows each batch.
         """
         window_size = round(self.duration * sample_rate)
         step_size = round(self.step * sample_rate)
         num_samples = waveform.shape[1]
         starts, _ = _chunk_grid(num_samples, window_size, step_size)
         device = self.device
-        spec = self.model.specifications
+        spec = first_specifications(self.model.specifications)
         frame_resolution = spec.resolution == Resolution.FRAME
         chunk_level = self.skip_aggregation or (
             spec.permutation_invariant and self.pre_aggregation_hook is None)
@@ -403,7 +435,7 @@ class Inference:
                     hook_total=len(starts)))
                 if not keep_for_later:
                     release_upload(k)
-            scores = torch.cat(parts)
+            scores = _concat(parts)
         else:
             buffer = pad_to_grid(
                 _upload_waveform_cached(waveform, cache, device),
@@ -412,6 +444,9 @@ class Inference:
                                         hook=hook, hook_total=len(starts))
         chunk_window = SlidingWindow(start=0.0, duration=self.duration,
                                      step=self.step)
+        if isinstance(scores, tuple):
+            return tuple(SlidingWindowFeature(s.cpu().numpy(), chunk_window)
+                         for s in scores)
         if not frame_resolution:
             return SlidingWindowFeature(scores.cpu().numpy(), chunk_window)
         if chunk_level:

@@ -8,8 +8,9 @@ and of its ``Model.from_pretrained`` for reference-layout checkpoints
 specifications). The port's models are ``torch.nn.Module``s;
 ``FrameModel`` adds the frame arithmetic that Inference and the
 diarization pipeline read, and ``Model.from_pretrained`` builds one of the
-ported architectures (PyanNet, XVectorMFCC, XVectorSincNet and every
-WeSpeaker ResNet depth) from such a checkpoint.
+ported architectures (PyanNet, SSeRiouSS, ToTaToNet, XVectorMFCC,
+XVectorSincNet, every WeSpeaker ResNet depth and the two debug models)
+from such a checkpoint.
 """
 
 from __future__ import annotations
@@ -87,9 +88,12 @@ class Specifications:
                 "permutation_invariant": self.permutation_invariant}
 
     @classmethod
-    def from_checkpoint(cls, specs) -> "Specifications":
+    def from_checkpoint(cls, specs):
         """From a checkpoint's ``specifications``: a plain dict, or the
-        object that unpickling a reference checkpoint gave."""
+        object that unpickling a reference checkpoint gave; a multi-task
+        model's list or tuple of them gives a tuple."""
+        if isinstance(specs, (list, tuple)):
+            return tuple(cls.from_checkpoint(s) for s in specs)
         def get(key, default=None):
             if isinstance(specs, Mapping):
                 return specs.get(key, default)
@@ -98,7 +102,8 @@ class Specifications:
         def enum(kind, value):
             return kind[value.name] if hasattr(value, "name") \
                 else kind[str(value)]
-        return cls(duration=get("duration"), classes=list(get("classes")),
+        return cls(duration=get("duration"),
+                   classes=list(get("classes") or []),
                    powerset_max_classes=get("powerset_max_classes"),
                    problem=enum(Problem, get("problem",
                                              "MONO_LABEL_CLASSIFICATION")),
@@ -109,10 +114,17 @@ class Specifications:
                        get("permutation_invariant", False)))
 
 
+def first_specifications(specs) -> Specifications:
+    """A model's specifications, or the first of a multi-task tuple (the
+    one that fixes the chunk duration and the output frames)."""
+    return specs[0] if isinstance(specs, tuple) else specs
+
+
 class FrameModel:
     """Mixin for frame-resolution models: subclasses define
     ``receptive_field_size`` and ``receptive_field_center`` (in samples)
-    and a ``sample_rate``."""
+    and a ``sample_rate``. A multi-task model's outputs share these
+    frames."""
 
     sample_rate: int
 
@@ -209,6 +221,40 @@ def _xvector(hparams: Dict[str, Any], specs) -> Dict[str, Any]:
                                     "dimension") if k in hparams}
 
 
+def _sseriouss(hparams: Dict[str, Any], specs) -> Dict[str, Any]:
+    kwargs = {k: hparams[k] for k in ("wav2vec", "wav2vec_layer",
+                                      "freeze_wav2vec", "lstm", "linear",
+                                      "sample_rate") if k in hparams}
+    if specs is not None:
+        kwargs["specifications"] = Specifications.from_checkpoint(specs)
+    return kwargs
+
+
+def _totatonet(hparams: Dict[str, Any], specs) -> Dict[str, Any]:
+    kwargs = {k: hparams[k] for k in ("encoder_decoder", "linear", "diar",
+                                      "dprnn", "sample_rate", "n_sources",
+                                      "wavlm_frozen", "wavlm_config")
+              if k in hparams}
+    # without a config, the WavLM branch is read off the checkpoint's
+    # wavlm.* weights (ToTaToNet.load_reference_state_dict)
+    kwargs["use_wavlm"] = bool(hparams.get("use_wavlm")) and \
+        hparams.get("wavlm_config") is not None
+    if specs is not None:
+        kwargs["specifications"] = Specifications.from_checkpoint(specs)
+    return kwargs
+
+
+def _debug(hparams: Dict[str, Any], specs) -> Dict[str, Any]:
+    kwargs = {k: hparams[k] for k in ("sample_rate",) if k in hparams}
+    if specs is not None:
+        kwargs["specifications"] = Specifications.from_checkpoint(specs)
+    return kwargs
+
+
+def _debug_embedding(hparams: Dict[str, Any], specs) -> Dict[str, Any]:
+    return {k: hparams[k] for k in ("sample_rate",) if k in hparams}
+
+
 _WESPEAKER = "pyannote_audio_tpu_torch.models.embedding.wespeaker"
 _XVECTOR = "pyannote_audio_tpu_torch.models.embedding.xvector"
 
@@ -217,6 +263,16 @@ _XVECTOR = "pyannote_audio_tpu_torch.models.embedding.xvector"
 _ARCHITECTURES = {
     "PyanNet": ("pyannote_audio_tpu_torch.models.segmentation.pyannet",
                 "PyanNet", _pyannet),
+    "SSeRiouSS": ("pyannote_audio_tpu_torch.models.segmentation.sseriouss",
+                  "SSeRiouSS", _sseriouss),
+    "ToTaToNet": ("pyannote_audio_tpu_torch.models.separation.totatonet",
+                  "ToTaToNet", _totatonet),
+    "SimpleSegmentationModel": (
+        "pyannote_audio_tpu_torch.models.segmentation.debug",
+        "SimpleSegmentationModel", _debug),
+    "SimpleEmbeddingModel": (
+        "pyannote_audio_tpu_torch.models.embedding.debug",
+        "SimpleEmbeddingModel", _debug_embedding),
     "XVectorMFCC": (_XVECTOR, "XVectorMFCC", _xvector),
     "XVectorSincNet": (_XVECTOR, "XVectorSincNet", _xvector),
     **{f"WeSpeakerResNet{depth}": (_WESPEAKER, f"WeSpeakerResNet{depth}",

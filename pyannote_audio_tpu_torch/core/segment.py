@@ -154,6 +154,29 @@ class SlidingWindowFeature:
     def __len__(self) -> int:
         return len(self.data)
 
+    @property
+    def extent(self) -> Segment:
+        return Segment(self.sliding_window[0].start,
+                       self.sliding_window[len(self.data) - 1].end)
+
+    def crop_loose(self, focus: Segment) -> "SlidingWindowFeature":
+        """The frames with a strictly positive overlap with ``focus``
+        (the JAX package's ``crop(focus, mode="loose", return_data=False)``
+        without ``fixed``), clipped to the data."""
+        window = self.sliding_window
+        i0 = int(np.ceil((focus.start - window.duration - window.start)
+                         / window.step + SEGMENT_PRECISION))
+        j = int(np.floor((focus.end - window.start) / window.step
+                         - SEGMENT_PRECISION))
+        n = len(self.data)
+        lo = min(max(i0, 0), n)
+        hi = min(max(i0 + max(j - i0 + 1, 0), lo), n)
+        return SlidingWindowFeature(
+            self.data[lo:hi], SlidingWindow(duration=window.duration,
+                                            step=window.step,
+                                            start=window[lo].start),
+            labels=self.labels)
+
     def __repr__(self) -> str:
         return (f"<SlidingWindowFeature shape={tuple(self.data.shape)} "
                 f"window={self.sliding_window!r}>")

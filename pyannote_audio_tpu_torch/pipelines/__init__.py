@@ -1,6 +1,6 @@
 """Pipelines, importable from here, the path a config's ``pipeline.name``
 gives (``pyannote.audio.pipelines.SpeakerDiarization``,
-``...SpeakerEmbedding``, ...); each is
+``...SpeakerEmbedding``, ``...SpeechSeparation``, ...); each is
 imported on first access."""
 
 _LAZY = {"SpeakerDiarization": ".speaker_diarization",
@@ -8,7 +8,8 @@ _LAZY = {"SpeakerDiarization": ".speaker_diarization",
          "OracleVoiceActivityDetection": ".voice_activity_detection",
          "MultiLabelSegmentation": ".multilabel",
          "SpeakerEmbedding": ".speaker_verification",
-         "PretrainedSpeakerEmbedding": ".speaker_verification"}
+         "PretrainedSpeakerEmbedding": ".speaker_verification",
+         "SpeechSeparation": ".speech_separation"}
 
 
 def __getattr__(name):

@@ -101,26 +101,12 @@ class DiarizeOutput:
     speaker_embeddings: Optional[np.ndarray] = None
 
 
-class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
-    """Segmentation + embedding + clustering speaker diarization.
-
-    ``segmentation`` is a PyanNet-like model (powerset, or multi-label
-    with a sigmoid head) and ``embedding`` any model with ``frames`` and
-    ``embed`` (every WeSpeaker depth, which also has
-    ``frames_from_fbank`` for the shared paths, or an x-vector, which
-    takes the per-chunk path), each an instance, a local checkpoint path or a
-    ``{checkpoint, subfolder}`` dict; both are moved to ``device`` and run
-    in eval mode. ``embedding`` may be None only for oracle clustering.
-    ``plda`` (an instance, a directory or such a dict) serves
-    ``clustering="VBxClustering"``. ``device`` is the CUDA card by
-    default; without one the constructor raises, and ``device="cpu"``
-    runs the exact path on the CPU; ``to(device)`` moves the pipeline
-    later. ``legacy`` returns only the diarization ``Annotation``.
-    ``counts`` records which embedding path ran (reset it at will).
-    """
-
-    # apply_batch streams its own decode
-    STREAMS_DECODE = True
+class EmbeddingMixin:
+    """One embedding per (chunk, speaker) on the pipeline's device, by one
+    of the three paths (shared trunk, shared fbank, per chunk): the
+    counterpart of the JAX package's ``EmbeddingHotPathMixin``. A host
+    class has ``_embedding``, ``_segmentation`` (an ``Inference``),
+    ``device``, ``embedding_batch_size`` and the path ``counts``."""
 
     # shared-trunk panel geometry, in trunk frames: halo * stride fbank
     # frames of context on each side cover the trunk's receptive field, so
@@ -128,117 +114,6 @@ class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
     TRUNK_PANEL_CORE = 512
     TRUNK_PANEL_HALO = 64
     TRUNK_PANEL_BATCH = 8
-
-    def __init__(self, segmentation: PipelineModel = None,
-                 embedding: Optional[PipelineModel] = None,
-                 segmentation_step: float = 0.1,
-                 embedding_exclude_overlap: bool = False,
-                 plda=None,
-                 clustering: str = "AgglomerativeClustering",
-                 embedding_batch_size: int = 32,
-                 segmentation_batch_size: int = 32,
-                 der_variant: Optional[dict] = None,
-                 legacy: bool = False,
-                 device: Union[str, torch.device] = "cuda"):
-        super().__init__()
-        self.device = check_device(device)
-        try:
-            Klustering = Clustering[clustering].value
-        except KeyError:
-            raise ValueError(f"clustering must be one of "
-                             f"{[member.name for member in Clustering]}")
-        if segmentation is None:
-            raise ValueError("a segmentation model is required")
-        segmentation = get_model(segmentation)
-        if embedding is None and Klustering is not OracleClustering:
-            raise ValueError(f"{clustering} needs an embedding model")
-        self._powerset = segmentation.specifications.powerset
-        self.legacy = legacy
-        self.segmentation_step = segmentation_step
-        self.embedding_exclude_overlap = embedding_exclude_overlap
-        self.embedding_batch_size = embedding_batch_size
-        self.klustering = clustering
-        self.der_variant = der_variant or {"collar": 0.0,
-                                           "skip_overlap": False}
-        self._embedding = get_model(embedding).to(self.device).eval() \
-            if embedding is not None else None
-        segmentation = segmentation.to(self.device).eval()
-        duration = segmentation.specifications.duration
-        self._segmentation = Inference(
-            segmentation, duration=duration,
-            step=segmentation_step * duration, skip_aggregation=True,
-            batch_size=segmentation_batch_size, device=self.device)
-        if self._powerset:
-            self.segmentation = ParamDict(min_duration_off=Uniform(0.0, 1.0))
-        else:
-            self.segmentation = ParamDict(threshold=Uniform(0.1, 0.9),
-                                          min_duration_off=Uniform(0.0, 1.0))
-        self._audio = Audio(sample_rate=16000)
-        if Klustering is OracleClustering:
-            self.clustering = OracleClustering()
-        elif clustering == "VBxClustering":
-            self.clustering = Klustering(plda=get_plda(plda),
-                                         metric="cosine")
-        else:
-            self.clustering = Klustering(metric="cosine")
-        self.clustering.to(self.device)
-        self._expects_num_speakers = self.clustering.expects_num_clusters
-        self.counts = {"whole_fbank": 0, "trunk_panel_batches": 0,
-                       "chunk_trunk_batches": 0}
-
-    def default_parameters(self) -> Dict[str, Any]:
-        """The JAX package's defaults; a non-powerset model has none
-        (except with VBx), so it must be instantiated first."""
-        if self.klustering == "VBxClustering":
-            return {"segmentation": {"min_duration_off": 0.0},
-                    "clustering": {"threshold": 0.6, "Fa": 0.07, "Fb": 0.8}}
-        if not self._powerset:
-            raise NotImplementedError
-        return {"segmentation": {"min_duration_off": 0.0},
-                "clustering": {"method": "centroid", "min_cluster_size": 15,
-                               "threshold": 0.7}}
-
-    def to(self, device: Union[str, torch.device]) -> "SpeakerDiarization":
-        """Move the models, the segmentation ``Inference`` and the
-        clustering's device to ``device``, dropping what was cached for
-        the old one (the powerset mapping, the LSTM's packed weights, the
-        fbank's constants)."""
-        super().to(device)
-        fbank_ops._constant.cache_clear()
-        return self
-
-    def get_metric(self) -> GreedyDiarizationErrorRate:
-        return GreedyDiarizationErrorRate(**self.der_variant)
-
-    @staticmethod
-    def classes() -> Iterator[str]:
-        """Infinite SPEAKER_%02d label generator."""
-        i = 0
-        while True:
-            yield f"SPEAKER_{i:02d}"
-            i += 1
-
-    # -- stages -------------------------------------------------------------
-
-    @staticmethod
-    def _aggregation_grid(chunk_window: SlidingWindow,
-                          frames: SlidingWindow, num_chunks: int
-                          ) -> Tuple[np.ndarray, int, SlidingWindow]:
-        """Per-chunk output-frame offsets, output length and output grid,
-        with the op order of SlidingWindow.closest_frame."""
-        window = SlidingWindow(start=chunk_window.start,
-                               duration=frames.duration, step=frames.step)
-        t = chunk_window.start + np.arange(num_chunks) * chunk_window.step
-        offsets = np.rint(
-            (t + 0.5 * frames.duration - window.start
-             - 0.5 * window.duration) / window.step).astype(np.int64)
-        num_output_frames = window.closest_frame(
-            chunk_window.start + chunk_window.duration
-            + (num_chunks - 1) * chunk_window.step
-            + 0.5 * frames.duration) + 1
-        return offsets, num_output_frames, window
-
-    # -- embeddings ---------------------------------------------------------
 
     def _frame_shift_samples(self) -> int:
         emb = self._embedding
@@ -508,6 +383,138 @@ class SpeakerDiarization(SpeakerDiarizationMixin, Pipeline):
                 release_upload(gi)
         embeddings = torch.cat(out) if len(out) > 1 else out[0]
         return embeddings if defer_fetch else embeddings.cpu().numpy()
+
+
+class SpeakerDiarization(SpeakerDiarizationMixin, EmbeddingMixin,
+                         Pipeline):
+    """Segmentation + embedding + clustering speaker diarization.
+
+    ``segmentation`` is a PyanNet-like model (powerset, or multi-label
+    with a sigmoid head) and ``embedding`` any model with ``frames`` and
+    ``embed`` (every WeSpeaker depth, which also has
+    ``frames_from_fbank`` for the shared paths, or an x-vector, which
+    takes the per-chunk path), each an instance, a local checkpoint path or a
+    ``{checkpoint, subfolder}`` dict; both are moved to ``device`` and run
+    in eval mode. ``embedding`` may be None only for oracle clustering.
+    ``plda`` (an instance, a directory or such a dict) serves
+    ``clustering="VBxClustering"``. ``device`` is the CUDA card by
+    default; without one the constructor raises, and ``device="cpu"``
+    runs the exact path on the CPU; ``to(device)`` moves the pipeline
+    later. ``legacy`` returns only the diarization ``Annotation``.
+    ``counts`` records which embedding path ran (reset it at will).
+    """
+
+    # apply_batch streams its own decode
+    STREAMS_DECODE = True
+
+    def __init__(self, segmentation: PipelineModel = None,
+                 embedding: Optional[PipelineModel] = None,
+                 segmentation_step: float = 0.1,
+                 embedding_exclude_overlap: bool = False,
+                 plda=None,
+                 clustering: str = "AgglomerativeClustering",
+                 embedding_batch_size: int = 32,
+                 segmentation_batch_size: int = 32,
+                 der_variant: Optional[dict] = None,
+                 legacy: bool = False,
+                 device: Union[str, torch.device] = "cuda"):
+        super().__init__()
+        self.device = check_device(device)
+        try:
+            Klustering = Clustering[clustering].value
+        except KeyError:
+            raise ValueError(f"clustering must be one of "
+                             f"{[member.name for member in Clustering]}")
+        if segmentation is None:
+            raise ValueError("a segmentation model is required")
+        segmentation = get_model(segmentation)
+        if embedding is None and Klustering is not OracleClustering:
+            raise ValueError(f"{clustering} needs an embedding model")
+        self._powerset = segmentation.specifications.powerset
+        self.legacy = legacy
+        self.segmentation_step = segmentation_step
+        self.embedding_exclude_overlap = embedding_exclude_overlap
+        self.embedding_batch_size = embedding_batch_size
+        self.klustering = clustering
+        self.der_variant = der_variant or {"collar": 0.0,
+                                           "skip_overlap": False}
+        self._embedding = get_model(embedding).to(self.device).eval() \
+            if embedding is not None else None
+        segmentation = segmentation.to(self.device).eval()
+        duration = segmentation.specifications.duration
+        self._segmentation = Inference(
+            segmentation, duration=duration,
+            step=segmentation_step * duration, skip_aggregation=True,
+            batch_size=segmentation_batch_size, device=self.device)
+        if self._powerset:
+            self.segmentation = ParamDict(min_duration_off=Uniform(0.0, 1.0))
+        else:
+            self.segmentation = ParamDict(threshold=Uniform(0.1, 0.9),
+                                          min_duration_off=Uniform(0.0, 1.0))
+        self._audio = Audio(sample_rate=16000)
+        if Klustering is OracleClustering:
+            self.clustering = OracleClustering()
+        elif clustering == "VBxClustering":
+            self.clustering = Klustering(plda=get_plda(plda),
+                                         metric="cosine")
+        else:
+            self.clustering = Klustering(metric="cosine")
+        self.clustering.to(self.device)
+        self._expects_num_speakers = self.clustering.expects_num_clusters
+        self.counts = {"whole_fbank": 0, "trunk_panel_batches": 0,
+                       "chunk_trunk_batches": 0}
+
+    def default_parameters(self) -> Dict[str, Any]:
+        """The JAX package's defaults; a non-powerset model has none
+        (except with VBx), so it must be instantiated first."""
+        if self.klustering == "VBxClustering":
+            return {"segmentation": {"min_duration_off": 0.0},
+                    "clustering": {"threshold": 0.6, "Fa": 0.07, "Fb": 0.8}}
+        if not self._powerset:
+            raise NotImplementedError
+        return {"segmentation": {"min_duration_off": 0.0},
+                "clustering": {"method": "centroid", "min_cluster_size": 15,
+                               "threshold": 0.7}}
+
+    def to(self, device: Union[str, torch.device]) -> "SpeakerDiarization":
+        """Move the models, the segmentation ``Inference`` and the
+        clustering's device to ``device``, dropping what was cached for
+        the old one (the powerset mapping, the LSTM's packed weights, the
+        fbank's constants)."""
+        super().to(device)
+        fbank_ops._constant.cache_clear()
+        return self
+
+    def get_metric(self) -> GreedyDiarizationErrorRate:
+        return GreedyDiarizationErrorRate(**self.der_variant)
+
+    @staticmethod
+    def classes() -> Iterator[str]:
+        """Infinite SPEAKER_%02d label generator."""
+        i = 0
+        while True:
+            yield f"SPEAKER_{i:02d}"
+            i += 1
+
+    # -- stages -------------------------------------------------------------
+
+    @staticmethod
+    def _aggregation_grid(chunk_window: SlidingWindow,
+                          frames: SlidingWindow, num_chunks: int
+                          ) -> Tuple[np.ndarray, int, SlidingWindow]:
+        """Per-chunk output-frame offsets, output length and output grid,
+        with the op order of SlidingWindow.closest_frame."""
+        window = SlidingWindow(start=chunk_window.start,
+                               duration=frames.duration, step=frames.step)
+        t = chunk_window.start + np.arange(num_chunks) * chunk_window.step
+        offsets = np.rint(
+            (t + 0.5 * frames.duration - window.start
+             - 0.5 * window.duration) / window.step).astype(np.int64)
+        num_output_frames = window.closest_frame(
+            chunk_window.start + chunk_window.duration
+            + (num_chunks - 1) * chunk_window.step
+            + 0.5 * frames.duration) + 1
+        return offsets, num_output_frames, window
 
     # -- apply --------------------------------------------------------------
 

@@ -16,6 +16,21 @@ def conv1d_num_frames(num_samples: int, kernel_size: int = 5, stride: int = 1,
         // stride
 
 
+def conv1d_receptive_field_size(num_frames: int = 1, kernel_size: int = 5,
+                                stride: int = 1, dilation: int = 1) -> int:
+    """Input span covered by ``num_frames`` consecutive outputs of one 1-d
+    convolution."""
+    return 1 + (kernel_size - 1) * dilation + (num_frames - 1) * stride
+
+
+def conv1d_receptive_field_center(frame: int = 0, kernel_size: int = 5,
+                                  stride: int = 1, padding: int = 0,
+                                  dilation: int = 1) -> int:
+    """Index of the input sample at the center of one 1-d convolution's
+    output frame."""
+    return frame * stride - padding + (kernel_size - 1) * dilation // 2
+
+
 def multi_conv_num_frames(num_samples: int, kernel_size: Sequence[int],
                           stride: Sequence[int], padding: Sequence[int],
                           dilation: Sequence[int]) -> int:
@@ -33,7 +48,7 @@ def multi_conv_receptive_field_size(num_frames: int,
     """Input span covered by ``num_frames`` consecutive outputs."""
     size = num_frames
     for k, s, d in reversed(list(zip(kernel_size, stride, dilation))):
-        size = 1 + (k - 1) * d + (size - 1) * s
+        size = conv1d_receptive_field_size(size, k, s, d)
     return size
 
 
@@ -45,5 +60,5 @@ def multi_conv_receptive_field_center(frame: int, kernel_size: Sequence[int],
     center = frame
     for k, s, p, d in reversed(list(zip(kernel_size, stride, padding,
                                         dilation))):
-        center = center * s - p + (1 + (k - 1) * d - 1) // 2
+        center = conv1d_receptive_field_center(center, k, s, p, d)
     return center

@@ -216,7 +216,7 @@ def test_reference_specifications_load_through_the_shim(tmp_path, layout):
 
 def test_unported_architectures_and_hub_ids_raise(tmp_path):
     torch.save({"state_dict": {}, "pyannote.audio": {"architecture": {
-        "class": "SSeRiouSS"}}}, tmp_path / "pytorch_model.bin")
+        "class": "SincTDNN"}}}, tmp_path / "pytorch_model.bin")
     with pytest.raises(ValueError, match="not ported yet"):
         Model.from_pretrained(tmp_path)
     for call in (lambda: Pipeline.from_pretrained(

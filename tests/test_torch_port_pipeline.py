@@ -8,6 +8,7 @@ segment boundaries within one segmentation frame); centroids within the
 embedding tolerance of 2e-3.
 """
 
+import pkgutil
 import subprocess
 import sys
 from pathlib import Path
@@ -119,65 +120,18 @@ def test_same_centroids_and_list_input(both_outputs):
 
 
 def test_port_imports_no_jax():
-    """The package and every module of the slice load without JAX, the
-    JAX package, scikit-learn or PyYAML (none of which the card machine
-    may have), and a config's JAX-package class path resolves to the port
-    without importing the JAX package."""
-    modules = [
-        "pyannote_audio_tpu_torch",
-        "pyannote_audio_tpu_torch.core.annotation",
-        "pyannote_audio_tpu_torch.core.inference",
-        "pyannote_audio_tpu_torch.core.io",
-        "pyannote_audio_tpu_torch.core.longfile",
-        "pyannote_audio_tpu_torch.core.model",
-        "pyannote_audio_tpu_torch.core.parameter",
-        "pyannote_audio_tpu_torch.core.pipeline",
-        "pyannote_audio_tpu_torch.core.plda",
-        "pyannote_audio_tpu_torch.core.segment",
-        "pyannote_audio_tpu_torch.metrics.der",
-        "pyannote_audio_tpu_torch.metrics.streaming",
-        "pyannote_audio_tpu_torch.models.blocks.pooling",
-        "pyannote_audio_tpu_torch.models.blocks.rnn",
-        "pyannote_audio_tpu_torch.models.blocks.sincnet",
-        "pyannote_audio_tpu_torch.models.embedding",
-        "pyannote_audio_tpu_torch.models.embedding.ecapa",
-        "pyannote_audio_tpu_torch.models.embedding.titanet",
-        "pyannote_audio_tpu_torch.models.embedding.wespeaker",
-        "pyannote_audio_tpu_torch.models.embedding.xvector",
-        "pyannote_audio_tpu_torch.models.segmentation.pyannet",
-        "pyannote_audio_tpu_torch.ops.aggregate",
-        "pyannote_audio_tpu_torch.ops.ahc",
-        "pyannote_audio_tpu_torch.ops.binarize",
-        "pyannote_audio_tpu_torch.ops.diarize_fused",
-        "pyannote_audio_tpu_torch.ops.fbank",
-        "pyannote_audio_tpu_torch.ops.kmeans",
-        "pyannote_audio_tpu_torch.ops.lstm",
-        "pyannote_audio_tpu_torch.ops.lstm_kernel",
-        "pyannote_audio_tpu_torch.ops.permutation",
-        "pyannote_audio_tpu_torch.ops.powerset",
-        "pyannote_audio_tpu_torch.pipelines",
-        "pyannote_audio_tpu_torch.pipelines.clustering",
-        "pyannote_audio_tpu_torch.pipelines.multilabel",
-        "pyannote_audio_tpu_torch.pipelines.parameter",
-        "pyannote_audio_tpu_torch.pipelines.speaker_diarization",
-        "pyannote_audio_tpu_torch.pipelines.speaker_verification",
-        "pyannote_audio_tpu_torch.pipelines.utils.diarization",
-        "pyannote_audio_tpu_torch.pipelines.utils.getter",
-        "pyannote_audio_tpu_torch.pipelines.utils.hook",
-        "pyannote_audio_tpu_torch.pipelines.utils.oracle",
-        "pyannote_audio_tpu_torch.pipelines.voice_activity_detection",
-        "pyannote_audio_tpu_torch.utils.build",
-        "pyannote_audio_tpu_torch.utils.convert",
-        "pyannote_audio_tpu_torch.utils.flops",
-        "pyannote_audio_tpu_torch.utils.metric",
-        "pyannote_audio_tpu_torch.utils.native",
-        "pyannote_audio_tpu_torch.utils.onnx",
-        "pyannote_audio_tpu_torch.utils.receptive_field",
-        "pyannote_audio_tpu_torch.utils.rttm",
-        "pyannote_audio_tpu_torch.utils.runtime",
-        "pyannote_audio_tpu_torch.utils.signal",
-        "pyannote_audio_tpu_torch.utils.vbx",
-    ]
+    """The package and every one of its modules (walked with pkgutil, so
+    each new module is checked) load without JAX, the JAX package,
+    scikit-learn or PyYAML (none of which the card machine may have), and
+    a config's JAX-package class path resolves to the port without
+    importing the JAX package."""
+    root = Path(__file__).resolve().parent.parent
+    package = root / "pyannote_audio_tpu_torch"
+    modules = ["pyannote_audio_tpu_torch"] + sorted(
+        info.name for info in pkgutil.walk_packages(
+            [str(package)], prefix="pyannote_audio_tpu_torch."))
+    assert "pyannote_audio_tpu_torch.pipelines.speech_separation" in modules
+    assert "pyannote_audio_tpu_torch.models.blocks.ssl" in modules
     code = ("import importlib, sys\n"
             f"for name in {modules!r}:\n"
             "    importlib.import_module(name)\n"
@@ -193,7 +147,8 @@ def test_port_imports_no_jax():
             "             'pyannote_audio_tpu.pipelines.multilabel.'\n"
             "             'MultiLabelSegmentation',\n"
             "             'pyannote.audio.pipelines.SpeakerEmbedding',\n"
-            "             'pyannote_audio_tpu.pipelines.SpeakerEmbedding'):\n"
+            "             'pyannote_audio_tpu.pipelines.SpeakerEmbedding',\n"
+            "             'pyannote.audio.pipelines.SpeechSeparation'):\n"
             "    klass = get_class_by_name(name)\n"
             "    assert klass.__module__.startswith(\n"
             "        'pyannote_audio_tpu_torch.'), name\n"
@@ -201,7 +156,6 @@ def test_port_imports_no_jax():
             "    'jax', 'flax', 'jaxlib', 'pyannote_audio_tpu', 'sklearn',\n"
             "    'yaml'))\n"
             "assert not bad, bad\n")
-    root = Path(__file__).resolve().parent.parent
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

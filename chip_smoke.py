@@ -14,7 +14,10 @@ Phases, each fatal on failure:
      "highest"), with kernel and plain times, the bound of each mode, and
      cuDNN's torch.nn.LSTM over the same layer beside the port's
      projection + kernel (a yardstick only), phase 10's shapes each
-     timed on its own;
+     timed on its own; and LSTMRecurrence (the kernel forward, the plain
+     float32 backward) against the all-plain autograd at the training
+     shape (589 x 32) and a ragged one, with the forward, the backward per
+     layer and cuDNN's layer forward + backward timed;
   4. the exact path (the accelerator gates PYANNOTE_TPU_SEG_BF16,
      _SHARED_SINC and _SHARED_TRUNK forced to "0", a float32 trunk,
      PYANNOTE_TPU_LSTM_PRECISION=highest):
@@ -94,7 +97,17 @@ Phases, each fatal on failure:
      (diarization and sources), ``Inference``'s (diarization, sources)
      tuple, SpeechSeparation on 3 min (launches, wall, peak, sources)
      and on 15 s against the CPU's run by the near-tie rule (its head
-     calibrated).
+     calibrated);
+ 11. training (x): one step of full-width PyanNet on 4 ten-second chunks
+     card against CPU on the exact path (loss, every gradient, SincNet's
+     also in float64, 3 Adam steps), the card's kernel path against its
+     all-plain path, then Trainer.fit under SpeakerDiarization at the
+     reference's defaults on a synthetic protocol written from a seed (2
+     epochs of 10 steps of 32, validation, checkpoints): LSTM launches
+     (per step from the fit's counts), the step's time split, peak
+     memory, losses, der/val, the best checkpoint reloaded through
+     Model.from_pretrained and resume_from epoch 0 (parameters, their
+     epoch-1 updates, Adam's step counts and moments, the epoch-1 loss).
 
 The line before the last is a JSON object describing each kernel (its
 ``launches`` is the accelerator path's; ``launches_per_path`` has every
@@ -106,6 +119,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import itertools
 import json
 import os
 import statistics
@@ -3173,6 +3187,611 @@ def phase_separation(device, workdir: Path, card: str) -> dict:
                                                        card)}
 
 
+# -- phase 3 under autograd and phase 11 -------------------------------------
+
+# phase 3 under autograd: LSTMRecurrence (kernel forward, plain float32
+# backward) against the all-plain autograd on the card at the training
+# shape (T = 589, B = 32: batches of 32 ten-second chunks) and a ragged B.
+# "highest": forward 1e-4 as above, gradients 1e-4 relative L2 (float32
+# sums in another order). "default": forward 1e-3 as above; the all-plain
+# autograd at "default" differentiates the bf16-rounded products while the
+# Function's backward is the float32 VJP, as the JAX package's
+# ("highest" gradients at the same inputs): their gradients part by about
+# bf16's rounding (2.1e-03 relative L2 at most on an H100), bounded at 1e-2.
+# In "highest" the two backwards are the same computation on the same
+# inputs
+TRAIN_SHAPES = (("B=32 layer 0", 589, 32, 60), ("B=32 layer 1", 589, 32, 256),
+                ("B=7 layer 0", 589, 7, 60))
+AUTOGRAD_GRAD_RTOL = {"highest": 1e-4, "default": 1e-2}
+# (x) one step card against CPU on the exact path: the loss within 1e-5
+# relative (float32 sums in another order), each gradient within 1e-3
+# relative L2 against the larger of its own norm and 1e-6 of the whole
+# gradient's (the SincNet conv biases before an instance norm have a true
+# gradient of zero, of which both sides give rounding noise); SincNet's
+# within TRAIN_SINC_GRAD_RTOL: they are ill-conditioned in float32 (the
+# first H100 run measured up to 1.24e-2 between card and CPU; the CPU
+# tests 2.6e-2 between the JAX package and the port), and the check prints
+# how far they move when the waveform moves by about 2 ulp. That this is
+# rounding, not a different gradient, is held in float64: the SincNet
+# block's gradients for one seeded upstream gradient, card against CPU,
+# within SINC_F64_GRAD_RTOL (the CPU tests hold the port's float64
+# gradients to the JAX package's at 1e-9, measured 1.8e-11). After 3 Adam
+# steps (lr 1e-3) every parameter within 2 * lr * steps: a component whose
+# gradient is rounding noise may move by up to lr either way each step, as
+# the SincNet conv biases before an instance norm (a true gradient of
+# zero) and some filter edges (their gradients cancel by up to 1e5 over
+# the taps) do, so SincNet's tensors are not held one by one (their
+# updates part by 0.70-1.37 relative L2 on an H100). The update of each
+# parameter outside SincNet within TRAIN_PARAM_UPDATE_RTOL relative L2
+# (measured up to 5.3e-3) and the model's within TRAIN_UPDATE_RTOL
+# (measured 1.06e-2)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-3
+TRAIN_SINC_GRAD_RTOL = 5e-2
+SINC_F64_GRAD_RTOL = 1e-9
+TRAIN_UPDATE_RTOL = 5e-2
+TRAIN_PARAM_UPDATE_RTOL = 2e-2
+TRAIN_LR = 1e-3
+# (x) the run: 2 epochs of 10 steps of 32 ten-second chunks over 6 train
+# files of 9 minutes (2-4 speakers each, with overlap) and a 6-minute
+# development file (36 chunks: validation batches of 32 and 4)
+TRAIN_FILES, TRAIN_FILE_MINUTES, DEV_MINUTES = 6, 9.0, 6.0
+TRAIN_EPOCHS, TRAIN_STEPS, TRAIN_BATCH = 2, 10, 32
+# resume_from epoch 0 against the uninterrupted run, on the card (cuDNN's
+# conv backward is not bit-deterministic, so the two runs part by
+# rounding): the resumed fit runs epoch 1 only and its Adam step counts
+# equal the uninterrupted run's; every parameter within 2 * lr * steps
+# (SincNet's noise components, as after 3 steps); the epoch-1 update of
+# each parameter outside SincNet within RESUME_UPDATE_RTOL relative L2
+# (measured up to 1.9e-2 on an H100), Adam's moments over the model within
+# RESUME_MOMENT_RTOL (measured up to 5.5e-2 and 3.3e-3; a moment reset at
+# the resume would part them by about 0.35 and 0.5), and the epoch-1 train
+# loss within RESUME_LOSS_RTOL relative (measured 1.5e-5 to 4.3e-4)
+RESUME_UPDATE_RTOL = 5e-2
+RESUME_MOMENT_RTOL = {"exp_avg": 0.2, "exp_avg_sq": 3e-2}
+RESUME_LOSS_RTOL = 2e-3
+CHECKPOINT_LOGP_ATOL = 1e-6
+SPEAKER_F0 = (140.0, 210.0, 320.0, 95.0)
+
+
+def grad_rel_l2(ours: torch.Tensor, theirs: torch.Tensor,
+                floor: float = 0.0) -> float:
+    ours, theirs = ours.double().cpu(), theirs.double().cpu()
+    return float((ours - theirs).norm() / max(float(theirs.norm()), floor,
+                                              1e-30))
+
+
+def update_errors(ours: dict, theirs: dict, start: dict) -> dict:
+    """{name: relative L2 of ``ours``' update from ``start`` against
+    ``theirs``'} for every parameter, and the worst of each module's."""
+    errors = {n: grad_rel_l2(ours[n].cpu() - start[n].cpu(),
+                             theirs[n].cpu() - start[n].cpu())
+              for n in start}
+    worst = {}
+    for name, value in errors.items():
+        key = name.split(".")[0]
+        if value >= worst.get(key, ("", -1.0))[1]:
+            worst[key] = (name, value)
+    return worst
+
+
+def check_kernel_autograd(device: torch.device) -> dict:
+    """LSTMRecurrence against the all-plain autograd on the card, with the
+    times of the training shape: kernel forward, the Function's backward
+    per layer, the plain forward, cuDNN's float32 layer forward + backward,
+    and the kernel's bound."""
+    from pyannote_audio_tpu_torch.ops.lstm import \
+        lstm_bidirectional_recurrence_plain
+    from pyannote_audio_tpu_torch.ops.lstm_kernel import (
+        LSTMRecurrence, lstm_bidirectional_recurrence,
+        prepare_recurrent_weights)
+    H, D = 128, 2
+    worst = {p: {"forward": 0.0, "xw": 0.0, "w_hh": 0.0}
+             for p in AUTOGRAD_GRAD_RTOL}
+    for name, T, B, D_in in TRAIN_SHAPES:
+        xw, w_hh, _ = layer_inputs(device, T, B, D_in, H, D, seed=B)
+        grad = torch.randn(T, B, D * H, device=device,
+                           generator=torch.Generator(device).manual_seed(B))
+        for precision, limit in AUTOGRAD_GRAD_RTOL.items():
+            runs = []
+            for fn in (lambda a, b: LSTMRecurrence.apply(a, b, precision),
+                       lambda a, b: lstm_bidirectional_recurrence_plain(
+                           a, b, precision)):
+                a = xw.detach().clone().requires_grad_()
+                b = w_hh.detach().clone().requires_grad_()
+                out = fn(a, b)
+                out.backward(grad)
+                runs.append((out.detach(), a.grad, b.grad))
+            torch.cuda.synchronize()
+            (out, gx, gw), (ref, rx, rw) = runs
+            errs = {"forward": (out - ref).abs().max().item(),
+                    "xw": grad_rel_l2(gx, rx), "w_hh": grad_rel_l2(gw, rw)}
+            for key, value in errs.items():
+                worst[precision][key] = max(worst[precision][key], value)
+            log(f"LSTMRecurrence {precision:8s} {name} (T={T}, B={B}): "
+                f"forward max_abs_err {errs['forward']:.3e} (limit "
+                f"{KERNEL_ATOL[precision]}), gradient relative L2 xw "
+                f"{errs['xw']:.3e}, w_hh {errs['w_hh']:.3e} (limit {limit})")
+            if not (torch.isfinite(gx).all() and torch.isfinite(gw).all()
+                    and errs["forward"] <= KERNEL_ATOL[precision]
+                    and errs["xw"] <= limit and errs["w_hh"] <= limit):
+                raise AssertionError(
+                    f"LSTMRecurrence ({precision}) disagrees with the plain "
+                    f"autograd at {name}: {errs}")
+
+    T, B, D_in = 589, TRAIN_BATCH, 256
+    xw, w_hh, (x, w_ih, b) = layer_inputs(device, T, B, D_in, H, D)
+    prepared = prepare_recurrent_weights(w_hh, "default")
+    grad = torch.randn(T, B, D * H, device=device)
+    kernel_ms = cuda_ms(lambda: lstm_bidirectional_recurrence(
+        xw, w_hh, "default", prepared), runs=20)
+    plain_ms = cuda_ms(lambda: lstm_bidirectional_recurrence_plain(
+        xw, w_hh, "default"), runs=3, warmup=1)
+    a = xw.detach().clone().requires_grad_()
+    w = w_hh.detach().clone().requires_grad_()
+    out = LSTMRecurrence.apply(a, w, "default", prepared)
+    backward_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, (a, w), grad, retain_graph=True), runs=3, warmup=1)
+    packed = prepared.packed
+    bound = lstm_bound(T, B, H, D, "default",
+                       packed.numel() * packed.element_size())
+    lstm = torch.nn.LSTM(D_in, H, bidirectional=True).to(device)
+    lstm.flatten_parameters()
+    xin = x.detach().clone().requires_grad_()
+    g2 = torch.randn(T, B, D * H, device=device)
+
+    def cudnn_step():
+        y, _ = lstm(xin)
+        y.backward(g2)
+
+    from pyannote_audio_tpu_torch.utils.runtime import exact_float32
+    with exact_float32():
+        cudnn_ms = cuda_ms(cudnn_step, runs=10)
+    log(f"training shape (589, 32, 1024) -> (589, 32, 256): kernel forward "
+        f"{kernel_ms:.3f} ms (bound {bound['bound_ms']:.4f} ms, "
+        f"{bound['bound_by']}), the Function's backward {backward_ms:.1f} ms "
+        f"per layer (the plain float32 recurrence's autograd), plain "
+        f"forward {plain_ms:.1f} ms; cuDNN torch.nn.LSTM float32 forward + "
+        f"backward {cudnn_ms:.3f} ms per layer")
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "backward_ms": backward_ms,
+            "library_fwd_bwd_ms": cudnn_ms, **bound,
+            "max_abs_err": {p: v["forward"] for p, v in worst.items()},
+            "grad_rel_l2": {p: max(v["xw"], v["w_hh"])
+                            for p, v in worst.items()}}
+
+
+def synth_conversation(minutes: float, seed: int, speakers: int):
+    """A PCM16-exact waveform and its turns: ``speakers`` harmonic voices
+    (the test corpus's recipe) taking turns of 1-6 s with pauses and, a
+    third of the time, an overlapping second voice."""
+    rng = np.random.default_rng(seed)
+    n = int(minutes * 60 * SAMPLE_RATE)
+    wav = 0.003 * rng.standard_normal(n)
+    turns, t = [], 0.5
+    while t < minutes * 60 - 1.0:
+        who = int(rng.integers(speakers))
+        length = float(rng.uniform(1.0, 6.0))
+        turns.append((who, t, min(t + length, minutes * 60 - 0.5)))
+        if rng.uniform() < 1 / 3 and speakers > 1:
+            other = (who + 1 + int(rng.integers(speakers - 1))) % speakers
+            start = t + float(rng.uniform(0.3, 0.8)) * length
+            turns.append((other, start, min(start + float(
+                rng.uniform(0.5, 2.5)), minutes * 60 - 0.5)))
+        t += length + float(rng.uniform(0.2, 1.5))
+    turns = [(who, start, end) for who, start, end in turns
+             if end - start >= 0.2]
+    for who, start, end in turns:
+        i0, i1 = int(start * SAMPLE_RATE), int(end * SAMPLE_RATE)
+        tt = np.arange(i1 - i0) / SAMPLE_RATE
+        voice = sum(np.sin(2 * np.pi * SPEAKER_F0[who] * h * tt
+                           + rng.uniform(0, 2 * np.pi)) / h
+                    for h in range(1, 6))
+        voice *= 0.5 + 0.5 * np.abs(np.sin(2 * np.pi * 3.0 * tt))
+        wav[i0:i1] += 0.2 * voice + 0.02 * rng.standard_normal(i1 - i0)
+    wav = np.round(np.clip(wav, -1, 1) * 32767).astype(np.float32) / 32768.0
+    return wav[None], turns
+
+
+def write_training_protocol(root: Path, seed: int = 0):
+    """The synthetic protocol of (x): TRAIN_FILES files of
+    TRAIN_FILE_MINUTES with 2-4 speakers and a DEV_MINUTES development
+    file, WAVs and annotations written from ``seed``."""
+    from pyannote_audio_tpu_torch.core.annotation import (Annotation,
+                                                          Timeline)
+    from pyannote_audio_tpu_torch.core.io import write_wav
+    from pyannote_audio_tpu_torch.core.segment import Segment
+    from pyannote_audio_tpu_torch.utils.database import Protocol
+
+    def one(uri, minutes, file_seed, speakers):
+        wav, turns = synth_conversation(minutes, file_seed, speakers)
+        path = root / f"{uri}.wav"
+        write_wav(path, wav, SAMPLE_RATE)
+        annotation = Annotation(uri=uri)
+        for who, start, end in turns:
+            segment = Segment(start, end)
+            annotation[segment, annotation.new_track(segment)] = \
+                f"{uri}_spk{who}"
+        return {"uri": uri, "audio": str(path), "annotation": annotation,
+                "annotated": Timeline([Segment(0.0, minutes * 60)],
+                                      uri=uri)}
+    train = [one(f"train{i}", TRAIN_FILE_MINUTES, seed + i, 2 + i % 3)
+             for i in range(TRAIN_FILES)]
+    dev = [one("dev0", DEV_MINUTES, seed + 100, 3)]
+    return Protocol("Synthetic.SpeakerDiarization.Train",
+                    {"train": train, "development": dev})
+
+
+def training_task(protocol, **kwargs):
+    """The reference's SpeakerDiarization training defaults: 10 s chunks,
+    3 speakers per chunk, 2 per frame, batches of 32."""
+    from pyannote_audio_tpu_torch.tasks import SpeakerDiarization
+    options = dict(duration=10.0, max_speakers_per_chunk=3,
+                   max_speakers_per_frame=2, batch_size=TRAIN_BATCH,
+                   num_workers=2, seed=0)
+    options.update(kwargs)
+    return SpeakerDiarization(protocol, **options)
+
+
+def published_pyannet(seed: int = 0):
+    """PyanNet at published width (sinc stride 10, BiLSTM 2 x 128, 2 x
+    Linear 128, the 7-class powerset of 3 speakers), seeded."""
+    from pyannote_audio_tpu_torch.models.segmentation.pyannet import PyanNet
+    return PyanNet(generator=torch.Generator().manual_seed(seed))
+
+
+def one_step_grads(model, task, trainer, batch):
+    """(loss, {name: gradient}) of one forward and backward."""
+    from pyannote_audio_tpu_torch.utils.runtime import exact_float32
+    model.zero_grad(set_to_none=True)
+    loss = task.loss(model, trainer.to_device(batch))
+    with exact_float32():
+        loss.backward()
+    return float(loss.detach()), {n: p.grad.detach().clone()
+                                  for n, p in model.named_parameters()}
+
+
+@contextlib.contextmanager
+def plain_lstm():
+    """The card's LSTM through the plain recurrence's own autograd (no
+    kernel): the card held against itself."""
+    from pyannote_audio_tpu_torch.models.blocks import rnn
+    from pyannote_audio_tpu_torch.ops.lstm import \
+        lstm_bidirectional_recurrence_plain
+
+    class Plain:
+        @staticmethod
+        def apply(xw, w_hh, precision=None, prepared=None):
+            return lstm_bidirectional_recurrence_plain(xw, w_hh, precision)
+
+    saved = rnn.LSTMRecurrence
+    rnn.LSTMRecurrence = Plain
+    try:
+        yield
+    finally:
+        rnn.LSTMRecurrence = saved
+
+
+def sincnet_float64_errors(sincnet, X: np.ndarray, device) -> dict:
+    """{name: relative L2} of each SincNet gradient, card against CPU,
+    with the block in float64 on the chunks ``X`` and one seeded upstream
+    gradient (exact path: no bf16)."""
+    grads = {}
+    for where in ("cpu", device):
+        block = copy.deepcopy(sincnet).double().to(where)
+        out = block(torch.from_numpy(X.astype(np.float64)).to(where))
+        out.backward(torch.randn(out.shape, dtype=torch.float64,
+                                 generator=torch.Generator().manual_seed(0))
+                     .to(where))
+        grads[str(where)] = {n: p.grad for n, p in block.named_parameters()}
+    cpu = grads["cpu"]
+    floor = 1e-6 * float(torch.sqrt(sum(g.square().sum()
+                                        for g in cpu.values())))
+    return {n: grad_rel_l2(grads[str(device)][n], g, floor)
+            for n, g in cpu.items()}
+
+
+def check_training_step(device, protocol) -> None:
+    """(x) one step of full-width PyanNet on 4 ten-second chunks, card
+    against CPU on the exact path; then 3 Adam steps each; then the card's
+    kernel path against its all-plain path."""
+    from pyannote_audio_tpu_torch.core.model import attach_specifications
+    from pyannote_audio_tpu_torch.train import Trainer
+    with exact_path():
+        task = training_task(protocol, batch_size=4, num_workers=0)
+        cpu_model = published_pyannet(seed=1)
+        task.setup(cpu_model)
+        attach_specifications(cpu_model, task.specifications)
+        card_model = copy.deepcopy(cpu_model).to(device)
+        batches = list(itertools.islice(task.train_batches(epoch=0), 3))
+        cpu, card = Trainer(device="cpu"), Trainer(device=device)
+        reset_lstm()
+        t0 = time.perf_counter()
+        card_loss, card_grads = one_step_grads(card_model, task, card,
+                                               batches[0])
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        assert lstm_launches() == 2, lstm_launches()
+        t0 = time.perf_counter()
+        cpu_loss, cpu_grads = one_step_grads(cpu_model, task, cpu, batches[0])
+        cpu_s = time.perf_counter() - t0
+        nudged = copy.copy(batches[0])
+        nudged.X = batches[0].X * np.float32(1 + 2 ** -22)
+        _, nudged_grads = one_step_grads(cpu_model, task, cpu, nudged)
+        loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+        floor = 1e-6 * float(torch.sqrt(sum(g.double().square().sum()
+                                            for g in cpu_grads.values())))
+        errs = {n: grad_rel_l2(card_grads[n], cpu_grads[n], floor)
+                for n in cpu_grads}
+        sinc = {n for n in errs if n.startswith("sincnet.")}
+        rest = max(errs[n] for n in errs if n not in sinc)
+        moved = max(grad_rel_l2(nudged_grads[n], cpu_grads[n], floor)
+                    for n in sinc)
+        log(f"(x) one step, 4 x 10 s, exact path: loss card {card_loss:.7f} "
+            f"CPU {cpu_loss:.7f} (relative {loss_err:.2e}, limit "
+            f"{TRAIN_LOSS_RTOL}); gradient relative L2 outside SincNet "
+            f"{rest:.3e} (limit {TRAIN_GRAD_RTOL}), LSTM "
+            f"{max(v for k, v in errs.items() if k.startswith('lstm')):.3e}, "
+            f"SincNet {max(errs[n] for n in sinc):.3e} at "
+            f"{max(sinc, key=errs.get)} (limit {TRAIN_SINC_GRAD_RTOL}; the "
+            f"CPU's own SincNet gradients move by {moved:.3e} when the "
+            f"waveform moves by 2 ulp); forward + backward card "
+            f"{card_s:.2f} s, CPU {cpu_s:.2f} s")
+        if not (loss_err <= TRAIN_LOSS_RTOL and rest <= TRAIN_GRAD_RTOL
+                and all(errs[n] <= TRAIN_SINC_GRAD_RTOL for n in sinc)):
+            raise AssertionError(f"(x) card and CPU gradients part: "
+                                 f"{loss_err}, {errs}")
+        f64 = sincnet_float64_errors(cpu_model.sincnet, batches[0].X, device)
+        log(f"(x) SincNet in float64, card vs CPU: gradient relative L2 "
+            f"worst {max(f64.values()):.3e} at {max(f64, key=f64.get)}, "
+            f"filter edges {f64['conv1d.0.filterbank.low_hz_']:.3e} / "
+            f"{f64['conv1d.0.filterbank.band_hz_']:.3e} (limit "
+            f"{SINC_F64_GRAD_RTOL})")
+        if max(f64.values()) > SINC_F64_GRAD_RTOL:
+            raise AssertionError(f"(x) SincNet's float64 gradients part, "
+                                 f"card vs CPU: {f64}")
+
+        # the card's kernel path against its all-plain path: the LSTM's
+        # and SincNet's gradients are present, nonzero and the same
+        with plain_lstm():
+            plain_loss, plain_grads = one_step_grads(card_model, task, card,
+                                                     batches[0])
+        perrs = {n: grad_rel_l2(card_grads[n], plain_grads[n], floor)
+                 for n in plain_grads if n not in sinc}
+        for name in ("lstm.weight_hh_l0", "lstm.weight_ih_l0",
+                     "lstm.weight_hh_l1_reverse", "sincnet.conv1d.1.weight",
+                     "sincnet.conv1d.0.filterbank.low_hz_"):
+            if not card_grads[name].abs().max() > 0:
+                raise AssertionError(f"(x) no gradient reaches {name}")
+        log(f"(x) card kernel path vs all-plain path: loss "
+            f"{abs(card_loss - plain_loss):.2e} apart, gradient relative L2 "
+            f"worst {max(perrs.values()):.3e}; |grad| of lstm.weight_hh_l0 "
+            f"{float(card_grads['lstm.weight_hh_l0'].norm()):.3e}, "
+            f"sincnet.conv1d.1.weight "
+            f"{float(card_grads['sincnet.conv1d.1.weight'].norm()):.3e}")
+        if max(perrs.values()) > TRAIN_GRAD_RTOL:
+            raise AssertionError(f"(x) kernel path vs plain path: {perrs}")
+
+        # 3 Adam steps on each side from the same weights
+        start = {n: p.detach().cpu().clone()
+                 for n, p in cpu_model.named_parameters()}
+        results = {}
+        for key, trainer, model in (("cpu", cpu, cpu_model),
+                                    ("card", card, card_model)):
+            params = list(model.parameters())
+            optimizer = trainer.make_optimizer(params)
+            for batch in batches:
+                trainer.train_step(model, task, optimizer, params,
+                                   [False] * len(params),
+                                   trainer.to_device(batch))
+            results[key] = {n: p.detach().cpu()
+                            for n, p in model.named_parameters()}
+        most = 2 * TRAIN_LR * len(batches)
+        worst_abs = max(float((results["card"][n] - results["cpu"][n])
+                              .abs().max()) for n in start)
+        updates = update_errors(results["card"], results["cpu"], start)
+        upd = [torch.cat([(results[k][n] - start[n]).ravel() for n in start])
+               for k in ("card", "cpu")]
+        update_err = grad_rel_l2(upd[0], upd[1])
+        log(f"(x) after {len(batches)} Adam steps (lr {TRAIN_LR}): card vs "
+            f"CPU max_abs {worst_abs:.3e} (limit {most}); update relative "
+            f"L2 by module, worst tensor {format_worst(updates)} (limit "
+            f"{TRAIN_PARAM_UPDATE_RTOL} outside sincnet), the model's "
+            f"{update_err:.3e} (limit {TRAIN_UPDATE_RTOL})")
+        if worst_abs > most or update_err > TRAIN_UPDATE_RTOL or any(
+                v > TRAIN_PARAM_UPDATE_RTOL for k, (_, v) in updates.items()
+                if k != "sincnet"):
+            raise AssertionError("(x) card and CPU part after 3 Adam steps")
+
+
+def step_split_ms(model, task, trainer, batch, runs: int = 3) -> dict:
+    """Median host milliseconds of a training step's forward + loss,
+    backward, and optimizer step with its selections, the card
+    synchronised between them (the step is bound by the host's dispatch,
+    so its wall is its cost); on a copy of the model."""
+    from pyannote_audio_tpu_torch.utils.runtime import exact_float32
+    model = copy.deepcopy(model)
+    params = list(model.parameters())
+    optimizer = trainer.make_optimizer(params)
+    batch = trainer.to_device(batch)
+    parts = {"forward": [], "backward": [], "optimizer": []}
+    for _ in range(runs + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        optimizer.zero_grad(set_to_none=True)
+        loss = task.loss(model, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with exact_float32():
+            loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        optimizer.step()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for key, value in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+            parts[key].append(value * 1e3)
+    return {k: statistics.median(v[1:]) for k, v in parts.items()}
+
+
+def check_training_run(device, protocol, workdir: Path) -> dict:
+    """(x) Trainer.fit at full width on the card, at its defaults (the
+    accelerator gates unset, the LSTM at "default"): 2 epochs of 10
+    steps, validation on the development file, checkpoints; then the
+    best checkpoint through Model.from_pretrained and resume_from."""
+    from pyannote_audio_tpu_torch.core.model import Model
+    from pyannote_audio_tpu_torch.train import Trainer
+    from pyannote_audio_tpu_torch.train.trainer import TRAIN_STATE
+    ckpt = workdir / "training"
+    task = training_task(protocol)
+    model = published_pyannet(seed=2)
+    trainer = Trainer(max_epochs=TRAIN_EPOCHS, limit_train_batches=TRAIN_STEPS,
+                      learning_rate=TRAIN_LR, checkpoint_dir=ckpt,
+                      device=device)
+    reset_lstm()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    trainer.fit(model, task)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    launches = lstm_launches()
+    val_chunks = len(task.prepare_validation())
+    val_batches = -(-val_chunks // 32)
+    expected = TRAIN_EPOCHS * (TRAIN_STEPS * 2 + val_batches * 2)
+    reset_lstm()
+    t0 = time.perf_counter()
+    record = trainer.validate(model, task)
+    torch.cuda.synchronize()
+    val_s = time.perf_counter() - t0
+    val_launches = lstm_launches()
+    # the fit's launches less its validations', over its steps
+    per_step = (launches - TRAIN_EPOCHS * val_launches) \
+        / (TRAIN_EPOCHS * TRAIN_STEPS)
+    split = step_split_ms(model, task, trainer,
+                          next(task.train_batches(epoch=0)))
+    timings = [t for t in trainer.step_timings if t[0] == TRAIN_EPOCHS - 1]
+    batch_s = statistics.median(t[1] for t in timings)
+    queue_s = statistics.median(t[2] for t in timings)
+    card_ms = statistics.median(t[3] for t in timings)
+    step_ms = statistics.median((t[1] + t[2]) * 1e3 for t in timings)
+    steps_per_s = 1e3 / max(step_ms, card_ms)
+    audio_h_per_h = steps_per_s * TRAIN_BATCH * task.duration
+    losses = [h["loss"] for h in trainer.history]
+    log(f"(x) Trainer.fit: {TRAIN_EPOCHS} epochs x {TRAIN_STEPS} steps of "
+        f"{TRAIN_BATCH} x 10 s in {fit_s:.1f} s; warm step (epoch "
+        f"{TRAIN_EPOCHS - 1}, median): host batch wait {batch_s * 1e3:.1f} "
+        f"ms + host queueing {queue_s * 1e3:.1f} ms, card {card_ms:.1f} ms; "
+        f"{steps_per_s:.3f} steps/s, {audio_h_per_h:.0f} audio-hours seen "
+        f"per hour; peak {peak / 2**30:.3f} GiB; loss per epoch {losses}; "
+        f"der/val {[h.get('der/val') for h in trainer.history]}; "
+        f"validation of {val_chunks} chunks {val_s:.2f} s")
+    total = sum(split.values())
+    log(f"(x) one step split, card synchronised between the parts: forward + "
+        f"loss {split['forward']:.1f} ms, backward {split['backward']:.1f} "
+        f"ms ({100 * split['backward'] / total:.1f} %), optimizer "
+        f"{split['optimizer']:.1f} ms")
+    log(f"(x) LSTM kernel launches: {launches} in the fit (expected "
+        f"{expected}: 2 per step and 2 per validation batch of "
+        f"{val_batches}), {val_launches} in one validation, so {per_step} "
+        f"per step")
+    if launches != expected or val_launches != 2 * val_batches \
+            or per_step != 2:
+        raise AssertionError("(x) LSTM launches are not 2 per forward")
+    if not all(np.isfinite(losses)) or not np.isfinite(record["der/val"]):
+        raise AssertionError(f"(x) non-finite training loss: {losses}")
+
+    # the best checkpoint against the module it was saved from (its
+    # epoch's train_state)
+    best = Model.from_pretrained(ckpt / "best").to(device)
+    state = torch.load(ckpt / f"epoch_{trainer.best_epoch}" / TRAIN_STATE,
+                       map_location=device, weights_only=True)
+    trained = copy.deepcopy(model)
+    trained.load_state_dict(state["model"])
+    x = torch.from_numpy(synth(10 / 60, seed=3)[None, None]).to(device)
+    with torch.inference_mode():
+        diff = (best(x) - trained(x)).abs().max().item()
+    log(f"(x) best checkpoint (epoch {trainer.best_epoch}) through "
+        f"Model.from_pretrained vs the trained module: log-probs "
+        f"max_abs {diff:.3e} (limit {CHECKPOINT_LOGP_ATOL})")
+    if diff > CHECKPOINT_LOGP_ATOL:
+        raise AssertionError("(x) the best checkpoint does not reload")
+
+    # resume from epoch 0 against the uninterrupted run
+    resumed_model = published_pyannet(seed=2)
+    resumed = Trainer(max_epochs=TRAIN_EPOCHS, limit_train_batches=TRAIN_STEPS,
+                      learning_rate=TRAIN_LR, device=device,
+                      checkpoint_dir=workdir / "training_resumed")
+    resumed.fit(resumed_model, training_task(protocol),
+                resume_from=ckpt / "epoch_0")
+    last = Path(f"epoch_{TRAIN_EPOCHS - 1}") / TRAIN_STATE
+    hold_resume(model, resumed_model, losses, resumed.history,
+                *(torch.load(path, map_location="cpu", weights_only=True)
+                  for path in (ckpt / "epoch_0" / TRAIN_STATE, ckpt / last,
+                               workdir / "training_resumed" / last)))
+    return {"fit_s": fit_s, "step_ms": step_ms, "card_ms": card_ms,
+            "split_ms": split,
+            "batch_ms": batch_s * 1e3, "peak_bytes": peak,
+            "launches_per_step": per_step,
+            "launches_per_validation": val_launches,
+            "launches": launches}
+
+
+def format_worst(worst: dict) -> str:
+    return ", ".join(f"{k} {v:.3e} ({n})" for k, (n, v) in worst.items())
+
+
+def hold_resume(model, resumed_model, losses, history, start, state,
+                resumed_state) -> None:
+    """(x) the run resumed from epoch 0 against the uninterrupted one:
+    parameters and their epoch-1 updates from ``start`` (epoch 0's
+    train_state), Adam's step counts and moments (each run's last
+    train_state) and the epoch-1 loss, within the RESUME_* bounds."""
+    names = [n for n, _ in model.named_parameters()]
+    ours = {n: p.detach().cpu() for n, p in resumed_model.named_parameters()}
+    theirs = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    most = 2 * TRAIN_LR * TRAIN_STEPS * (TRAIN_EPOCHS - 1)
+    worst_abs = max(float((ours[n] - theirs[n]).abs().max()) for n in names)
+    updates = update_errors(ours, theirs,
+                            {n: start["model"][n] for n in names})
+    adam, resumed_adam = (s["optimizer"]["state"]
+                          for s in (state, resumed_state))
+    steps_equal = set(adam) == set(resumed_adam) and all(
+        float(adam[i]["step"]) == float(resumed_adam[i]["step"])
+        for i in adam)
+    moments = {key: grad_rel_l2(
+        torch.cat([resumed_adam[i][key].ravel() for i in range(len(names))]),
+        torch.cat([adam[i][key].ravel() for i in range(len(names))]))
+        for key in RESUME_MOMENT_RTOL}
+    loss_err = abs(history[0]["loss"] - losses[1]) / abs(losses[1])
+    log(f"(x) resume_from epoch_0 vs uninterrupted: epochs run "
+        f"{[h['epoch'] for h in history]}; Adam step counts equal "
+        f"{steps_equal}; max_abs {worst_abs:.3e} (limit {most}: 2 * lr per "
+        f"step since the resume); epoch-1 update relative L2 by module, "
+        f"worst tensor {format_worst(updates)} (limit {RESUME_UPDATE_RTOL} "
+        f"outside sincnet); Adam moments relative L2 "
+        + ", ".join(f"{k} {v:.3e} (limit {RESUME_MOMENT_RTOL[k]})"
+                    for k, v in moments.items())
+        + f"; epoch-1 loss {history[0]['loss']} vs {losses[1]} (relative "
+        f"{loss_err:.2e}, limit {RESUME_LOSS_RTOL})")
+    if not ([h["epoch"] for h in history] == [1] and steps_equal
+            and worst_abs <= most
+            and all(v <= RESUME_UPDATE_RTOL for k, (_, v) in updates.items()
+                    if k != "sincnet")
+            and all(v <= RESUME_MOMENT_RTOL[k] for k, v in moments.items())
+            and loss_err <= RESUME_LOSS_RTOL):
+        raise AssertionError("(x) resume_from parts from the uninterrupted "
+                             "run")
+
+
+def phase_training(device, workdir: Path, card: str) -> dict:
+    """Phase 11: training (x) on the card."""
+    log(f"phase 11, training, on {card}")
+    protocol = write_training_protocol(workdir)
+    check_training_step(device, protocol)
+    return check_training_run(device, protocol, workdir)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run",
@@ -3182,6 +3801,7 @@ def main() -> int:
     card = phase_environment()
     phase_build()
     record = phase_kernels(device)
+    record["training_shape"] = check_kernel_autograd(device)
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         launches["exact"] = phase_exact(device, Path(tmp))
@@ -3195,6 +3815,12 @@ def main() -> int:
                                                    pipeline, config))
         launches.update(phase_embedders(device, Path(tmp), config, card))
         launches.update(phase_separation(device, Path(tmp), card))
+        training = phase_training(device, Path(tmp), card)
+        launches["training (x)"] = {
+            "per step": training["launches_per_step"],
+            "per validation": training["launches_per_validation"],
+            "fit": training["launches"]}
+        record["training"] = training
     log(f"lstm_recurrence launches per path: {launches}")
     record["launches"] = launches["accelerator"]
     record["launches_per_path"] = launches

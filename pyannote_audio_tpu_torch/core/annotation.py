@@ -253,6 +253,12 @@ class Annotation:
     def label_duration(self, label: Label) -> float:
         return self.label_timeline(label).duration()
 
+    def chart(self) -> List[Tuple[Label, float]]:
+        """(label, duration) by decreasing duration."""
+        return sorted(((lbl, self.label_duration(lbl))
+                       for lbl in self.labels()),
+                      key=lambda kv: kv[1], reverse=True)
+
     def get_timeline(self) -> Timeline:
         return Timeline(list(self._tracks), uri=self.uri)
 

@@ -10,7 +10,11 @@ specifications). The port's models are ``torch.nn.Module``s;
 diarization pipeline read, and ``Model.from_pretrained`` builds one of the
 ported architectures (PyanNet, SSeRiouSS, ToTaToNet, XVectorMFCC,
 XVectorSincNet, every WeSpeaker ResNet depth and the two debug models)
-from such a checkpoint.
+from such a checkpoint. For training (the JAX ``Model`` wrapper's
+training surface): ``Trainable`` freezes modules by name, as optimizer
+masks over parameter-name prefixes, and ``attach_specifications`` sets a
+task's specifications on a model, rebuilding its head where the output
+dimension changed and keeping every other weight.
 """
 
 from __future__ import annotations
@@ -120,7 +124,92 @@ def first_specifications(specs) -> Specifications:
     return specs[0] if isinstance(specs, tuple) else specs
 
 
-class FrameModel:
+class Trainable:
+    """Freezing by top-level module name, for ``nn.Module`` models.
+
+    Frozen names are recorded in ``frozen_modules``, which
+    ``Trainer.fit`` reads as prefixes: a frozen parameter stays in the
+    optimizer (its moments advance) and only its update is zeroed. A
+    prefix matches a whole component of a parameter's dotted name or a
+    leading run of components, so "lstm" never freezes "pre_lstm_proj".
+    """
+
+    @property
+    def frozen_modules(self) -> List[str]:
+        return self.__dict__.setdefault("_frozen_modules", [])
+
+    @frozen_modules.setter
+    def frozen_modules(self, names: List[str]) -> None:
+        self.__dict__["_frozen_modules"] = list(names)
+
+    def _top_level_modules(self) -> List[str]:
+        return [name for name, _ in self.named_children()]
+
+    def _checked(self, modules) -> List[str]:
+        names = [modules] if isinstance(modules, str) else list(modules)
+        missing = [n for n in names if n not in self._top_level_modules()]
+        if missing:
+            raise ValueError(
+                f"Could not find the following modules: {missing}.")
+        return names
+
+    def freeze_by_name(self, modules, recurse: bool = True) -> List[str]:
+        """Freeze top-level modules (with all their parameters)."""
+        names = self._checked(modules)
+        self.frozen_modules = self.frozen_modules + [
+            n for n in names if n not in self.frozen_modules]
+        return names
+
+    def unfreeze_by_name(self, modules, recurse: bool = True) -> List[str]:
+        names = self._checked(modules)
+        self.frozen_modules = [n for n in self.frozen_modules
+                               if n not in names]
+        return names
+
+    def freeze_up_to(self, module_name: str) -> List[str]:
+        """Freeze every top-level module up to and including
+        ``module_name``, in registration order."""
+        known = self._top_level_modules()
+        return self.freeze_by_name(
+            known[:known.index(self._checked(module_name)[0]) + 1])
+
+    def unfreeze_up_to(self, module_name: str) -> List[str]:
+        known = self._top_level_modules()
+        return self.unfreeze_by_name(
+            known[:known.index(self._checked(module_name)[0]) + 1])
+
+
+def is_frozen(name: str, prefixes) -> bool:
+    """Whether the parameter ``name`` (dotted) lies under one of
+    ``prefixes``: the name itself, a leading run of its components, or
+    any one component."""
+    parts = name.split(".")
+    return any(name == prefix or name.startswith(prefix + ".")
+               or prefix in parts for prefix in prefixes)
+
+
+def attach_specifications(model: nn.Module, specifications,
+                          generator: Optional[torch.Generator] = None
+                          ) -> nn.Module:
+    """Give ``model`` a task's ``specifications``; where its output
+    dimension changes, a new ``classifier`` (torch.nn.Linear's
+    U(-1/sqrt(in), 1/sqrt(in)) init from ``generator``, on the old one's
+    device) replaces the old one. Every other weight is kept."""
+    model.specifications = specifications
+    head = getattr(model, "classifier", None)
+    dimension = first_specifications(specifications).dimension
+    if isinstance(head, nn.Linear) and head.out_features != dimension:
+        new = nn.Linear(head.in_features, dimension)
+        bound = head.in_features ** -0.5
+        with torch.no_grad():
+            for p in (new.weight, new.bias):
+                p.copy_(torch.rand(p.shape, generator=generator) * 2 * bound
+                        - bound)
+        model.classifier = new.to(head.weight.device)
+    return model
+
+
+class FrameModel(Trainable):
     """Mixin for frame-resolution models: subclasses define
     ``receptive_field_size`` and ``receptive_field_center`` (in samples)
     and a ``sample_rate``. A multi-task model's outputs share these

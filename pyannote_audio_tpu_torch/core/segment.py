@@ -177,6 +177,32 @@ class SlidingWindowFeature:
                                             start=window[lo].start),
             labels=self.labels)
 
+    def crop_fixed(self, focus: Segment, fixed: float) -> np.ndarray:
+        """The data of the frames overlapping ``focus``, exactly as many
+        as ``fixed`` seconds give (the JAX package's ``crop(focus,
+        fixed=...)``): past the data the edge frames repeat, and a crop
+        wholly outside it is zeros."""
+        window = self.sliding_window
+        i0 = int(np.ceil((focus.start - window.duration - window.start)
+                         / window.step + SEGMENT_PRECISION))
+        length = max(int(np.floor((fixed + window.duration) / window.step)),
+                     0)
+        n = len(self.data)
+        lo = min(max(i0, 0), n)
+        hi = min(max(i0 + length, lo), n)
+        pad_before = min(length, max(0, -i0))
+        pad_after = length - pad_before - (hi - lo)
+        chunk = self.data[lo:hi]
+        if pad_before > 0 or pad_after > 0:
+            if len(chunk):
+                chunk = np.pad(chunk, [(pad_before, pad_after)]
+                               + [(0, 0)] * (self.data.ndim - 1),
+                               mode="edge")
+            else:
+                chunk = np.zeros((length,) + self.data.shape[1:],
+                                 dtype=self.data.dtype)
+        return chunk
+
     def __repr__(self) -> str:
         return (f"<SlidingWindowFeature shape={tuple(self.data.shape)} "
                 f"window={self.sliding_window!r}>")

@@ -3,13 +3,17 @@
 Counterpart of pyannote_audio_tpu/models/blocks/rnn.py. Parameters carry
 torch.nn.LSTM's names and layout (``weight_ih_l{i}[_reverse]``, ...), so
 reference checkpoints load verbatim. Each layer hoists both directions'
-input projections into one matmul, then runs
-``ops.lstm_kernel.lstm_bidirectional_recurrence``: one kernel launch per
-layer for CUDA tensors, the plain PyTorch recurrence for CPU tensors. The
-recurrent product runs at ``utils.runtime.lstm_precision`` (the JAX
-package's PYANNOTE_TPU_LSTM_PRECISION on a CUDA device, float32 on the
-CPU). The kernel takes any hidden size up to 256 (the JAX module's
-``H % 128`` gate is a TPU lane rule); the CPU path takes any.
+input projections into one matmul, then runs the recurrence through
+``ops.lstm_kernel.LSTMRecurrence``. Its forward is
+``lstm_bidirectional_recurrence``: one kernel launch per layer for CUDA
+tensors, the plain PyTorch recurrence for CPU tensors. Its gradient,
+where autograd records, is the plain float32 recurrence's; under
+``no_grad`` / ``inference_mode`` it records nothing, so serving launches
+and computes what the bare call does. The recurrent product runs at
+``utils.runtime.lstm_precision`` (the JAX package's
+PYANNOTE_TPU_LSTM_PRECISION on a CUDA device, float32 on the CPU). The
+kernel takes any hidden size up to 256 (the JAX module's ``H % 128`` gate
+is a TPU lane rule); the CPU path takes any.
 """
 
 from __future__ import annotations
@@ -19,13 +23,12 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ...ops.lstm_kernel import (lstm_bidirectional_recurrence,
-                                prepare_recurrent_weights)
+from ...ops.lstm_kernel import LSTMRecurrence, prepare_recurrent_weights
 from ...utils.runtime import exact_float32, lstm_precision
 
 
 class LSTM(nn.Module):
-    """(B, T, D) -> (B, T, H * num_directions), batch first, inference."""
+    """(B, T, D) -> (B, T, H * num_directions), batch first; trainable."""
 
     def __init__(self, input_size: int, hidden_size: int = 128,
                  num_layers: int = 2, bidirectional: bool = True,
@@ -83,17 +86,21 @@ class LSTM(nn.Module):
                 if x.device.type == "cuda":
                     prepared = self._prepared_weights(i, names, w_hh,
                                                       precision)
-                h = lstm_bidirectional_recurrence(xw.contiguous(), w_hh,
-                                                  precision, prepared)
+                h = LSTMRecurrence.apply(xw.contiguous(), w_hh, precision,
+                                         prepared)
         return h.transpose(0, 1)
 
     def _prepared_weights(self, layer, names, w_hh, precision):
         """Layer ``layer``'s W_hh packed for the kernel, cached on the
-        parameters' versions and device and on the precision."""
-        key = (tuple(getattr(self, f"weight_hh_{n}")._version
+        parameters' versions and device and on the precision; packed from
+        ``w_hh.detach()``, outside the graph (an optimizer's in-place
+        step bumps the versions, so each training step packs afresh)."""
+        key = (tuple((getattr(self, f"weight_hh_{n}")._version,
+                      getattr(self, f"weight_hh_{n}").data_ptr())
                      for n in names), w_hh.device, precision)
         cached = self._prepared.get(layer)
         if cached is None or cached[0] != key:
-            cached = (key, prepare_recurrent_weights(w_hh, precision))
+            cached = (key, prepare_recurrent_weights(w_hh.detach(),
+                                                     precision))
             self._prepared[layer] = cached
         return cached[1]

@@ -63,7 +63,8 @@ def sinc_filters(low_hz: torch.Tensor, band_hz: torch.Tensor,
                  kernel_size: int, sample_rate: int,
                  min_low_hz: float = 50.0,
                  min_band_hz: float = 50.0) -> torch.Tensor:
-    """(n_filters,) parameters -> (n_filters, 1, kernel_size) conv weights.
+    """(n_filters,) parameters -> (n_filters, 1, kernel_size) conv weights,
+    in the parameters' dtype.
 
     band_pass(t) = (sin(2 pi f_hi t) - sin(2 pi f_lo t)) / (pi t),
     Hamming-windowed and normalized per filter.
@@ -73,12 +74,11 @@ def sinc_filters(low_hz: torch.Tensor, band_hz: torch.Tensor,
                        sample_rate / 2)
     band = high - low
     half = (kernel_size - 1) // 2
-    device = low_hz.device
-    t = torch.arange(-half, 0, dtype=torch.float32, device=device)
+    like = dict(dtype=low_hz.dtype, device=low_hz.device)
+    t = torch.arange(-half, 0, **like)
     n_ = 2.0 * math.pi * t / sample_rate
     window = 0.54 - 0.46 * torch.cos(
-        2.0 * math.pi * torch.arange(half, dtype=torch.float32,
-                                     device=device) / (kernel_size - 1))
+        2.0 * math.pi * torch.arange(half, **like) / (kernel_size - 1))
     left = ((torch.sin(high[:, None] * n_) - torch.sin(low[:, None] * n_))
             / (n_ / 2.0)) * window
     filters = torch.cat([left, 2.0 * band[:, None], left.flip(1)], dim=1)
@@ -106,7 +106,8 @@ class SincConv(nn.Module):
         self.filterbank = _ParamSincFB(n_filters, sample_rate)
 
     def kernels(self) -> torch.Tensor:
-        """Materialized (n_filters, 1, taps) filterbank, float32."""
+        """Materialized (n_filters, 1, taps) filterbank, in the
+        parameters' dtype (float32)."""
         return sinc_filters(self.filterbank.low_hz_[:, 0],
                             self.filterbank.band_hz_[:, 0],
                             SINC_KERNEL_SIZE, self.sample_rate)
@@ -120,7 +121,7 @@ class SincConv(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        return self.raw_conv(x, dtype).float()
+        return self.raw_conv(x, dtype).to(x.dtype)
 
 
 class SincNet(nn.Module):
@@ -145,13 +146,15 @@ class SincNet(nn.Module):
                             * 2 * bound - bound)
 
     @staticmethod
-    def compute_dtype(device: torch.device) -> torch.dtype:
-        """bf16 where the PYANNOTE_TPU_SEG_BF16 gate is on for ``device``."""
-        return torch.bfloat16 if device_flag("PYANNOTE_TPU_SEG_BF16", device) \
-            else torch.float32
+    def compute_dtype(x: torch.Tensor) -> torch.dtype:
+        """bf16 where the PYANNOTE_TPU_SEG_BF16 gate is on for ``x``'s
+        device, else ``x``'s dtype (float32; float64 for a model in
+        float64)."""
+        return torch.bfloat16 if device_flag("PYANNOTE_TPU_SEG_BF16",
+                                             x.device) else x.dtype
 
     def forward(self, waveforms: torch.Tensor) -> torch.Tensor:
-        dtype = self.compute_dtype(waveforms.device)
+        dtype = self.compute_dtype(waveforms)
         with exact_float32_if(dtype):
             x = self.wav_norm1d(waveforms)
             return self.post_conv(self.conv1d[0](x, dtype), dtype)
@@ -159,7 +162,7 @@ class SincNet(nn.Module):
     def post_conv(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """Everything after the sinc conv: abs + 3 x (pool, norm, leaky
         relu) with the two k=5 convs in ``dtype``; (B, 80, T) float32 ->
-        (B, frames, 60)."""
+        (B, frames, 60) in the input's dtype."""
         x = x.abs()
         for i in range(3):
             if i > 0:
@@ -167,7 +170,7 @@ class SincNet(nn.Module):
                 # conv, then the bias added in ``dtype``: two roundings in
                 # bf16, as flax's nn.Conv(dtype=bf16) does them
                 x = (F.conv1d(x.to(dtype), conv.weight.to(dtype))
-                     + conv.bias.to(dtype)[:, None]).float()
+                     + conv.bias.to(dtype)[:, None]).to(x.dtype)
             x = F.leaky_relu(self.norm1d[i](F.max_pool1d(x, 3, 3)), 0.01)
         return x.transpose(1, 2)
 
@@ -187,7 +190,7 @@ class SincNet(nn.Module):
         """Sinc conv of the raw (un-normalized) waveform: (B, 1, T) ->
         (B, 80, F_all), kept in the compute dtype (bf16 halves the
         whole-file buffer)."""
-        dtype = self.compute_dtype(waveform.device)
+        dtype = self.compute_dtype(waveform)
         with exact_float32_if(dtype):
             return self.conv1d[0].raw_conv(waveform, dtype)
 
@@ -202,9 +205,9 @@ class SincNet(nn.Module):
         k1 = self.conv1d[0].kernels()[:, 0].sum(dim=-1)        # (80,)
         inv = norm.weight[0] / torch.sqrt(var + norm.eps)      # (B,)
         shift = norm.bias[0] - mean * inv
-        x = frames.float() * inv[:, None, None] \
+        x = frames.to(inv.dtype) * inv[:, None, None] \
             + shift[:, None, None] * k1[None, :, None]
-        dtype = self.compute_dtype(frames.device)
+        dtype = self.compute_dtype(x)
         with exact_float32_if(dtype):
             return self.post_conv(x, dtype)
 

@@ -11,6 +11,12 @@ The kernel keeps W_hh on chip for all T steps, laid out by
 ``prepare_recurrent_weights`` (plain torch, testable on the CPU): gate
 rows permuted and cut among the CTAs of a cluster, and for the bf16
 modes ordered as ``mma.sync`` A fragments.
+
+``LSTMRecurrence`` makes the recurrence trainable as the JAX package's
+``custom_vjp`` wrappers do (``pallas_lstm.py:212-257``): its forward is
+the kernel (the plain version on the CPU), its backward the gradient of
+the plain float32 recurrence recomputed from the saved inputs. There is
+no backward kernel, as there is no backward Pallas kernel.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..utils.runtime import LSTM_PRECISIONS, lstm_precision
+from ..utils.runtime import LSTM_PRECISIONS, exact_float32, lstm_precision
 from .lstm import lstm_bidirectional_recurrence_plain, split_bf16
 
 MAX_HIDDEN = 256          # the csrc kernel's kMaxHidden
@@ -188,3 +194,36 @@ def lstm_bidirectional_recurrence(
 
 
 lstm_bidirectional_recurrence.launches = 0
+
+
+class LSTMRecurrence(torch.autograd.Function):
+    """``lstm_bidirectional_recurrence`` with a gradient.
+
+    ``LSTMRecurrence.apply(xw, w_hh, precision, prepared)``: the forward
+    is ``lstm_bidirectional_recurrence`` (one counted kernel launch on a
+    CUDA device, the plain version on the CPU) at ``precision``; xw must
+    be contiguous and is saved for the backward as it is, with w_hh. The
+    backward recomputes ``lstm_bidirectional_recurrence_plain(xw, w_hh,
+    "highest")`` under autograd and returns its vector-Jacobian product,
+    with TF32 off, whatever the forward's precision: the JAX package's
+    scan VJP at ``Precision.HIGHEST``. It launches no kernel of its own.
+    """
+
+    @staticmethod
+    def forward(ctx, xw, w_hh, precision=None, prepared=None):
+        ctx.save_for_backward(xw, w_hh)
+        return lstm_bidirectional_recurrence(xw, w_hh, precision, prepared)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        xw, w_hh = ctx.saved_tensors
+        wanted = ctx.needs_input_grad[:2]
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip((xw, w_hh), wanted)]
+        with torch.enable_grad(), exact_float32():
+            out = lstm_bidirectional_recurrence_plain(*inputs, "highest")
+            grads = iter(torch.autograd.grad(
+                out, [t for t in inputs if t.requires_grad], grad_out))
+        return tuple(next(grads) if need else None
+                     for need in wanted) + (None, None)

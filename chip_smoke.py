@@ -17,7 +17,8 @@ Phases, each fatal on failure:
      timed on its own; and LSTMRecurrence (the kernel forward, the plain
      float32 backward) against the all-plain autograd at the training
      shape (589 x 32) and a ragged one, with the forward, the backward per
-     layer and cuDNN's layer forward + backward timed;
+     layer and cuDNN's layer forward + backward timed, and the same at the
+     DPRNN's shapes of (w) and (z), with the backward's bound;
   4. the exact path (the accelerator gates PYANNOTE_TPU_SEG_BF16,
      _SHARED_SINC and _SHARED_TRUNK forced to "0", a float32 trunk,
      PYANNOTE_TPU_LSTM_PRECISION=highest):
@@ -108,6 +109,20 @@ Phases, each fatal on failure:
      memory, losses, der/val, the best checkpoint reloaded through
      Model.from_pretrained and resume_from epoch 0 (parameters, their
      epoch-1 updates, Adam's step counts and moments, the epoch-1 loss).
+ 12. training speaker embeddings and separation: (y) ArcFace at its
+     defaults (8 speakers x 4 chunks of 2-5 s) with full-width WeSpeaker
+     ResNet34 on (x)'s speakers: one step card against CPU on the exact
+     path (loss, every gradient and the prototypes', BatchNorm's and the
+     first stage's within a stated bound with a float64 witness, running
+     statistics unchanged), Trainer.fit (2 epochs x 5 steps: warm step,
+     split, peak, losses, no LSTM launch), the best checkpoint through
+     Model.from_pretrained and PretrainedSpeakerEmbedding, and
+     speaker_verification.main on seeded trials (EER); (z) PixIT at its
+     defaults with ToTaToNet and the WavLM-large branch: one step on 2
+     chunks card against CPU ("highest"), the kernel path against the
+     all-plain one, pixit_optimizer's two rates after one step, then
+     Trainer.fit with validation in batches of 16 (2 epochs x 3 steps:
+     MoM share, LSTM launches exact, warm step, split, peak, der/val).
 
 The line before the last is a JSON object describing each kernel (its
 ``launches`` is the accelerator path's; ``launches_per_path`` has every
@@ -3202,6 +3217,17 @@ def phase_separation(device, workdir: Path, card: str) -> dict:
 # inputs
 TRAIN_SHAPES = (("B=32 layer 0", 589, 32, 60), ("B=32 layer 1", 589, 32, 256),
                 ("B=7 layer 0", 589, 7, 60))
+# PixIT's (z): the DPRNN's intra-chunk (T = chunk size, B = chunks x 102
+# folds) and inter-chunk (T = 102 folds, B = chunks x 100 frames) BiLSTMs
+# at a batch of 32 five-second chunks and at 31 (phase 10's shapes), and at
+# (z)'s training batch of 16, each held and timed under autograd as the
+# training shape
+DPRNN_TRAIN_SHAPES = (("DPRNN intra", 100, 3264, 128),
+                      ("DPRNN inter", 102, 3200, 128),
+                      ("DPRNN intra tail", 100, 3162, 128),
+                      ("DPRNN inter tail", 102, 3100, 128),
+                      ("DPRNN intra B=16", 100, 1632, 128),
+                      ("DPRNN inter B=16", 102, 1600, 128))
 AUTOGRAD_GRAD_RTOL = {"highest": 1e-4, "default": 1e-2}
 # (x) one step card against CPU on the exact path: the loss within 1e-5
 # relative (float32 sums in another order), each gradient within 1e-3
@@ -3275,20 +3301,91 @@ def update_errors(ours: dict, theirs: dict, start: dict) -> dict:
     return worst
 
 
-def check_kernel_autograd(device: torch.device) -> dict:
-    """LSTMRecurrence against the all-plain autograd on the card, with the
-    times of the training shape: kernel forward, the Function's backward
-    per layer, the plain forward, cuDNN's float32 layer forward + backward,
-    and the kernel's bound."""
+def lstm_backward_bound(T, B, H, D) -> dict:
+    """Least time of ``LSTMRecurrence``'s backward on an H100 SXM at 700 W:
+    the float32 recurrence recomputed (its recurrent product,
+    2*T*B*D*4H*H) and its vector-Jacobian product (the products for the
+    hidden state's and W_hh's gradients, twice that) at 67 TFLOP/s
+    float32 outside the tensor cores (TF32 off), against bytes (xw and the
+    output's gradient read, xw's gradient written, W_hh read and its
+    gradient written, once each) over 3.35 TB/s."""
+    moved = 4 * (2 * T * B * D * 4 * H + T * B * D * H + 2 * D * 4 * H * H)
+    flops = 3 * 2 * T * B * D * 4 * H * H
+    bytes_ms, ops_ms = moved / 3.35e12 * 1e3, flops / 67e12 * 1e3
+    return {"backward_bound_ms": max(bytes_ms, ops_ms),
+            "backward_bound_by": "bytes" if bytes_ms >= ops_ms
+            else "operations"}
+
+
+def autograd_timings(device, T, B, D_in) -> dict:
+    """One BiLSTM layer (H = 128) under autograd, CUDA events: the kernel
+    forward ("default", median of 20) and its bound, the Function's
+    backward per layer (median of 3) and its bound, the plain forward
+    ("default", median of 3), cuDNN's float32 layer forward + backward
+    (median of 10)."""
     from pyannote_audio_tpu_torch.ops.lstm import \
         lstm_bidirectional_recurrence_plain
     from pyannote_audio_tpu_torch.ops.lstm_kernel import (
         LSTMRecurrence, lstm_bidirectional_recurrence,
         prepare_recurrent_weights)
+    from pyannote_audio_tpu_torch.utils.runtime import exact_float32
+    H, D = 128, 2
+    xw, w_hh, (x, w_ih, b) = layer_inputs(device, T, B, D_in, H, D)
+    prepared = prepare_recurrent_weights(w_hh, "default")
+    grad = torch.randn(T, B, D * H, device=device)
+    kernel_ms = cuda_ms(lambda: lstm_bidirectional_recurrence(
+        xw, w_hh, "default", prepared), runs=20)
+    plain_ms = cuda_ms(lambda: lstm_bidirectional_recurrence_plain(
+        xw, w_hh, "default"), runs=3, warmup=1)
+    a = xw.detach().clone().requires_grad_()
+    w = w_hh.detach().clone().requires_grad_()
+    out = LSTMRecurrence.apply(a, w, "default", prepared)
+    backward_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, (a, w), grad, retain_graph=True), runs=3, warmup=1)
+    del out, a, w
+    packed = prepared.packed
+    bound = lstm_bound(T, B, H, D, "default",
+                       packed.numel() * packed.element_size())
+    lstm = torch.nn.LSTM(D_in, H, bidirectional=True).to(device)
+    lstm.flatten_parameters()
+    xin = x.detach().clone().requires_grad_()
+    g2 = torch.randn(T, B, D * H, device=device)
+
+    def cudnn_step():
+        y, _ = lstm(xin)
+        y.backward(g2)
+
+    with exact_float32():
+        cudnn_ms = cuda_ms(cudnn_step, runs=10)
+    return {"T": T, "B": B, "D_in": D_in, "ms": kernel_ms,
+            "plain_ms": plain_ms, "backward_ms": backward_ms,
+            "library_fwd_bwd_ms": cudnn_ms, **bound,
+            **lstm_backward_bound(T, B, H, D)}
+
+
+def log_autograd_timings(name: str, row: dict) -> None:
+    log(f"{name} ({row['T']}, {row['B']}, {4 * 2 * 128}) -> ({row['T']}, "
+        f"{row['B']}, 256), D_in {row['D_in']}: kernel forward "
+        f"{row['ms']:.3f} ms (bound {row['bound_ms']:.4f} ms, "
+        f"{row['bound_by']}), the Function's backward "
+        f"{row['backward_ms']:.1f} ms per layer (bound "
+        f"{row['backward_bound_ms']:.4f} ms, {row['backward_bound_by']}; "
+        f"the plain float32 recurrence's autograd), plain forward "
+        f"{row['plain_ms']:.1f} ms; cuDNN torch.nn.LSTM float32 forward + "
+        f"backward {row['library_fwd_bwd_ms']:.3f} ms per layer")
+
+
+def check_kernel_autograd(device: torch.device) -> dict:
+    """LSTMRecurrence against the all-plain autograd on the card at the
+    segmentation training shapes and the DPRNN's, with the times of the
+    training shape and of each DPRNN shape (``autograd_timings``)."""
+    from pyannote_audio_tpu_torch.ops.lstm import \
+        lstm_bidirectional_recurrence_plain
+    from pyannote_audio_tpu_torch.ops.lstm_kernel import LSTMRecurrence
     H, D = 128, 2
     worst = {p: {"forward": 0.0, "xw": 0.0, "w_hh": 0.0}
              for p in AUTOGRAD_GRAD_RTOL}
-    for name, T, B, D_in in TRAIN_SHAPES:
+    for name, T, B, D_in in TRAIN_SHAPES + DPRNN_TRAIN_SHAPES:
         xw, w_hh, _ = layer_inputs(device, T, B, D_in, H, D, seed=B)
         grad = torch.randn(T, B, D * H, device=device,
                            generator=torch.Generator(device).manual_seed(B))
@@ -3302,6 +3399,7 @@ def check_kernel_autograd(device: torch.device) -> dict:
                 out = fn(a, b)
                 out.backward(grad)
                 runs.append((out.detach(), a.grad, b.grad))
+                del out
             torch.cuda.synchronize()
             (out, gx, gw), (ref, rx, rw) = runs
             errs = {"forward": (out - ref).abs().max().item(),
@@ -3318,43 +3416,18 @@ def check_kernel_autograd(device: torch.device) -> dict:
                 raise AssertionError(
                     f"LSTMRecurrence ({precision}) disagrees with the plain "
                     f"autograd at {name}: {errs}")
+            del runs, out, gx, gw, ref, rx, rw
+        del xw, w_hh, grad
+        torch.cuda.empty_cache()
 
-    T, B, D_in = 589, TRAIN_BATCH, 256
-    xw, w_hh, (x, w_ih, b) = layer_inputs(device, T, B, D_in, H, D)
-    prepared = prepare_recurrent_weights(w_hh, "default")
-    grad = torch.randn(T, B, D * H, device=device)
-    kernel_ms = cuda_ms(lambda: lstm_bidirectional_recurrence(
-        xw, w_hh, "default", prepared), runs=20)
-    plain_ms = cuda_ms(lambda: lstm_bidirectional_recurrence_plain(
-        xw, w_hh, "default"), runs=3, warmup=1)
-    a = xw.detach().clone().requires_grad_()
-    w = w_hh.detach().clone().requires_grad_()
-    out = LSTMRecurrence.apply(a, w, "default", prepared)
-    backward_ms = cuda_ms(lambda: torch.autograd.grad(
-        out, (a, w), grad, retain_graph=True), runs=3, warmup=1)
-    packed = prepared.packed
-    bound = lstm_bound(T, B, H, D, "default",
-                       packed.numel() * packed.element_size())
-    lstm = torch.nn.LSTM(D_in, H, bidirectional=True).to(device)
-    lstm.flatten_parameters()
-    xin = x.detach().clone().requires_grad_()
-    g2 = torch.randn(T, B, D * H, device=device)
-
-    def cudnn_step():
-        y, _ = lstm(xin)
-        y.backward(g2)
-
-    from pyannote_audio_tpu_torch.utils.runtime import exact_float32
-    with exact_float32():
-        cudnn_ms = cuda_ms(cudnn_step, runs=10)
-    log(f"training shape (589, 32, 1024) -> (589, 32, 256): kernel forward "
-        f"{kernel_ms:.3f} ms (bound {bound['bound_ms']:.4f} ms, "
-        f"{bound['bound_by']}), the Function's backward {backward_ms:.1f} ms "
-        f"per layer (the plain float32 recurrence's autograd), plain "
-        f"forward {plain_ms:.1f} ms; cuDNN torch.nn.LSTM float32 forward + "
-        f"backward {cudnn_ms:.3f} ms per layer")
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "backward_ms": backward_ms,
-            "library_fwd_bwd_ms": cudnn_ms, **bound,
+    row = autograd_timings(device, 589, TRAIN_BATCH, 256)
+    log_autograd_timings("training shape", row)
+    dprnn = {}
+    for name, T, B, D_in in DPRNN_TRAIN_SHAPES:
+        dprnn[name] = autograd_timings(device, T, B, D_in)
+        log_autograd_timings(name, dprnn[name])
+        torch.cuda.empty_cache()
+    return {**row, "dprnn": dprnn,
             "max_abs_err": {p: v["forward"] for p, v in worst.items()},
             "grad_rel_l2": {p: max(v["xw"], v["w_hh"])
                             for p, v in worst.items()}}
@@ -3608,10 +3681,12 @@ def step_split_ms(model, task, trainer, batch, runs: int = 3) -> dict:
     backward, and optimizer step with its selections, the card
     synchronised between them (the step is bound by the host's dispatch,
     so its wall is its cost); on a copy of the model."""
+    from pyannote_audio_tpu_torch.train.trainer import train_mode
     from pyannote_audio_tpu_torch.utils.runtime import exact_float32
     model = copy.deepcopy(model)
-    params = list(model.parameters())
-    optimizer = trainer.make_optimizer(params)
+    train_mode(model)
+    names, params = zip(*model.named_parameters())
+    optimizer = trainer.make_optimizer(list(params), list(names))
     batch = trainer.to_device(batch)
     parts = {"forward": [], "backward": [], "optimizer": []}
     for _ in range(runs + 1):
@@ -3784,12 +3859,547 @@ def hold_resume(model, resumed_model, losses, history, start, state,
                              "run")
 
 
-def phase_training(device, workdir: Path, card: str) -> dict:
+def phase_training(device, workdir: Path, card: str, protocol) -> dict:
     """Phase 11: training (x) on the card."""
     log(f"phase 11, training, on {card}")
-    protocol = write_training_protocol(workdir)
     check_training_step(device, protocol)
     return check_training_run(device, protocol, workdir)
+
+
+# -- phase 12: training speaker embeddings (y) and PixIT (z) ----------------
+
+# (y) ArcFace at its defaults (2-5 s chunks on a 0.25 s grid, 8 speakers x
+# 4 chunks, margin 28.6, scale 64, Adam 1e-3) on the speakers of (x)'s
+# protocol, with WeSpeaker ResNet34 at published width. One step card
+# against CPU on the exact path (float32 trunk, TF32 off): the loss within
+# TRAIN_LOSS_RTOL, every gradient (the prototypes' included) within
+# TRAIN_GRAD_RTOL relative L2 against the larger of its own norm and 1e-6
+# of the whole gradient's, as (x) outside SincNet, except BatchNorm's
+# affine gradients and the stem's and first stage's conv weights: each is
+# a sum over a whole batch of the largest feature maps (up to 1.2e6 terms
+# per channel) that cancels, and the first card runs measured up to
+# 3.7e-3 (BatchNorm) and 7.5e-4 (a first-stage conv) between card and CPU
+# in float32. They are held within ARC_BN_GRAD_RTOL in float32, and the
+# cause is settled in float64: the
+# trunk, pooling, seg_1 and the loss from the same fbank on ARC_F64_CHUNKS
+# chunks, card against CPU, every gradient within SINC_F64_GRAD_RTOL.
+# BatchNorm's running statistics unchanged by a step on both. Then Trainer.fit at the model's
+# defaults (bf16 trunk): ARC_EPOCHS x ARC_STEPS, the best checkpoint
+# through Model.from_pretrained and PretrainedSpeakerEmbedding within
+# ARC_EMBEDDING_ATOL of the trained module (the same network on the same
+# card), then speaker_verification.main on seeded trials
+ARC_BN_GRAD_RTOL = 1e-2
+ARC_F64_CHUNKS = 8
+ARC_EPOCHS, ARC_STEPS = 2, 5
+ARC_EMBEDDING_ATOL = 1e-6
+ARC_TRIAL_SPEAKERS, ARC_TRIAL_FILES, ARC_TRIAL_SECONDS = 4, 3, 3.0
+# (z) PixIT at its defaults (5 s chunks, 3 speakers per chunk, separation
+# weight 0.5, pixit_optimizer(1e-3, 1e-5, 5.0)) with ToTaToNet at its
+# defaults and the WAVLM_LARGE branch trained (not frozen). PIXIT_BATCH is
+# the training batch (see PERF.md for why it is not 32). One step on 2
+# chunks card against CPU with the LSTM at "highest": loss within
+# TRAIN_LOSS_RTOL, gradients within TRAIN_GRAD_RTOL relative L2 as (y).
+# Batches of 32 do not fit: the first card run's step at 16 peaked at
+# 56.7 GiB and one at 32 ran out of the card's 80 GB at 76.5 GiB.
+# After one Adam step each group's median move over the elements with a
+# gradient lies within PIXIT_MOVE_RTOL of its learning rate (Adam's first
+# step moves an element by lr * g / (|g| + eps)). Then Trainer.fit,
+# PIXIT_EPOCHS x PIXIT_STEPS with validation on (x)'s development file;
+# LSTM launches exact: a forward launches 2 per DPRNN repeat (intra- and
+# inter-chunk), 12 at the defaults; a step runs two (the chunks' and the
+# MoMs'), so 24, and a validation two per batch of at most 32 (the eval
+# forward and the within-batch MoM's)
+PIXIT_BATCH = 16
+PIXIT_CPU_CHUNKS = 2
+PIXIT_EPOCHS, PIXIT_STEPS = 2, 3
+PIXIT_LR, PIXIT_WAVLM_LR, PIXIT_CLIP = 1e-3, 1e-5, 5.0
+PIXIT_MOVE_RTOL = 0.1
+PIXIT_MIN_MOM_SHARE = 0.5
+
+
+def grads_of(model, task, params, batch):
+    """(loss, {name: gradient}) of one forward and backward of ``task``'s
+    loss on a device batch, with BatchNorm in its training mode; ``params``
+    are the named parameters to read (the task's included)."""
+    from pyannote_audio_tpu_torch.train.trainer import train_mode
+    from pyannote_audio_tpu_torch.utils.runtime import exact_float32
+    train_mode(model)
+    for _, p in params:
+        p.grad = None
+    loss = task.loss(model, batch)
+    with exact_float32():
+        loss.backward()
+    return float(loss.detach()), {n: p.grad.detach().clone()
+                                  for n, p in params if p.grad is not None}
+
+
+def hold_gradients(label: str, card, cpu, extra: str = "",
+                   loose=frozenset(), loose_limit: float = None) -> dict:
+    """Card against CPU: (loss, grads) pairs within TRAIN_LOSS_RTOL and
+    TRAIN_GRAD_RTOL (the gradients named in ``loose`` within
+    ``loose_limit``); returns the errors."""
+    (card_loss, card_grads), (cpu_loss, cpu_grads) = card, cpu
+    loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    floor = 1e-6 * float(torch.sqrt(sum(g.double().square().sum()
+                                        for g in cpu_grads.values())))
+    errs = {n: grad_rel_l2(card_grads[n], cpu_grads[n], floor)
+            for n in cpu_grads}
+    rest = [n for n in errs if n not in loose]
+    worst = max(rest, key=errs.get)
+    extra = (f"; {len(loose)} BatchNorm affine and first-stage gradients worst "
+             f"{max(errs[n] for n in loose):.3e} at "
+             f"{max(loose, key=errs.get)} (limit {loose_limit})"
+             if loose else "") + extra
+    log(f"{label}: loss card {card_loss:.7f} CPU {cpu_loss:.7f} (relative "
+        f"{loss_err:.2e}, limit {TRAIN_LOSS_RTOL}); gradient relative L2 "
+        f"worst {errs[worst]:.3e} at {worst} (limit {TRAIN_GRAD_RTOL}) over "
+        f"{len(rest)} tensors{extra}")
+    if set(card_grads) != set(cpu_grads) or not (
+            loss_err <= TRAIN_LOSS_RTOL and errs[worst] <= TRAIN_GRAD_RTOL
+            and all(errs[n] <= loose_limit for n in loose)):
+        raise AssertionError(f"{label}: card and CPU part: {loss_err}, "
+                             f"{sorted(errs.items(), key=lambda kv: -kv[1])[:5]}")
+    return errs
+
+
+def task_params(task, model, device, seed: int) -> list:
+    """The task's trainable state (ArcFace's prototypes) from a seed, on
+    ``device``, set as ``task.trainable_params``; its named pairs."""
+    generator = torch.Generator().manual_seed(seed)
+    task.trainable_params = {
+        name: torch.nn.Parameter(p.to(device))
+        for name, p in task.augment_params(model, generator).items()}
+    return [(f"task.{n}", p) for n, p in task.trainable_params.items()]
+
+
+def warm_step_report(label: str, trainer, epochs: int, batch: int,
+                     seconds: float) -> dict:
+    """Median warm step (the last epoch's) from ``trainer.step_timings``:
+    host batch wait, host queueing, card ms; steps/s and audio-hours seen
+    per hour."""
+    timings = [t for t in trainer.step_timings if t[0] == epochs - 1]
+    batch_ms = statistics.median(t[1] for t in timings) * 1e3
+    queue_ms = statistics.median(t[2] for t in timings) * 1e3
+    card_ms = statistics.median(t[3] for t in timings)
+    steps_per_s = 1e3 / max(batch_ms + queue_ms, card_ms)
+    log(f"{label} warm step (epoch {epochs - 1}, median): host batch wait "
+        f"{batch_ms:.1f} ms + host queueing {queue_ms:.1f} ms, card "
+        f"{card_ms:.1f} ms; {steps_per_s:.3f} steps/s, "
+        f"{steps_per_s * batch * seconds:.0f} audio-hours seen per hour")
+    return {"batch_ms": batch_ms, "queue_ms": queue_ms, "card_ms": card_ms,
+            "steps_per_s": steps_per_s}
+
+
+def log_split(label: str, split: dict) -> None:
+    total = sum(split.values())
+    log(f"{label} one step split, card synchronised between the parts: "
+        f"forward + loss {split['forward']:.1f} ms, backward "
+        f"{split['backward']:.1f} ms ({100 * split['backward'] / total:.1f} "
+        f"%), optimizer {split['optimizer']:.1f} ms")
+
+
+def arcface_task(protocol, **kwargs):
+    from pyannote_audio_tpu_torch.tasks import \
+        SupervisedRepresentationLearningWithArcFace
+    options = dict(num_workers=2, seed=0)
+    options.update(kwargs)
+    return SupervisedRepresentationLearningWithArcFace(protocol, **options)
+
+
+def published_resnet34(seed: int, **kwargs):
+    from pyannote_audio_tpu_torch.models.embedding import WeSpeakerResNet34
+    return WeSpeakerResNet34(generator=torch.Generator().manual_seed(seed),
+                             **kwargs)
+
+
+def running_stats(model) -> dict:
+    return {n: b.detach().cpu().clone() for n, b in model.named_buffers()
+            if "running_" in n}
+
+
+def check_arcface_step(device, protocol) -> None:
+    """(y) one ArcFace step of full-width ResNet34, card against CPU on
+    the exact path; BatchNorm's running statistics unchanged by an Adam
+    step on both."""
+    from pyannote_audio_tpu_torch.train import Trainer
+    task = arcface_task(protocol, num_workers=0)
+    cpu_model = published_resnet34(seed=70, compute_dtype=torch.float32)
+    task.setup(cpu_model)
+    card_model = copy.deepcopy(cpu_model).to(device)
+    batch = next(task.train_batches(epoch=0))
+    log(f"(y) ArcFace on {len(task.classes)} speakers; batch of "
+        f"{batch.X.shape[0]} x {batch.X.shape[-1] / SAMPLE_RATE:g} s, "
+        f"{len(set(batch.y.tolist()))} speakers")
+    results, stats = {}, running_stats(cpu_model)
+    for where, model in (("card", card_model), ("cpu", cpu_model)):
+        trainer = Trainer(device=where if where == "cpu" else device)
+        params = list(model.named_parameters()) + task_params(
+            task, model, trainer.device, seed=71)
+        reset_lstm()
+        t0 = time.perf_counter()
+        results[where] = grads_of(model, task, params,
+                                  trainer.to_device(batch))
+        if where == "card":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        optimizer = trainer.make_optimizer([p for _, p in params])
+        trainer.train_step(model, task, optimizer, [p for _, p in params],
+                           [False] * len(params), trainer.to_device(batch))
+        moved = [n for n, b in running_stats(model).items()
+                 if not torch.equal(b, stats[n])]
+        log(f"(y) {where}: forward + backward {seconds:.2f} s; running "
+            f"statistics moved by an Adam step: {len(moved)} of {len(stats)}")
+        if moved or lstm_launches():
+            raise AssertionError(f"(y) {where}: BatchNorm running statistics "
+                                 f"moved ({moved[:3]}) or the LSTM ran")
+    norms = {f"{name}.{kind}" for name, module in cpu_model.named_modules()
+             if isinstance(module, torch.nn.BatchNorm2d)
+             for kind in ("weight", "bias")}
+    first = {n for n, _ in cpu_model.named_parameters()
+             if n.startswith(("resnet.conv1.", "resnet.layer1."))}
+    loose = norms | first
+    hold_gradients("(y) one ArcFace step, exact path", results["card"],
+                   results["cpu"], loose=loose, loose_limit=ARC_BN_GRAD_RTOL)
+    f64 = arcface_float64_errors(cpu_model, task, batch, device)
+    worst = max(f64, key=f64.get)
+    log(f"(y) float64 witness (trunk, pooling, seg_1 and the loss from the "
+        f"same fbank, {ARC_F64_CHUNKS} chunks), card vs CPU: gradient "
+        f"relative L2 worst {f64[worst]:.3e} at {worst}, BatchNorm affine "
+        f"and first stage worst {max(f64[n] for n in loose):.3e} (limit "
+        f"{SINC_F64_GRAD_RTOL})")
+    if f64[worst] > SINC_F64_GRAD_RTOL:
+        raise AssertionError(f"(y) float64 gradients part, card vs CPU: "
+                             f"{worst} {f64[worst]}")
+
+
+def arcface_float64_errors(model, task, batch, device) -> dict:
+    """{name: relative L2} of each gradient of the ArcFace loss, card
+    against CPU, with ``model`` (its trunk, pooling and seg_1) and the
+    prototypes in float64, from the float32 fbank of the first
+    ARC_F64_CHUNKS chunks (the fbank has no parameters)."""
+    from pyannote_audio_tpu_torch.ops.fbank import wespeaker_fbank
+    from pyannote_audio_tpu_torch.tasks.embedding import arcface_loss
+    from pyannote_audio_tpu_torch.train.trainer import train_mode
+    X = torch.from_numpy(batch.X[:ARC_F64_CHUNKS])
+    with torch.no_grad():
+        feats = wespeaker_fbank(X).double()
+    labels = torch.from_numpy(batch.y[:ARC_F64_CHUNKS]).long()
+    prototypes = task.augment_params(
+        model, torch.Generator().manual_seed(71))["arcface"].double()
+    grads = {}
+    for where in ("cpu", device):
+        block = copy.deepcopy(model).double().to(where)
+        train_mode(block)
+        protos = prototypes.to(where).clone().requires_grad_()
+        # frames_from_fbank's steps, without its cast to float32
+        x = block.resnet.trunk(feats.to(where).transpose(1, 2)[:, None])
+        B, C, Fr, T = x.shape
+        frames = x.reshape(B, C * Fr, T).transpose(1, 2)
+        loss = arcface_loss(block.embed(frames), labels.to(where), protos,
+                            margin_deg=task.margin, scale=task.scale)
+        loss.backward()
+        grads[str(where)] = {**{n: p.grad for n, p in
+                                block.named_parameters()},
+                             "task.arcface": protos.grad}
+    cpu = grads["cpu"]
+    floor = 1e-6 * float(torch.sqrt(sum(g.square().sum()
+                                        for g in cpu.values())))
+    return {n: grad_rel_l2(grads[str(device)][n], g, floor)
+            for n, g in cpu.items()}
+
+
+def write_trial_files(root: Path) -> list:
+    """ARC_TRIAL_SPEAKERS harmonic voices (SPEAKER_F0's recipe) in
+    ARC_TRIAL_FILES seeded files each; every pair is a trial, the same
+    voice a target one."""
+    from pyannote_audio_tpu_torch.core.io import write_wav
+    files = []
+    n = int(ARC_TRIAL_SECONDS * SAMPLE_RATE)
+    tt = np.arange(n) / SAMPLE_RATE
+    for who in range(ARC_TRIAL_SPEAKERS):
+        for k in range(ARC_TRIAL_FILES):
+            rng = np.random.default_rng(1000 + 10 * who + k)
+            voice = sum(np.sin(2 * np.pi * SPEAKER_F0[who] * h * tt
+                               + rng.uniform(0, 2 * np.pi)) / h
+                        for h in range(1, 6))
+            voice *= 0.5 + 0.5 * np.abs(np.sin(2 * np.pi * 3.0 * tt))
+            wav = 0.2 * voice + 0.02 * rng.standard_normal(n)
+            path = root / f"trial_{who}_{k}.wav"
+            write_wav(path, wav[None].astype(np.float32), SAMPLE_RATE)
+            files.append(({"uri": path.stem, "audio": str(path)}, who))
+    return [{"file1": a, "file2": b, "reference": int(wa == wb)}
+            for (a, wa), (b, wb) in itertools.combinations(files, 2)]
+
+
+def check_arcface_run(device, protocol, workdir: Path) -> dict:
+    """(y) Trainer.fit at the model's defaults, the best checkpoint
+    through Model.from_pretrained and PretrainedSpeakerEmbedding, and
+    speaker_verification.main on seeded trials."""
+    from pyannote_audio_tpu_torch.core.model import Model
+    from pyannote_audio_tpu_torch.pipelines.speaker_verification import (
+        PretrainedSpeakerEmbedding, main as verification_main)
+    from pyannote_audio_tpu_torch.train import Trainer
+    from pyannote_audio_tpu_torch.train.trainer import TRAIN_STATE
+    from pyannote_audio_tpu_torch.utils.database import Protocol
+    ckpt = workdir / "arcface"
+    task = arcface_task(protocol)
+    model = published_resnet34(seed=72)
+    trainer = Trainer(max_epochs=ARC_EPOCHS, limit_train_batches=ARC_STEPS,
+                      learning_rate=TRAIN_LR, checkpoint_dir=ckpt,
+                      device=device)
+    stats = running_stats(model)
+    reset_lstm()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    trainer.fit(model, task)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    launches = lstm_launches()
+    losses = [h["loss"] for h in trainer.history]
+    moved = [n for n, b in running_stats(model).items()
+             if not torch.equal(b, stats[n])]
+    log(f"(y) Trainer.fit: {ARC_EPOCHS} epochs x {ARC_STEPS} steps of "
+        f"{task.batch_size} x 2-5 s in {fit_s:.1f} s; peak "
+        f"{peak / 2**30:.3f} GiB; loss per epoch {losses}; LSTM launches "
+        f"{launches} (expected 0); running statistics moved: {len(moved)}")
+    warm = warm_step_report("(y)", trainer, ARC_EPOCHS, task.batch_size,
+                            (task.min_duration + task.duration) / 2)
+    # the fit's batches drawn again (same seeds): card ms of each step by
+    # whether its chunk duration came before
+    shapes = []
+    for epoch in range(ARC_EPOCHS):
+        batches = task.train_batches_parallel(epoch=epoch)
+        shapes += [b.X.shape[-1] for b in
+                   itertools.islice(batches, ARC_STEPS)]
+        batches.close()
+    seen, by_shape = set(), {"new": [], "seen": []}
+    for shape, timing in zip(shapes, trainer.step_timings):
+        by_shape["seen" if shape in seen else "new"].append(timing[3])
+        seen.add(shape)
+    log(f"(y) card ms per step by chunk duration: "
+        + "; ".join(f"{key} {statistics.median(v):.1f} ms over {len(v)} "
+                    f"steps" for key, v in by_shape.items() if v)
+        + f" ({len(seen)} durations in {len(shapes)} steps)")
+    split = step_split_ms(model, task, trainer,
+                          next(task.train_batches(epoch=0)))
+    log_split("(y)", split)
+    if launches or moved or not all(np.isfinite(losses)):
+        raise AssertionError("(y) the fit launched the LSTM, moved running "
+                             f"statistics or diverged: {losses}")
+
+    # the best checkpoint through both loaders, against its epoch's module
+    state = torch.load(ckpt / f"epoch_{trainer.best_epoch}" / TRAIN_STATE,
+                       map_location=device, weights_only=True)
+    trained = copy.deepcopy(model)
+    trained.load_state_dict(state["model"])
+    trained.eval()
+    x = chunk_batch(1.0, 5.0, 8, seed=73)
+    with torch.inference_mode():
+        ours = trained(torch.from_numpy(x).to(device)).float().cpu().numpy()
+        reloaded = Model.from_pretrained(ckpt / "best").to(device)
+        via_model = reloaded(torch.from_numpy(x).to(device)).float().cpu()
+    via_wrapper = PretrainedSpeakerEmbedding(ckpt / "best", device=device)(x)
+    diffs = (float(np.abs(via_model.numpy() - ours).max()),
+             float(np.abs(via_wrapper - ours).max()))
+    log(f"(y) best checkpoint (epoch {trainer.best_epoch}) vs the trained "
+        f"module on 8 x 5 s: Model.from_pretrained max_abs {diffs[0]:.3e}, "
+        f"PretrainedSpeakerEmbedding {diffs[1]:.3e} (limit "
+        f"{ARC_EMBEDDING_ATOL})")
+    if max(diffs) > ARC_EMBEDDING_ATOL:
+        raise AssertionError("(y) the best checkpoint does not reload")
+
+    class Trials(Protocol):
+        def test_trial(self):
+            return iter(trials)
+
+    trials = write_trial_files(workdir)
+    t0 = time.perf_counter()
+    eer = verification_main(Trials("Synthetic.SpeakerVerification.Trials"),
+                            subset="test", embedding=ckpt / "best",
+                            device=device)
+    log(f"(y) speaker_verification.main on {len(trials)} seeded trials of "
+        f"{ARC_TRIAL_SPEAKERS} voices: EER {eer:.4f} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if not np.isfinite(eer):
+        raise AssertionError("(y) no EER")
+    return {"fit_s": fit_s, "peak_bytes": peak, "split_ms": split,
+            "launches": launches, "eer": eer, **warm}
+
+
+def lstm_launches_per_forward(model) -> int:
+    """ToTaToNet's LSTM launches per forward: the DPRNN's intra- and
+    inter-chunk BiLSTM in each repeat."""
+    return 2 * model.dprnn["n_repeats"]
+
+
+def pixit_task(protocol, **kwargs):
+    from pyannote_audio_tpu_torch.tasks import PixIT
+    options = dict(batch_size=PIXIT_BATCH, num_workers=2, seed=0)
+    options.update(kwargs)
+    return PixIT(protocol, **options)
+
+
+def pixit_trainer(device, **kwargs):
+    from pyannote_audio_tpu_torch.tasks.separation import pixit_optimizer
+    from pyannote_audio_tpu_torch.train import Trainer
+    return Trainer(device=device, optimizer=pixit_optimizer(
+        PIXIT_LR, PIXIT_WAVLM_LR, PIXIT_CLIP), **kwargs)
+
+
+def check_pixit_step(device, protocol) -> None:
+    """(z) one PixIT step of ToTaToNet + WavLM-large on PIXIT_CPU_CHUNKS
+    chunks, card against CPU with the LSTM at "highest"; the card's
+    kernel path against its all-plain path; one pixit_optimizer step's
+    moves per group."""
+    task = pixit_task(protocol, batch_size=PIXIT_CPU_CHUNKS, num_workers=0)
+    cpu_model = make_totatonet("cpu")
+    task.setup(cpu_model)
+    card_model = copy.deepcopy(cpu_model).to(device)
+    batch = next(task.train_batches(epoch=0))
+    log(f"(z) PixIT step on {len(batch.X)} x 5 s, MoM weights "
+        f"{batch.meta['mom_weight'].tolist()}")
+    results, seconds = {}, {}
+    with lstm_precision_env("highest"):
+        for where, model in (("card", card_model), ("cpu", cpu_model)):
+            trainer = pixit_trainer(where if where == "cpu" else device)
+            reset_lstm()
+            t0 = time.perf_counter()
+            results[where] = grads_of(model, task,
+                                      list(model.named_parameters()),
+                                      trainer.to_device(batch))
+            if where == "card":
+                torch.cuda.synchronize()
+                card_launches = lstm_launches()
+            seconds[where] = time.perf_counter() - t0
+        per_step = 2 * lstm_launches_per_forward(card_model)
+        hold_gradients("(z) one PixIT step, LSTM at highest",
+                       results["card"], results["cpu"],
+                       f"; forward + backward card {seconds['card']:.2f} s "
+                       f"({card_launches} LSTM launches), CPU "
+                       f"{seconds['cpu']:.2f} s")
+        if card_launches != per_step:
+            raise AssertionError(f"(z) {card_launches} LSTM launches in a "
+                                 f"step, not {per_step}")
+        with plain_lstm():
+            plain = grads_of(card_model, task,
+                             list(card_model.named_parameters()),
+                             pixit_trainer(device).to_device(batch))
+    card_loss, card_grads = results["card"]
+    floor = 1e-6 * float(torch.sqrt(sum(g.double().square().sum()
+                                        for g in card_grads.values())))
+    perr = max(grad_rel_l2(card_grads[n], plain[1][n], floor)
+               for n in card_grads)
+    lstm_norm = float(card_grads["masker.net.0.intra_RNN.rnn.weight_hh_l0"]
+                      .norm())
+    log(f"(z) card kernel path vs all-plain path (highest): loss "
+        f"{abs(card_loss - plain[0]):.2e} apart, gradient relative L2 worst "
+        f"{perr:.3e}; |grad| of the first intra-chunk W_hh {lstm_norm:.3e}")
+    if perr > TRAIN_GRAD_RTOL or not lstm_norm > 0:
+        raise AssertionError(f"(z) kernel path vs plain path: {perr}")
+
+    # one pixit_optimizer step: each group moves by about its rate
+    trainer = pixit_trainer(device)
+    names, params = zip(*card_model.named_parameters())
+    start = [p.detach().clone() for p in params]
+    optimizer = trainer.make_optimizer(list(params), list(names))
+    trainer.train_step(card_model, task, optimizer, list(params),
+                       [False] * len(params), trainer.to_device(batch))
+    moves = {"wavlm": [], "rest": []}
+    for name, p, before in zip(names, params, start):
+        grad = card_grads[name]
+        step = (p.detach() - before).abs()[grad != 0]
+        moves["wavlm" if "wavlm" in name.split(".") else "rest"].append(step)
+    medians = {k: float(torch.cat(v).median()) for k, v in moves.items()}
+    log(f"(z) one pixit_optimizer step: median move of the elements with a "
+        f"gradient, WavLM {medians['wavlm']:.3e} (lr {PIXIT_WAVLM_LR}), the "
+        f"rest {medians['rest']:.3e} (lr {PIXIT_LR}); limit "
+        f"{PIXIT_MOVE_RTOL} relative")
+    for key, lr in (("wavlm", PIXIT_WAVLM_LR), ("rest", PIXIT_LR)):
+        if abs(medians[key] - lr) > PIXIT_MOVE_RTOL * lr:
+            raise AssertionError(f"(z) the {key} group moved by "
+                                 f"{medians[key]}, not about {lr}")
+
+
+def check_pixit_run(device, protocol) -> dict:
+    """(z) Trainer.fit under PixIT at full width with validation: LSTM
+    launches per step and per validation, warm step, split, peak."""
+    task = pixit_task(protocol)
+    model = make_totatonet(device)
+    task.setup(model)
+    shares = [float(b.meta["mom_weight"].mean()) for b in
+              itertools.islice(task.train_batches(epoch=0), PIXIT_STEPS)]
+    val_chunks = len(task.prepare_validation())
+    val_batches = -(-val_chunks // 32)
+    per_step = 2 * lstm_launches_per_forward(model)
+    per_validation = per_step * val_batches
+    expected = PIXIT_EPOCHS * (per_step * PIXIT_STEPS + per_validation)
+    log(f"(z) PixIT batches of {PIXIT_BATCH} x 5 s: share of items with a "
+        f"drawn MoM {shares} (limit > {PIXIT_MIN_MOM_SHARE}); LSTM launches "
+        f"expected: {per_step} per step, {per_validation} per validation of "
+        f"{val_chunks} chunks ({val_batches} batches of at most 32 x "
+        f"{per_step}), {expected} in the fit")
+    if min(shares) <= PIXIT_MIN_MOM_SHARE:
+        raise AssertionError("(z) too few drawn MoMs: MixIT not exercised")
+    trainer = pixit_trainer(device, max_epochs=PIXIT_EPOCHS,
+                            limit_train_batches=PIXIT_STEPS)
+    reset_lstm()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    trainer.fit(model, task)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    launches = lstm_launches()
+    reset_lstm()
+    t0 = time.perf_counter()
+    record = trainer.validate(model, task)
+    torch.cuda.synchronize()
+    val_s = time.perf_counter() - t0
+    val_launches = lstm_launches()
+    measured = (launches - PIXIT_EPOCHS * val_launches) \
+        / (PIXIT_EPOCHS * PIXIT_STEPS)
+    losses = [h["loss"] for h in trainer.history]
+    log(f"(z) Trainer.fit: {PIXIT_EPOCHS} epochs x {PIXIT_STEPS} steps of "
+        f"{PIXIT_BATCH} x 5 s in {fit_s:.1f} s; peak {peak / 2**30:.3f} GiB; "
+        f"loss per epoch {losses}; der/val/optimal "
+        f"{[h.get('der/val/optimal') for h in trainer.history]}; loss/val "
+        f"{[h.get('loss/val') for h in trainer.history]}; validation "
+        f"{val_s:.2f} s; LSTM launches {launches} in the fit (expected "
+        f"{expected}), {val_launches} in one validation, so {measured} per "
+        f"step")
+    warm = warm_step_report("(z)", trainer, PIXIT_EPOCHS, PIXIT_BATCH,
+                            task.duration)
+    split = step_split_ms(model, task, trainer,
+                          next(task.train_batches(epoch=0)), runs=2)
+    log_split("(z)", split)
+    if launches != expected or val_launches != per_validation \
+            or measured != per_step:
+        raise AssertionError(f"(z) LSTM launches are not {per_step} per "
+                             f"step")
+    if not (all(np.isfinite(losses))
+            and np.isfinite(record["der/val/optimal"])
+            and np.isfinite(record["loss/val"])):
+        raise AssertionError(f"(z) non-finite loss or DER: {losses}, "
+                             f"{record}")
+    return {"fit_s": fit_s, "peak_bytes": peak, "split_ms": split,
+            "launches": launches, "launches_per_step": measured,
+            "launches_per_validation": val_launches, "mom_share": shares,
+            **warm}
+
+
+def phase_training_more(device, workdir: Path, card: str, protocol) -> dict:
+    """Phase 12: training speaker embeddings (y) and PixIT (z)."""
+    log(f"phase 12, training embeddings and separation, on {card}")
+    check_arcface_step(device, protocol)
+    out = {"arcface": check_arcface_run(device, protocol, workdir)}
+    torch.cuda.empty_cache()
+    check_pixit_step(device, protocol)
+    torch.cuda.empty_cache()
+    out["pixit"] = check_pixit_run(device, protocol)
+    return out
 
 
 def main() -> int:
@@ -3815,12 +4425,21 @@ def main() -> int:
                                                    pipeline, config))
         launches.update(phase_embedders(device, Path(tmp), config, card))
         launches.update(phase_separation(device, Path(tmp), card))
-        training = phase_training(device, Path(tmp), card)
+        protocol = write_training_protocol(Path(tmp))
+        training = phase_training(device, Path(tmp), card, protocol)
         launches["training (x)"] = {
             "per step": training["launches_per_step"],
             "per validation": training["launches_per_validation"],
             "fit": training["launches"]}
         record["training"] = training
+        more = phase_training_more(device, Path(tmp), card, protocol)
+        launches["arcface (y)"] = {"fit": more["arcface"]["launches"]}
+        launches["pixit (z)"] = {
+            "per step": more["pixit"]["launches_per_step"],
+            "per validation": more["pixit"]["launches_per_validation"],
+            "fit": more["pixit"]["launches"]}
+        record["training_embedding"] = more["arcface"]
+        record["training_pixit"] = more["pixit"]
     log(f"lstm_recurrence launches per path: {launches}")
     record["launches"] = launches["accelerator"]
     record["launches_per_path"] = launches

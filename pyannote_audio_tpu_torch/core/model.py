@@ -194,8 +194,12 @@ def attach_specifications(model: nn.Module, specifications,
     """Give ``model`` a task's ``specifications``; where its output
     dimension changes, a new ``classifier`` (torch.nn.Linear's
     U(-1/sqrt(in), 1/sqrt(in)) init from ``generator``, on the old one's
-    device) replaces the old one. Every other weight is kept."""
+    device) replaces the old one. Every other weight is kept. A
+    multi-task model's heads are its own (ToTaToNet's classifier scores
+    one source at a time), so a tuple of specifications changes none."""
     model.specifications = specifications
+    if isinstance(specifications, tuple):
+        return model
     head = getattr(model, "classifier", None)
     dimension = first_specifications(specifications).dimension
     if isinstance(head, nn.Linear) and head.out_features != dimension:

@@ -271,12 +271,15 @@ class Pipeline:
         preprocessors = {}
         for key, preprocessor in (config.get("preprocessors") or {}).items():
             if isinstance(preprocessor, Mapping) and "name" in preprocessor:
-                Preprocessor = get_class_by_name(preprocessor["name"])
+                Preprocessor = get_class_by_name(
+                    preprocessor["name"],
+                    default_module_name=f"{_PACKAGE}.utils.preprocessors")
                 preprocessors[key] = Preprocessor(
                     **(preprocessor.get("params") or {}))
             else:
                 preprocessors[key] = preprocessor
-        pipeline.__dict__["_preprocessors"] = preprocessors
+        if preprocessors:
+            pipeline.__dict__["_preprocessors"] = preprocessors
         return pipeline
 
     def _instantiated_tree(self) -> Dict[str, Any]:

@@ -553,6 +553,13 @@ class Task:
         """Scalar loss of a model's ``output`` on ``batch``."""
         raise NotImplementedError
 
+    def validation_loss(self, model, output, batch: TrainingBatch):
+        """The loss of a validation batch, given the validation forward's
+        ``output`` (the first of a multi-task model's); a task whose loss
+        needs more forwards (PixIT's mixtures of mixtures) runs them on
+        ``model``."""
+        return self.loss_from_output(output, batch)
+
     def augment_params(self, model, generator=None) -> Dict[str, Any]:
         """Task-owned trainable state (e.g. ArcFace prototypes) as
         {name: nn.Parameter}, trained beside the model's; none here."""

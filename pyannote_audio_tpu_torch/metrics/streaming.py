@@ -19,7 +19,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..ops.permutation import permutation_table
+from ..ops.permutation import permutate_device
 
 #: the Optimal* family's thresholds
 DEFAULT_THRESHOLDS = np.linspace(0.0, 1.0, 51)
@@ -29,18 +29,11 @@ def _permutate(target: torch.Tensor, preds: torch.Tensor) -> torch.Tensor:
     """``preds``' speakers aligned to ``target``'s, item by item: the
     permutation of least mean squared error (the first on ties, in
     ``itertools.permutations`` order)."""
-    K = preds.shape[-1]
-    if K > 6:
+    if preds.shape[-1] > 6:
         from ..ops.permutation import permutate
         aligned, _ = permutate(target.cpu().numpy(), preds.cpu().numpy())
         return torch.as_tensor(aligned, device=preds.device)
-    cost = (target[:, :, :, None] - preds[:, :, None, :]).square().mean(1)
-    perms = torch.as_tensor(permutation_table(K), dtype=torch.long,
-                            device=preds.device)              # (K!, K)
-    totals = cost[:, torch.arange(K, device=preds.device)[None, :],
-                  perms].sum(-1)                               # (B, K!)
-    best = perms[torch.argmin(totals, dim=-1)]                 # (B, K)
-    return preds.gather(-1, best[:, None, :].expand(-1, preds.shape[1], -1))
+    return permutate_device(target, preds)[0]
 
 
 def _pad_speakers(preds: torch.Tensor, target: torch.Tensor

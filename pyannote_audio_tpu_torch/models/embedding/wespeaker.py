@@ -153,8 +153,15 @@ class ResNetTrunk(nn.Module):
 
     def trunk(self, x: torch.Tensor) -> torch.Tensor:
         """(B, 1, mel, T) -> (B, C, F', T'), in the dtype of ``x``, laid
-        out channels-last."""
-        x = x.contiguous(memory_format=torch.channels_last)
+        out channels-last; where autograd records on the CPU, contiguous
+        (weights included, converted in place once): there the backward of
+        the channels-last trunk corrupts the heap (oneDNN, torch 2.13)."""
+        if x.device.type == "cpu" and torch.is_grad_enabled():
+            if not self.layer1[0].conv2.weight.is_contiguous():
+                self.to(memory_format=torch.contiguous_format)
+            x = x.contiguous()
+        else:
+            x = x.contiguous(memory_format=torch.channels_last)
         x = F.relu(self.bn1(_apply_conv(self.conv1, x)))
         for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
             x = stage(x)

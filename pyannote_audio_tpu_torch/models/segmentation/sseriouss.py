@@ -19,7 +19,7 @@ fold one onto the other.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, Mapping, Optional, Union
+from typing import Dict, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -165,6 +165,11 @@ class SSeRiouSS(FrameModel, nn.Module):
                     Problem.MONO_LABEL_CLASSIFICATION:
                 return F.log_softmax(x, dim=-1)
             return torch.sigmoid(x)
+
+    def frozen_mask_prefixes(self) -> List[str]:
+        """The parameter prefixes an update mask freezes (for
+        ``GraduallyUnfreeze`` and ``Trainer.frozen_prefixes``)."""
+        return ["wav2vec"] if self.freeze_wav2vec else []
 
     def reference_hparams(self) -> Dict:
         return {"wav2vec": self.wav2vec_name,

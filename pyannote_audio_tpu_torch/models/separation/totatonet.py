@@ -21,7 +21,7 @@ builds the WavLM branch from them (``load_reference_state_dict``).
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, Mapping, Optional, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -208,6 +208,11 @@ class ToTaToNet(FrameModel, nn.Module):
                                                         Td)
             diarization = torch.sigmoid(scores.transpose(1, 2))
         return diarization, sources
+
+    def frozen_mask_prefixes(self) -> List[str]:
+        """The parameter prefixes an update mask freezes (for
+        ``GraduallyUnfreeze`` and ``Trainer.frozen_prefixes``)."""
+        return ["wavlm"] if self.use_wavlm and self.wavlm_frozen else []
 
     def reference_hparams(self) -> Dict:
         hparams = {"encoder_decoder": dict(self.encoder_decoder),

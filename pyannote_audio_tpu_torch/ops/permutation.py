@@ -1,12 +1,14 @@
-"""Optimal speaker-permutation alignment, on the host.
+"""Optimal speaker-permutation alignment, on the host and on the device.
 
-Counterpart of the host ``permutate`` of pyannote_audio_tpu/ops/
-permutation.py (with ``permutation_table`` and the mse / mae costs): for
-up to 6 speakers on both sides every permutation is scored and the
-cheapest kept (first on ties, in ``itertools.permutations`` order);
-otherwise, or for a callable cost or unequal speaker counts, scipy's
-Hungarian solver assigns them. Costs are float32 means, as in the JAX
-package. Oracle clustering uses it; numpy and scipy only.
+Counterpart of pyannote_audio_tpu/ops/permutation.py. The host
+``permutate`` (with ``permutation_table`` and the mse / mae costs): for up
+to 6 speakers on both sides every permutation is scored and the cheapest
+kept (first on ties, in ``itertools.permutations`` order); otherwise, or
+for a callable cost or unequal speaker counts, scipy's Hungarian solver
+assigns them. Costs are float32 means, as in the JAX package. Oracle
+clustering uses it. ``permutate_device`` is ``permutate_jax``: the same
+search over the K! permutations on device tensors, with no host sync,
+differentiable through its gather (the PIT losses use it).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from functools import lru_cache
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 from scipy.optimize import linear_sum_assignment
 
 
@@ -126,3 +129,36 @@ def permutate(y1: np.ndarray, y2: np.ndarray, cost_func=None,
     if return_cost:
         return permutated, perms, C
     return permutated, perms
+
+
+def permutate_device(y1: torch.Tensor, y2: torch.Tensor, cost: str = "mse"
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Align ``y2``'s speakers to ``y1``'s per batch item, on their
+    device: (B, F, K) each -> (permutated y2, perm (B, K)) with
+    ``permutated[b, :, k] = y2[b, :, perm[b, k]]``. The cost is
+    ``pairwise_cost``'s (float32 frame means); the argmin takes the first
+    of tied permutations, and the gradient flows through the gather
+    only."""
+    with torch.no_grad():
+        d = y1.float()[:, :, :, None] - y2.float()[:, :, None, :]
+        if cost == "mse":
+            C = d.square().mean(1)
+        elif cost == "mae":
+            C = d.abs().mean(1)
+        else:
+            raise ValueError(f"unknown cost {cost!r}")
+    return _permutate_from_cost(y2, C)
+
+
+def _permutate_from_cost(y2: torch.Tensor, C: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The least of the K! permutations' total costs, given the (B, K, K)
+    cost ``C``, applied to ``y2``."""
+    K = y2.shape[-1]
+    perms = torch.as_tensor(permutation_table(K), dtype=torch.long,
+                            device=y2.device)                   # (K!, K)
+    totals = C[:, torch.arange(K, device=y2.device)[None, :],
+               perms].sum(-1)                                    # (B, K!)
+    perm = perms[torch.argmin(totals, dim=-1)]                   # (B, K)
+    permutated = y2.gather(-1, perm[:, None, :].expand(-1, y2.shape[1], -1))
+    return permutated, perm

@@ -346,3 +346,44 @@ def verification_trials_eer(pipeline: SpeakerEmbedding,
                             pipeline(trial["file2"]), metric="cosine")[0, 0]
         metric.update([score], [int(trial["reference"])])
     return metric.compute()
+
+
+def main(protocol: Union[str, object] = "VoxCeleb.SpeakerVerification.VoxCeleb1",
+         subset: str = "test",
+         embedding: PipelineModel = "pyannote/embedding",
+         segmentation: Optional[PipelineModel] = None,
+         device: Union[str, torch.device, None] = None) -> float:
+    """Evaluate a speaker-embedding pipeline on a protocol's verification
+    trials: ``{subset}_trial()`` yields ``{file1, file2, reference}``;
+    each distinct file (by its ``audio``) is embedded once, each trial
+    scored by cosine similarity, and the EER printed and returned.
+    ``protocol`` is a protocol or a registered name; ``device`` is the
+    CUDA card when None (raising without one)."""
+    from scipy.spatial.distance import cdist
+
+    from ..utils.database import get_protocol
+
+    proto = get_protocol(protocol) if isinstance(protocol, str) else protocol
+    trials = getattr(proto, f"{subset}_trial", None)
+    if trials is None:
+        raise ValueError(
+            f"protocol {protocol!r} has no {subset}_trial iterator: "
+            "verification trials need a SpeakerVerification protocol")
+    pipeline = SpeakerEmbedding(embedding=embedding,
+                                segmentation=segmentation, device=device)
+    embeddings = {}
+
+    def embed(file) -> np.ndarray:
+        key = file["audio"] if isinstance(file, Mapping) else file
+        if key not in embeddings:
+            embeddings[key] = pipeline(file)
+        return embeddings[key]
+
+    metric = EqualErrorRate()
+    for trial in trials():
+        score = 1.0 - cdist(embed(trial["file1"]), embed(trial["file2"]),
+                            metric="cosine")[0, 0]
+        metric.update([score], [int(trial["reference"])])
+    eer = float(metric.compute())
+    print(f"EER = {eer:.2%}")
+    return eer

@@ -3,9 +3,12 @@
 Counterpart of pyannote_audio_tpu/train/trainer.py, with its semantics:
 
 - Adam (``torch.optim.Adam`` for optax's ``adam``) at ``learning_rate``,
-  or the optimizer a factory builds from the parameters; with
-  ``gradient_clip_val`` the gradients are clipped first by their global
-  norm, with optax's ``clip_by_global_norm`` formula.
+  or the optimizer a factory builds from the (name, parameter) pairs
+  (``tasks.separation.pixit_optimizer`` routes WavLM's by name); with
+  ``gradient_clip_val`` (the trainer's, then the optimizer's own
+  ``gradient_clip_val`` attribute where it has one) the gradients are
+  clipped first by their global norm, with optax's
+  ``clip_by_global_norm`` formula.
 - Frozen prefixes (``trainer.frozen_prefixes``, seeded from the model's
   ``frozen_modules`` and set by callbacks such as ``GraduallyUnfreeze``)
   zero a parameter's update only: it stays in the optimizer and its
@@ -14,8 +17,13 @@ Counterpart of pyannote_audio_tpu/train/trainer.py, with its semantics:
   optimizer state as they were: both are copied before the step and
   selected back with ``torch.where`` on the device, with no host sync.
   Losses stay on the device and are read once per epoch.
-- Batches upload as float32 from page-locked memory
-  (``core.inference.to_device``). The model runs as it serves on its
+- Batches upload from page-locked memory (``core.inference.to_device``):
+  X and weights as float32, integer targets (class indices) as they are.
+- BatchNorm normalises by its running statistics in training too, and
+  they stay as they are: the JAX trainer never runs its modules in train
+  mode. (Its Adam steps the running statistics as parameters, having
+  them in the differentiated tree; the port keeps them out of the
+  optimizer.) The model runs as it serves on its
   device: on a CUDA card the LSTM kernel in the forward
   (``ops.lstm_kernel.LSTMRecurrence``) and bf16 SincNet under
   ``PYANNOTE_TPU_SEG_BF16``; the backward runs with TF32 off.
@@ -87,8 +95,9 @@ class Trainer:
         max_epochs: int = 1,
         limit_train_batches: Optional[int] = None,
         learning_rate: float = 1e-3,
-        optimizer: Optional[Callable[[List[torch.nn.Parameter]],
-                                     torch.optim.Optimizer]] = None,
+        optimizer: Optional[Callable[
+            [List[Tuple[str, torch.nn.Parameter]]],
+            torch.optim.Optimizer]] = None,
         mesh: Optional[Any] = None,
         checkpoint_dir: Optional[Union[str, Path]] = None,
         gradient_clip_val: Optional[float] = None,
@@ -127,10 +136,14 @@ class Trainer:
         self.step_timings: List[Tuple[int, float, float,
                                       Optional[float]]] = []
 
-    def make_optimizer(self, params: List[torch.nn.Parameter]
+    def make_optimizer(self, params: List[torch.nn.Parameter],
+                       names: Optional[List[str]] = None
                        ) -> torch.optim.Optimizer:
+        """The factory's optimizer over the (name, parameter) pairs, or
+        Adam at ``learning_rate`` over ``params``."""
         if self.optimizer_factory is not None:
-            return self.optimizer_factory(params)
+            names = names or [str(i) for i in range(len(params))]
+            return self.optimizer_factory(list(zip(names, params)))
         # capturable keeps Adam's step count on the card, so that the
         # non-finite skip selects it there too
         return torch.optim.Adam(params, lr=self.learning_rate,
@@ -159,7 +172,7 @@ class Trainer:
         names = [name for name, _ in model.named_parameters()] \
             + [f"task.{name}" for name in task_params]
         params = list(model.parameters()) + list(task_params.values())
-        optimizer = self.make_optimizer(params)
+        optimizer = self.make_optimizer(params, names)
         start_epoch = 0
         best_score, epochs_since_best = math.inf, 0
         if resume_from is not None:
@@ -242,7 +255,7 @@ class Trainer:
                      epoch: int) -> float:
         """One epoch of steps; returns the mean finite loss (NaN if
         none)."""
-        model.train()
+        train_mode(model)
         losses = []
         events = []
         batches = iter(task.train_batches_parallel(epoch=epoch))
@@ -284,14 +297,18 @@ class Trainer:
         return float(np.mean(finite)) if len(finite) else math.nan
 
     def to_device(self, batch: TrainingBatch) -> TrainingBatch:
-        """A host batch on the trainer's device: X, y and weight as
-        float32, meta as given (``core.inference.to_device``)."""
+        """A host batch on the trainer's device: X and weight as float32,
+        y as float32 unless it holds integers (class indices), meta as
+        given (``core.inference.to_device``)."""
         def put(value, dtype=None):
             if value is None:
                 return None
             return to_device(np.asarray(value, dtype), self.device)
+        integer = batch.y is not None and np.issubdtype(
+            np.asarray(batch.y).dtype, np.integer)
         return TrainingBatch(
-            X=put(batch.X, np.float32), y=put(batch.y, np.float32),
+            X=put(batch.X, np.float32),
+            y=put(batch.y, None if integer else np.float32),
             weight=put(batch.weight, np.float32),
             meta=None if batch.meta is None else {
                 k: put(v) for k, v in batch.meta.items()})
@@ -307,8 +324,10 @@ class Trainer:
             loss.backward()
         with torch.no_grad():
             grads = [p.grad for p in params if p.grad is not None]
-            if self.gradient_clip_val:
-                clip_by_global_norm(grads, self.gradient_clip_val)
+            for clip in (self.gradient_clip_val,
+                         getattr(optimizer, "gradient_clip_val", None)):
+                if clip:
+                    clip_by_global_norm(grads, clip)
             old = [p.detach().clone() for p in params]
             state = _state_tensors(optimizer, params)
             old_state = [s[k].clone() for s, k in state]
@@ -402,7 +421,7 @@ class Trainer:
                     if state["plot"] is None:
                         state["plot"] = (preds, y)
             with torch.no_grad():
-                loss = task.loss_from_output(output, TrainingBatch(
+                loss = task.validation_loss(model, output, TrainingBatch(
                     X=X_dev, y=y_dev))
             nonlocal loss_sum
             loss_sum = loss_sum + loss * n
@@ -424,7 +443,7 @@ class Trainer:
             if batch_X:
                 flush(batch_X, batch_y)
         finally:
-            model.train()
+            train_mode(model)
         out: Dict = {}
         if state["der"]:
             for name, metric in metrics.items():
@@ -486,6 +505,15 @@ class Trainer:
         self.log_dir.mkdir(parents=True, exist_ok=True)
         fig.savefig(self.log_dir / f"samples_epoch{epoch}.png", dpi=72)
         plt.close(fig)
+
+
+def train_mode(model: torch.nn.Module) -> None:
+    """``model.train()``, with every BatchNorm kept in eval mode: it
+    normalises by its running statistics and leaves them as they are."""
+    model.train()
+    for module in model.modules():
+        if isinstance(module, torch.nn.modules.batchnorm._BatchNorm):
+            module.eval()
 
 
 def _power_of_two_or_zero(epoch: int) -> bool:

@@ -105,6 +105,13 @@ def wespeaker_state_dict(variables_np: Mapping) -> Dict[str, np.ndarray]:
     return state
 
 
+def arcface_prototypes(params_np: Mapping) -> np.ndarray:
+    """The JAX ArcFace task's class prototypes (``params["arcface"]`` of
+    its training parameters, (classes, dimension)) as the float32 array
+    the port trains as ``task.arcface``."""
+    return _f32(params_np["arcface"])
+
+
 def write_reference_checkpoint(state_dict: Mapping, architecture: str,
                                hparams: Mapping, specifications,
                                path) -> Path:

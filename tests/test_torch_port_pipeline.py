@@ -132,6 +132,9 @@ def test_port_imports_no_jax():
             [str(package)], prefix="pyannote_audio_tpu_torch."))
     assert "pyannote_audio_tpu_torch.pipelines.speech_separation" in modules
     assert "pyannote_audio_tpu_torch.models.blocks.ssl" in modules
+    for name in ("tasks.embedding", "tasks.separation",
+                 "utils.preprocessors", "models.embedding.convert"):
+        assert f"pyannote_audio_tpu_torch.{name}" in modules
     code = ("import importlib, sys\n"
             f"for name in {modules!r}:\n"
             "    importlib.import_module(name)\n"
@@ -148,7 +151,10 @@ def test_port_imports_no_jax():
             "             'MultiLabelSegmentation',\n"
             "             'pyannote.audio.pipelines.SpeakerEmbedding',\n"
             "             'pyannote_audio_tpu.pipelines.SpeakerEmbedding',\n"
-            "             'pyannote.audio.pipelines.SpeechSeparation'):\n"
+            "             'pyannote.audio.pipelines.SpeechSeparation',\n"
+            "             'pyannote.audio.utils.preprocessors.Waveform',\n"
+            "             'pyannote_audio_tpu.utils.preprocessors.'\n"
+            "             'DeriveMetaLabels'):\n"
             "    klass = get_class_by_name(name)\n"
             "    assert klass.__module__.startswith(\n"
             "        'pyannote_audio_tpu_torch.'), name\n"

@@ -76,8 +76,8 @@ Phases, each fatal on failure:
      TitaNet-large from a NeMo state dict, XVectorSincNet and XVectorMFCC
      from reference checkpoints, each at its published width with seeded
      weights, on one batch of 32 five-second chunks, unmasked and with
-     masks that leave some rows too short (NaN), card against CPU, with
-     its time per batch; (s) SpeakerEmbedding from a config dict over
+     masks that leave some rows too short (NaN), card against CPU (on 8
+     of the 32 rows for ResNet293), with its time per batch; (s) SpeakerEmbedding from a config dict over
      (l)'s PyanNet and the ECAPA snapshot on three 1-minute files (card
      against CPU on the exact path, LSTM launches), then
      verification_trials_eer over seeded trials; (t) SpeakerDiarization
@@ -104,7 +104,7 @@ Phases, each fatal on failure:
      also in float64, 3 Adam steps), the card's kernel path against its
      all-plain path, then Trainer.fit under SpeakerDiarization at the
      reference's defaults on a synthetic protocol written from a seed (2
-     epochs of 10 steps of 32, validation, checkpoints): LSTM launches
+     epochs of 5 steps of 32, validation, checkpoints): LSTM launches
      (per step from the fit's counts), the step's time split, peak
      memory, losses, der/val, the best checkpoint reloaded through
      Model.from_pretrained and resume_from epoch 0 (parameters, their
@@ -121,12 +121,33 @@ Phases, each fatal on failure:
      defaults with ToTaToNet and the WavLM-large branch: one step on 2
      chunks card against CPU ("highest"), the kernel path against the
      all-plain one, pixit_optimizer's two rates after one step, then
-     Trainer.fit with validation in batches of 16 (2 epochs x 3 steps:
+     Trainer.fit with validation in batches of 16 (1 epoch x 3 steps:
      MoM share, LSTM launches exact, warm step, split, peak, der/val).
+ 13. the entry points on the community-1 snapshot, read from its
+     config.yaml (written by the port's YAML writer), over files of 10,
+     3 and 1 minutes: (A) ``python -m pyannote_audio_tpu_torch apply``
+     with no --device in a new process, its RTTM and JSON against the
+     same pipeline in this process, the same command without a visible
+     card (it must fail), and ``main`` in this process against
+     ``apply_batch`` (LSTM launches equal), ``download`` on the card and
+     with a hub id (it must fail); (B) DiarizationServer with a
+     token on 127.0.0.1: four jobs at once from the port's client (each
+     output equal to the pipeline's, batched with no failure and no
+     retry, latency per request), the SDK, a wrong token (401) and a
+     corrupt upload that fails only its own job; (C) ``benchmark`` on
+     two files of (x)'s protocol from a YAML registry, its DER report
+     against metrics/der; (D) ``optimize``, 4 trials then 2 resumed from
+     the journal, each run one pass of the models (the training
+     caches); (E) Calibration saved and read back through
+     get_calibration, the TPE optimizer and get_devices, with no
+     scikit-learn, safetensors or PyYAML loaded; (F) a cold server's
+     first request: in a new process, apply on the 1-minute file with
+     and without ``warmup(60)`` before it (times, launches, outputs).
 
 The line before the last is a JSON object describing each kernel (its
 ``launches`` is the accelerator path's; ``launches_per_path`` has every
-path's); the last line is {"ok": true, "device": {...}}. Without a CUDA
+path's; ``phase_walls_s`` the wall of each phase, also logged above it);
+the last line is {"ok": true, "device": {...}}. Without a CUDA
 device the script exits non-zero and prints no result.
 """
 
@@ -134,6 +155,8 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import csv
+import io
 import itertools
 import json
 import os
@@ -371,10 +394,15 @@ def phase_kernels(device: torch.device) -> dict:
         lstm_bidirectional_recurrence, prepare_recurrent_weights)
 
     # PyanNet on 10 s chunks: T = 589 frames, B = every batch size of the
-    # main path (256 and each file's tail), H = 128; layer 0 reads
-    # SincNet's 60 features, layer 1 the 256 of layer 0
+    # whole files the main paths segment (256 and each file's tail: phases
+    # 4-5, phase 6's serving list, phase 13's files and (x)'s two files
+    # of (C) and (D)), H = 128; layer 0 reads SincNet's 60 features,
+    # layer 1 the 256 of layer 0
+    main_batches = set(segmentation_batches()) | set(segmentation_batches(
+        SERVING_MINUTES)) | set(segmentation_batches(ENTRY_MINUTES)) | set(
+        segmentation_batches((TRAIN_FILE_MINUTES,) * 2))
     shapes = [(f"main B={B} layer {layer}", 589, B, D_in, 128, 2)
-              for B in sorted(set(segmentation_batches()), reverse=True)
+              for B in sorted(main_batches, reverse=True)
               for layer, D_in in enumerate((60, 256))]
     # phase 8's multi-label PyanNet on 5 s chunks: T = 293 frames, every
     # batch size of its 10-minute file, layer 0 and layers 1-3
@@ -1510,10 +1538,12 @@ VBX_SPLIT_THRESHOLD = 0.05
 
 def write_community_snapshot(root: Path) -> dict:
     """A community-1 style snapshot: full-width PyanNet and ResNet34
-    reference checkpoints (make_models' seeded weights, bf16 trunk) and a
-    seeded synthetic PLDA 256 -> 128 (psi > 0); returns the config dict
-    that ``Pipeline.from_pretrained`` takes (no config.yaml is written:
-    the card machine has no PyYAML)."""
+    reference checkpoints (make_models' seeded weights, bf16 trunk), a
+    seeded synthetic PLDA 256 -> 128 (psi > 0) and its ``config.yaml``
+    (written by the port's YAML writer: the card machine has no PyYAML);
+    returns the config as the dict that ``Pipeline.from_pretrained`` also
+    takes."""
+    from pyannote_audio_tpu_torch.utils import yaml_subset
     from pyannote_audio_tpu_torch.utils.convert import \
         write_reference_checkpoint
     segmentation, embedding = make_models(torch.bfloat16)
@@ -1535,17 +1565,19 @@ def write_community_snapshot(root: Path) -> dict:
              tr=np.linalg.qr(rng.standard_normal((PLDA_LDA_DIM,
                                                   PLDA_LDA_DIM)))[0],
              psi=np.abs(rng.standard_normal(PLDA_LDA_DIM)) + 0.5)
-    return {"checkpoint": str(root), "version": "4.0.0",
-            "pipeline": {"name": "pyannote.audio.pipelines."
-                                 "SpeakerDiarization",
-                         "params": {"clustering": "VBxClustering",
-                                    "embedding": "$model/embedding",
-                                    "embedding_batch_size": BATCH_SIZE,
-                                    "embedding_exclude_overlap": True,
-                                    "plda": "$model/plda",
-                                    "segmentation": "$model/segmentation",
-                                    "segmentation_batch_size": BATCH_SIZE}},
-            "params": COMMUNITY_PARAMS}
+    config = {"version": "4.0.0",
+              "pipeline": {"name": "pyannote.audio.pipelines."
+                                   "SpeakerDiarization",
+                           "params": {"clustering": "VBxClustering",
+                                      "embedding": "$model/embedding",
+                                      "embedding_batch_size": BATCH_SIZE,
+                                      "embedding_exclude_overlap": True,
+                                      "plda": "$model/plda",
+                                      "segmentation": "$model/segmentation",
+                                      "segmentation_batch_size": BATCH_SIZE}},
+              "params": COMMUNITY_PARAMS}
+    yaml_subset.dump_file(config, root / "config.yaml")
+    return dict(config, checkpoint=str(root))
 
 
 @contextlib.contextmanager
@@ -2414,7 +2446,8 @@ def phase_vad_multilabel_audio(device, workdir: Path, pipeline,
 # -- phase 9 ------------------------------------------------------------------
 
 # (r): one batch of 32 five-second chunks per embedder, card against the
-# CPU on the whole batch, unmasked and masked; float32 models at cosine > 0.9999 and relative L2 <= 1e-3 per finite
+# CPU on the whole batch (EMBED_CPU_ROWS of it for ResNet293), unmasked
+# and masked; float32 models at cosine > 0.9999 and relative L2 <= 1e-3 per finite
 # row; the bf16 WeSpeaker trunks by the bound of
 # tests/test_torch_port_models.py (card against CPU within 2e-2 of the
 # largest float32 value, 2e-3 in the mean, and no farther from the CPU's
@@ -2425,6 +2458,10 @@ EMBED_MIN_COS = 0.9999
 EMBED_REL_L2 = 1e-3
 EMBED_BF16_MAX, EMBED_BF16_MEAN = 2e-2, 2e-3
 EMBED_RUNS = 20
+# rows of the batch held card against CPU, where the CPU's passes are long
+# (ResNet293's four: bf16 and its float32 reference, unmasked and masked);
+# the first 8 rows hold every mask pattern twice
+EMBED_CPU_ROWS = {"WeSpeakerResNet293 (.onnx)": 8}
 # (s): three 1-minute files; the Inference's default batch of 32 chunks
 SPEAKER_EMBEDDING_MINUTES = (1.0, 1.0, 1.0)
 INFERENCE_BATCH = 32
@@ -2571,13 +2608,14 @@ def check_embedders(device, workdir: Path, card: str) -> Path:
         for label, build, precision in routes:
             ours, cpu = build(device), build("cpu")
             texts = []
+            rows = EMBED_CPU_ROWS.get(label, EMBED_BATCH)
             start = time.perf_counter()
-            for name, m in (("unmasked", None), ("masked", masks)):
-                a, b = ours(wav, m), cpu(wav, m)
+            for name, m in (("unmasked", None), ("masked", masks[:rows])):
+                a, b = ours(wav[:rows], m), cpu(wav[:rows], m)
                 ref = None
                 if precision == "bf16":
                     cpu.model.compute_dtype = torch.float32
-                    ref = cpu(wav, m)
+                    ref = cpu(wav[:rows], m)
                     cpu.model.compute_dtype = torch.bfloat16
                 texts.append(f"{name}: {embedding_agreement(label, a, b, ref)}"
                              f"; NaN rows {np.flatnonzero(np.isnan(a).all(-1))}"
@@ -2594,7 +2632,7 @@ def check_embedders(device, workdir: Path, card: str) -> Path:
                 f"(median of {EMBED_RUNS}, CUDA events; {card}); "
                 f"{flops / 1e12:.4f} TFLOP of convolutions and matmuls "
                 f"(torch's FlopCounterMode) = {flops / ms / 1e9:.1f} "
-                f"TFLOP/s; card vs CPU on all {EMBED_BATCH} rows "
+                f"TFLOP/s; card vs CPU on {rows} of the {EMBED_BATCH} rows "
                 f"({check_s:.1f} s with the CPU's passes)")
             for text in texts:
                 log(f"    {text}")
@@ -3258,11 +3296,11 @@ SINC_F64_GRAD_RTOL = 1e-9
 TRAIN_UPDATE_RTOL = 5e-2
 TRAIN_PARAM_UPDATE_RTOL = 2e-2
 TRAIN_LR = 1e-3
-# (x) the run: 2 epochs of 10 steps of 32 ten-second chunks over 6 train
+# (x) the run: 2 epochs of 5 steps of 32 ten-second chunks over 6 train
 # files of 9 minutes (2-4 speakers each, with overlap) and a 6-minute
 # development file (36 chunks: validation batches of 32 and 4)
 TRAIN_FILES, TRAIN_FILE_MINUTES, DEV_MINUTES = 6, 9.0, 6.0
-TRAIN_EPOCHS, TRAIN_STEPS, TRAIN_BATCH = 2, 10, 32
+TRAIN_EPOCHS, TRAIN_STEPS, TRAIN_BATCH = 2, 5, 32
 # resume_from epoch 0 against the uninterrupted run, on the card (cuDNN's
 # conv backward is not bit-deterministic, so the two runs part by
 # rounding): the resumed fit runs epoch 1 only and its Adam step counts
@@ -3710,7 +3748,7 @@ def step_split_ms(model, task, trainer, batch, runs: int = 3) -> dict:
 
 def check_training_run(device, protocol, workdir: Path) -> dict:
     """(x) Trainer.fit at full width on the card, at its defaults (the
-    accelerator gates unset, the LSTM at "default"): 2 epochs of 10
+    accelerator gates unset, the LSTM at "default"): 2 epochs of 5
     steps, validation on the development file, checkpoints; then the
     best checkpoint through Model.from_pretrained and resume_from."""
     from pyannote_audio_tpu_torch.core.model import Model
@@ -3911,7 +3949,7 @@ ARC_TRIAL_SPEAKERS, ARC_TRIAL_FILES, ARC_TRIAL_SECONDS = 4, 3, 3.0
 # forward and the within-batch MoM's)
 PIXIT_BATCH = 16
 PIXIT_CPU_CHUNKS = 2
-PIXIT_EPOCHS, PIXIT_STEPS = 2, 3
+PIXIT_EPOCHS, PIXIT_STEPS = 1, 3
 PIXIT_LR, PIXIT_WAVLM_LR, PIXIT_CLIP = 1e-3, 1e-5, 5.0
 PIXIT_MOVE_RTOL = 0.1
 PIXIT_MIN_MOM_SHARE = 0.5
@@ -3977,12 +4015,14 @@ def warm_step_report(label: str, trainer, epochs: int, batch: int,
     """Median warm step (the last epoch's) from ``trainer.step_timings``:
     host batch wait, host queueing, card ms; steps/s and audio-hours seen
     per hour."""
-    timings = [t for t in trainer.step_timings if t[0] == epochs - 1]
+    # the fit's first step (cold plans) is left out of a one-epoch fit
+    timings = [t for t in trainer.step_timings[1:] if t[0] == epochs - 1]
     batch_ms = statistics.median(t[1] for t in timings) * 1e3
     queue_ms = statistics.median(t[2] for t in timings) * 1e3
     card_ms = statistics.median(t[3] for t in timings)
     steps_per_s = 1e3 / max(batch_ms + queue_ms, card_ms)
-    log(f"{label} warm step (epoch {epochs - 1}, median): host batch wait "
+    log(f"{label} warm step (epoch {epochs - 1} without the fit's first "
+        f"step, median of {len(timings)}): host batch wait "
         f"{batch_ms:.1f} ms + host queueing {queue_ms:.1f} ms, card "
         f"{card_ms:.1f} ms; {steps_per_s:.3f} steps/s, "
         f"{steps_per_s * batch * seconds:.0f} audio-hours seen per hour")
@@ -4402,37 +4442,486 @@ def phase_training_more(device, workdir: Path, card: str, protocol) -> dict:
     return out
 
 
+# -- phase 13: the entry points ----------------------------------------------
+
+# (A)-(F) on the community-1 snapshot (its config.yaml) over three files of
+# 10, 3 and 1 minutes, the last one sent twice to the server; (C)-(D) on
+# two files of (x)'s protocol, registered from a YAML registry
+ENTRY_MINUTES = (10.0, 3.0, 1.0)
+ENTRY_PROTOCOL = "Synthetic.SpeakerDiarization.Entry"
+ENTRY_TOKEN = "entry-token"
+ENTRY_TRIALS, ENTRY_RESUMED = 4, 2
+# the CLI's DER report against metrics/der on the same outputs and
+# references: the same sums, up to the CSV's decimal text
+ENTRY_DER_ATOL = 1e-9
+WARMUP_SECONDS = 60.0
+
+
+def cli(*args) -> int:
+    """The port's CLI in this process."""
+    from pyannote_audio_tpu_torch.__main__ import main as cli_main
+    return cli_main([str(a) for a in args])
+
+
+def check_cli_apply(device, snapshot: Path, wavs: Path, files: list,
+                    root: Path) -> int:
+    """(A) ``python -m pyannote_audio_tpu_torch apply`` with no --device
+    against the same pipeline in this process; the same command without
+    a visible card; ``main`` in this process against ``apply_batch``."""
+    from pyannote_audio_tpu_torch import Pipeline
+    here = Path(__file__).resolve().parent
+    command = [sys.executable, "-m", "pyannote_audio_tpu_torch", "apply",
+               str(snapshot), str(wavs), "--into"]
+    start = time.perf_counter()
+    proc = subprocess.run(command + [str(root / "apply")], cwd=here,
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - start
+    if proc.returncode != 0:
+        raise AssertionError(f"(A) apply exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    pipeline = Pipeline.from_pretrained(snapshot, device=device)
+    reset_lstm()
+    outputs = pipeline([dict(f) for f in files])
+    torch.cuda.synchronize()
+    batch_launches = lstm_launches()
+    differ = []
+    for f, output in zip(files, outputs):
+        stem = Path(f["audio"]).stem
+        written = json.loads((root / "apply" / f"{stem}.json").read_text())
+        rttm = io.StringIO()
+        output.speaker_diarization.write_rttm(rttm)
+        if written != json.loads(json.dumps(output.serialize())) or \
+                (root / "apply" / f"{stem}.rttm").read_text() != \
+                rttm.getvalue():
+            differ.append(stem)
+    log(f"(A) python -m pyannote_audio_tpu_torch apply <snapshot> <3 WAVs, "
+        f"{sum(ENTRY_MINUTES):g} min> --into <dir> (no --device): exit 0 "
+        f"in {wall:.2f} s wall (a new process: start-up, CUDA context, "
+        f"loading, 3 files); RTTM and JSON of {len(files)} files equal to "
+        f"the in-process pipeline's: {len(files) - len(differ)} of "
+        f"{len(files)} (limit: all){'; differ: ' + str(differ) if differ else ''}")
+    if differ:
+        raise AssertionError(f"(A) the CLI's outputs differ on {differ}")
+
+    proc = subprocess.run(command + [str(root / "apply-no-card")], cwd=here,
+                          capture_output=True, text=True, timeout=600,
+                          env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    last = (proc.stderr.strip().splitlines() or [""])[-1]
+    log(f"(A) the same command with CUDA_VISIBLE_DEVICES=\"\": exit "
+        f"{proc.returncode} (limit: not 0), no output files: "
+        f"{not (root / 'apply-no-card').exists()}; {last[:200]}")
+    if proc.returncode == 0 or (root / "apply-no-card").exists():
+        raise AssertionError("(A) apply ran without a card")
+
+    reset_lstm()
+    rc = cli("apply", snapshot, wavs, "--into", root / "apply-main")
+    torch.cuda.synchronize()
+    launches = lstm_launches()
+    expected = 2 * len(segmentation_batches(ENTRY_MINUTES))
+    log(f"(A) main([\"apply\", ...]) in this process: exit {rc}; "
+        f"lstm_recurrence launches {launches}, apply_batch on the same list "
+        f"{batch_launches} (limit: equal, and {expected} = 2 layers x "
+        f"{expected // 2} batches of {BATCH_SIZE} chunks)")
+    if rc != 0 or not launches == batch_launches == expected:
+        raise AssertionError("(A) main's launches differ from apply_batch's")
+
+    loaded = cli("download", snapshot)
+    hub = cli("download", "pyannote/speaker-diarization-community-1")
+    log(f"(A) main([\"download\", <snapshot>]) (no --device: the card) "
+        f"exit {loaded} (limit 0); a hub id exit {hub} (limit 1)")
+    if loaded != 0 or hub != 1:
+        raise AssertionError("(A) download is off")
+    return launches
+
+
+def check_server(device, snapshot: Path, files: list) -> int:
+    """(B) DiarizationServer on 127.0.0.1 with a token: four jobs at once
+    from the port's client (the three files and a repeat), the SDK, a
+    wrong token, a corrupt upload."""
+    import urllib.error
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pyannote_audio_tpu_torch import Pipeline
+    from pyannote_audio_tpu_torch.pipelines.pyannoteai import SDK
+    from pyannote_audio_tpu_torch.pipelines.pyannoteai.client import (
+        Client, PyannoteAIFailedJob)
+    from pyannote_audio_tpu_torch.serve import DiarizationServer
+    api_output = DiarizationServer._serialize
+    pipeline = Pipeline.from_pretrained(snapshot, device=device)
+    expected = {f["audio"]: api_output(pipeline(dict(f))) for f in files}
+    server = DiarizationServer(pipeline, host="127.0.0.1", port=0,
+                               token=ENTRY_TOKEN).start()
+    try:
+        client = Client(ENTRY_TOKEN, base_url=server.api_url,
+                        poll_interval=0.01, timeout=300.0)
+        paths = [f["audio"] for f in files] + [files[-1]["audio"]]
+        media = [client.upload(path) for path in paths]
+
+        def request(k):
+            start = time.perf_counter()
+            job = client.retrieve(client.diarize(media[k]))
+            return job, time.perf_counter() - start
+        reset_lstm()
+        with ThreadPoolExecutor(len(paths)) as pool:
+            results = list(pool.map(request, range(len(paths))))
+        torch.cuda.synchronize()
+        launches = lstm_launches()
+        counts = dict(server.counts)
+        equal = [job["status"] == "succeeded"
+                 and job["output"] == expected[path]
+                 for path, (job, _) in zip(paths, results)]
+        want = 2 * len(segmentation_batches(ENTRY_MINUTES
+                                            + ENTRY_MINUTES[-1:]))
+        log(f"(B) DiarizationServer at {server.api_url}: {len(paths)} jobs "
+            f"at once (10, 3, 1 min and the 1 min again): "
+            f"{sum(equal)} of {len(paths)} succeeded with output == "
+            f"pipeline(file).serialize() (limit: all); latency per request "
+            f"(diarize to retrieved, 10 ms polls) "
+            f"{[round(t, 3) for _, t in results]} s; server counts "
+            f"{counts} (limits: batch_failures 0, retried_jobs 0, "
+            f"batched_jobs >= 2); lstm_recurrence launches {launches} "
+            f"(limit {want})")
+        if not all(equal) or counts["batch_failures"] or \
+                counts["retried_jobs"] or counts["batched_jobs"] < 2 or \
+                launches != want:
+            raise AssertionError("(B) the server's jobs did not ride "
+                                 "clean batches to the pipeline's outputs")
+
+        sdk = SDK(token=ENTRY_TOKEN)
+        sdk._client = client
+        start = time.perf_counter()
+        output = sdk.apply(files[1]["audio"])
+        sdk_s = time.perf_counter() - start
+        same = api_output(output) == expected[files[1]["audio"]]
+        wrong = Client("wrong", base_url=server.api_url)
+        try:
+            wrong.diarize(media[0])
+            code = 200
+        except urllib.error.HTTPError as error:
+            code = error.code
+        bad = client.upload(b"this is not audio")
+        before = dict(server.counts)
+        ids = [client.diarize(m) for m in (media[1], bad, media[2])]
+        outcomes = []
+        for job_id, path in zip(ids, (paths[1], None, paths[2])):
+            try:
+                job = client.retrieve(job_id)
+                outcomes.append(job["output"] == expected[path])
+            except PyannoteAIFailedJob:
+                outcomes.append("failed" if path is None else False)
+        after = {k: server.counts[k] - before[k] for k in before}
+        log(f"(B) SDK.apply on the 3 min file in {sdk_s:.3f} s: equal to the "
+            f"pipeline's output: {same} (limit True); a wrong token: HTTP "
+            f"{code} (limit 401); a corrupt upload between two good ones: "
+            f"{outcomes} (limit [True, 'failed', True]), server counts of "
+            f"that round {after}")
+        if not same or code != 401 or outcomes != [True, "failed", True]:
+            raise AssertionError("(B) SDK, auth or job isolation failed")
+    finally:
+        server.shutdown()
+    return launches
+
+
+def write_entry_registry(root: Path, protocol) -> tuple:
+    """Two files of (x)'s protocol as the test and development subsets of
+    a pyannote.database registry written by the port's YAML writer."""
+    from pyannote_audio_tpu_torch.utils import yaml_subset
+    from pyannote_audio_tpu_torch.utils.rttm import dump_rttm, dump_uem
+    files = list(protocol.train())[:2]
+    dump_rttm({f["uri"]: f["annotation"] for f in files},
+              root / "entry.rttm")
+    dump_uem({f["uri"]: f["annotated"] for f in files}, root / "entry.uem")
+    audio = Path(files[0]["audio"]).parent
+    subset = {"annotation": str(root / "entry.rttm"),
+              "annotated": str(root / "entry.uem")}
+    registry = {"Databases": {"Synthetic": f"{audio}/{{uri}}.wav"},
+                "Protocols": {"Synthetic": {"SpeakerDiarization": {"Entry": {
+                    "test": subset, "development": dict(subset)}}}}}
+    return yaml_subset.dump_file(registry, root / "database.yml"), files
+
+
+def check_benchmark(device, snapshot: Path, registry: Path,
+                    root: Path) -> int:
+    """(C) the CLI's benchmark against metrics/der on the same outputs."""
+    from pyannote_audio_tpu_torch import Pipeline
+    from pyannote_audio_tpu_torch.metrics.der import DiarizationErrorRate
+    from pyannote_audio_tpu_torch.utils import yaml_subset
+    from pyannote_audio_tpu_torch.utils.database import get_protocol
+    into = root / "benchmark"
+    reset_lstm()
+    start = time.perf_counter()
+    rc = cli("benchmark", snapshot, ENTRY_PROTOCOL, into, "--registry",
+             registry)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches = lstm_launches()
+    with open(into / "metric.csv") as f:
+        rows = {row["uri"]: row for row in csv.DictReader(f)}
+    pipeline = Pipeline.from_pretrained(snapshot, device=device)
+    metric = DiarizationErrorRate()
+    worst = 0.0
+    for file in get_protocol(ENTRY_PROTOCOL).test():
+        hypothesis = pipeline(dict(file)).speaker_diarization
+        components = metric(file["annotation"], hypothesis,
+                            uem=file.get("annotated"), detailed=True)
+        for key, value in components.items():
+            worst = max(worst, abs(float(rows[file["uri"]][key]) - value))
+    speed = yaml_subset.load_file(into / "speed.yml")
+    total = metric.report()["diarization error rate"]
+    log(f"(C) benchmark {ENTRY_PROTOCOL} (2 x {TRAIN_FILE_MINUTES:g} min) "
+        f"from a YAML registry: exit {rc} in {wall:.2f} s; its DER report "
+        f"against metrics/der on the in-process outputs: largest difference "
+        f"{worst:.3e} (limit {ENTRY_DER_ATOL}); DER {total:.4f} (random "
+        f"weights); speed.yml read back: {speed}; lstm_recurrence launches "
+        f"{launches}")
+    if rc != 0 or worst > ENTRY_DER_ATOL or len(rows) != 2 or \
+            not speed["seconds_per_hour"] > 0:
+        raise AssertionError("(C) the benchmark's report is off")
+    return launches
+
+
+def check_optimize(snapshot: Path, registry: Path, root: Path) -> dict:
+    """(D) the CLI's optimize, ENTRY_TRIALS trials then ENTRY_RESUMED
+    more from its journal: each run segments and embeds each file once."""
+    into = root / "optimize"
+    journal = into / "journal.jsonl"
+    one_pass = 2 * len(segmentation_batches((TRAIN_FILE_MINUTES,) * 2))
+    launches, walls = [], []
+    # the resumed run takes another seed: with the first run's, its random
+    # startup trials would repeat that run's draws (in the JAX package
+    # too: a sampler's generators restart from the seed)
+    for trials, seed in ((ENTRY_TRIALS, 42), (ENTRY_RESUMED, 43)):
+        reset_lstm()
+        start = time.perf_counter()
+        rc = cli("optimize", snapshot, ENTRY_PROTOCOL, into, "--registry",
+                 registry, "--subset", "test", "--trials", trials, "--seed",
+                 seed)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - start)
+        launches.append(lstm_launches())
+        if rc != 0:
+            raise AssertionError("(D) optimize failed")
+    trials = [json.loads(line) for line in journal.read_text().splitlines()]
+    first = [t["params"] for t in trials[:ENTRY_TRIALS]]
+    new = all(t["params"] not in first for t in trials[ENTRY_TRIALS:])
+    log(f"(D) optimize, {ENTRY_TRIALS} trials then {ENTRY_RESUMED} resumed "
+        f"from the journal, on 2 x {TRAIN_FILE_MINUTES:g} min: journal "
+        f"{len(trials)} lines (limit {ENTRY_TRIALS + ENTRY_RESUMED}), trial "
+        f"numbers {[t['trial'] for t in trials]}, resumed trials new: {new}"
+        f" (limit True); objectives {[round(t['objective'], 4) for t in trials]}"
+        f"; lstm_recurrence launches per run {launches} over "
+        f"{ENTRY_TRIALS} and {ENTRY_RESUMED} trials (limit: {one_pass} "
+        f"each, one pass over the two files; {one_pass * ENTRY_TRIALS} and "
+        f"{one_pass * ENTRY_RESUMED} without the training caches); walls "
+        f"{[round(w, 2) for w in walls]} s")
+    if len(trials) != ENTRY_TRIALS + ENTRY_RESUMED or not new or \
+            [t["trial"] for t in trials] != list(range(len(trials))) or \
+            launches != [one_pass, one_pass]:
+        raise AssertionError("(D) optimize did not resume, or reran the "
+                             "models across trials")
+    return {f"per run ({ENTRY_TRIALS} and {ENTRY_RESUMED} trials)": launches}
+
+
+def check_calibration_and_optimizer(root: Path) -> None:
+    """(E) Calibration, its file and get_calibration, the TPE optimizer
+    and get_devices on this machine's installation, with none of
+    scikit-learn, safetensors or PyYAML loaded."""
+    from pyannote_audio_tpu_torch.core.calibration import Calibration
+    from pyannote_audio_tpu_torch.core.optimizer import (Optimizer,
+                                                         TPESampler)
+    from pyannote_audio_tpu_torch.core.parameter import (Categorical,
+                                                         ParamDict, Uniform)
+    from pyannote_audio_tpu_torch.pipelines.utils.getter import (
+        get_calibration, get_devices)
+    rng = np.random.default_rng(30)
+    scores = rng.uniform(0.0, 2.0, 4000)
+    labels = (rng.uniform(size=scores.size)
+              < 1 / (1 + np.exp(4 * (scores - 1)))).astype(np.float64)
+    calibration = Calibration().fit(scores, labels)
+    (root / "calibration").mkdir(parents=True, exist_ok=True)
+    calibration.save(root / "calibration" / "calibration.safetensors")
+    loaded = get_calibration({"checkpoint": str(root / "calibration")})
+    grid = np.linspace(-0.5, 2.5, 301)
+    test = np.tile(grid, (4, 1))
+    test[1, ::7] = np.nan
+    a, b = calibration.safe_transform(test), loaded.safe_transform(test)
+    err = float(np.nanmax(np.abs(a - b)))
+    steps = np.diff(a[0])
+    monotone = bool((steps <= 0).all() or (steps >= 0).all())
+    inside = bool(np.nanmin(a) >= 0.0 and np.nanmax(a) <= 1.0)
+    nan_kept = bool(np.array_equal(np.isnan(a), np.isnan(test)))
+
+    def study():
+        space = {"clustering": ParamDict(threshold=Uniform(0.0, 2.0),
+                                         method=Categorical(["a", "b"]))}
+        opt = Optimizer(space, sampler=TPESampler(seed=3))
+        for params in opt.suggestions(30):
+            c = params["clustering"]
+            opt.tell(params, (c["threshold"] - 0.7) ** 2
+                     + (c["method"] == "a"))
+        return opt.history, opt.best
+    (history, best), again = study(), study()
+    devices = get_devices(2)
+    loaded_modules = sorted(m for m in sys.modules if m.split(".")[0] in (
+        "sklearn", "safetensors", "yaml"))
+    log(f"(E) Calibration on 4000 seeded scores ({len(calibration.X_thresholds_)} "
+        f"thresholds, increasing {calibration.increasing_}): save -> "
+        f"get_calibration(dict) transform difference {err:.1e} (limit 0.0), "
+        f"monotone {monotone}, in [0, 1] {inside}, NaN kept {nan_kept}; "
+        f"TPE over 30 trials reproducible: {(history, best) == again} "
+        f"(best {best[1]:.5f} at {best[0]}); get_devices(2) {devices}; "
+        f"sklearn / safetensors / yaml modules loaded: {loaded_modules} "
+        f"(limit none)")
+    if err != 0.0 or not (monotone and inside and nan_kept) or \
+            (history, best) != again or loaded_modules or \
+            devices != [torch.device("cuda", 0)] * 2:
+        raise AssertionError("(E) calibration, optimizer or imports off")
+
+
+# (F)'s new process: load the snapshot on the card, optionally warm up,
+# then time one apply of a file; prints one JSON line
+FIRST_REQUEST = """
+import json, sys, time
+import torch
+from pyannote_audio_tpu_torch import Pipeline
+from pyannote_audio_tpu_torch.ops.lstm_kernel import \\
+    lstm_bidirectional_recurrence as kernel
+snapshot, audio, warmup = sys.argv[1], sys.argv[2], float(sys.argv[3])
+times = {}
+start = time.perf_counter()
+pipeline = Pipeline.from_pretrained(snapshot)
+torch.cuda.synchronize()
+times["load_s"] = time.perf_counter() - start
+kernel.launches = 0
+if warmup:
+    start = time.perf_counter()
+    pipeline.warmup(duration=warmup)
+    torch.cuda.synchronize()
+    times["warmup_s"] = time.perf_counter() - start
+times["warmup_launches"], kernel.launches = kernel.launches, 0
+start = time.perf_counter()
+output = pipeline({"audio": audio, "uri": "first"})
+torch.cuda.synchronize()
+times["apply_s"] = time.perf_counter() - start
+print(json.dumps(dict(times, launches=kernel.launches,
+                      output=output.serialize())))
+"""
+
+
+def first_request(snapshot: Path, audio: str, warmup: float) -> dict:
+    """FIRST_REQUEST in a new process (``warmup`` seconds, 0 for none)."""
+    proc = subprocess.run(
+        [sys.executable, "-c", FIRST_REQUEST, str(snapshot), audio,
+         str(warmup)], cwd=Path(__file__).resolve().parent,
+        capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"(F) the new process exited "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def check_warmup(device, snapshot: Path, file: dict, card: str) -> dict:
+    """(F) a cold server's first request: in a new process, apply on the
+    1-minute file with and without a warmup(duration=WARMUP_SECONDS)
+    before it; both outputs equal this process's pipeline's."""
+    from pyannote_audio_tpu_torch import Pipeline
+    cold = first_request(snapshot, file["audio"], 0.0)
+    warm = first_request(snapshot, file["audio"], WARMUP_SECONDS)
+    pipeline = Pipeline.from_pretrained(snapshot, device=device)
+    expected = pipeline(dict(file, uri="first")).serialize()
+    want = 2 * len(segmentation_batches(ENTRY_MINUTES[-1:]))
+    want_warmup = 2 * len(segmentation_batches((WARMUP_SECONDS / 60,)))
+    log(f"(F) the first request of a new process, on the 1-minute file "
+        f"({card}): cold {cold['apply_s']:.3f} s (after loading "
+        f"{cold['load_s']:.3f} s); after warmup(duration="
+        f"{WARMUP_SECONDS:g}) of {warm['warmup_s']:.3f} s (loading "
+        f"{warm['load_s']:.3f} s) {warm['apply_s']:.3f} s; outputs equal "
+        f"to this process's pipeline's: {cold['output'] == expected}, "
+        f"{warm['output'] == expected} (limit True, True); lstm_recurrence "
+        f"launches: apply {cold['launches']} and {warm['launches']} (limit "
+        f"{want}), warmup {warm['warmup_launches']} (limit {want_warmup})")
+    if not cold["output"] == warm["output"] == expected or \
+            not cold["launches"] == warm["launches"] == want or \
+            warm["warmup_launches"] != want_warmup:
+        raise AssertionError("(F) the first request is off")
+    return {"cold apply": cold["launches"],
+            "warmup": warm["warmup_launches"],
+            "apply after warmup": warm["launches"]}
+
+
+def phase_entry_points(device, workdir: Path, card: str, protocol) -> dict:
+    """Phase 13: the CLI, the server, benchmark, optimize, calibration and
+    warmup on the community-1 snapshot; returns each path's launches."""
+    log(f"phase 13, the entry points, on {card}")
+    set_gates(None)
+    start = time.perf_counter()
+    root = workdir / "entry"
+    snapshot = root / "snapshot"
+    write_community_snapshot(snapshot)
+    wavs = root / "wavs"
+    wavs.mkdir(parents=True)
+    files = write_files(wavs, ENTRY_MINUTES)
+    registry, _ = write_entry_registry(root, protocol)
+    launches = {"CLI apply (A)": check_cli_apply(device, snapshot, wavs,
+                                                 files, root)}
+    launches["server (B)"] = check_server(device, snapshot, files)
+    launches["CLI benchmark (C)"] = check_benchmark(device, snapshot,
+                                                    registry, root)
+    launches["CLI optimize (D)"] = check_optimize(snapshot, registry, root)
+    check_calibration_and_optimizer(root)
+    launches["first request (F)"] = check_warmup(device, snapshot,
+                                                 files[-1], card)
+    log(f"phase 13 took {time.perf_counter() - start:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run",
               file=sys.stderr)
         return 1
     device = torch.device("cuda", 0)
-    card = phase_environment()
-    phase_build()
-    record = phase_kernels(device)
-    record["training_shape"] = check_kernel_autograd(device)
+    walls = {}
+
+    def timed(name, fn, *args):
+        """``fn(*args)``, its wall time kept under ``name``."""
+        start = time.perf_counter()
+        out = fn(*args)
+        walls[name] = round(time.perf_counter() - start, 1)
+        return out
+
+    card = timed("1 environment", phase_environment)
+    timed("2 build", phase_build)
+    record = timed("3 kernels", phase_kernels, device)
+    record["training_shape"] = timed("3 kernels under autograd",
+                                     check_kernel_autograd, device)
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
-        launches["exact"] = phase_exact(device, Path(tmp))
-        pipeline, launches["accelerator"] = phase_accelerator(device,
-                                                              Path(tmp))
-        phase_serving(pipeline, device, Path(tmp))
-        phase_default_flags(device)
-        launches["community-1 (VBx)"], config = phase_community(
-            device, Path(tmp), pipeline)
-        launches.update(phase_vad_multilabel_audio(device, Path(tmp),
-                                                   pipeline, config))
-        launches.update(phase_embedders(device, Path(tmp), config, card))
-        launches.update(phase_separation(device, Path(tmp), card))
-        protocol = write_training_protocol(Path(tmp))
-        training = phase_training(device, Path(tmp), card, protocol)
+        work = Path(tmp)
+        launches["exact"] = timed("4 exact path", phase_exact, device, work)
+        pipeline, launches["accelerator"] = timed(
+            "5 accelerator path", phase_accelerator, device, work)
+        timed("6 serving", phase_serving, pipeline, device, work)
+        timed("7 (k) default flags", phase_default_flags, device)
+        launches["community-1 (VBx)"], config = timed(
+            "7 (l) community-1", phase_community, device, work, pipeline)
+        launches.update(timed("8 VAD, multilabel, audio",
+                              phase_vad_multilabel_audio, device, work,
+                              pipeline, config))
+        launches.update(timed("9 embedders", phase_embedders, device, work,
+                              config, card))
+        launches.update(timed("10 SSeRiouSS, separation", phase_separation,
+                              device, work, card))
+        protocol = timed("11 protocol", write_training_protocol, work)
+        training = timed("11 training (x)", phase_training, device, work,
+                         card, protocol)
         launches["training (x)"] = {
             "per step": training["launches_per_step"],
             "per validation": training["launches_per_validation"],
             "fit": training["launches"]}
         record["training"] = training
-        more = phase_training_more(device, Path(tmp), card, protocol)
+        more = timed("12 training (y), (z)", phase_training_more, device,
+                     work, card, protocol)
         launches["arcface (y)"] = {"fit": more["arcface"]["launches"]}
         launches["pixit (z)"] = {
             "per step": more["pixit"]["launches_per_step"],
@@ -4440,9 +4929,14 @@ def main() -> int:
             "fit": more["pixit"]["launches"]}
         record["training_embedding"] = more["arcface"]
         record["training_pixit"] = more["pixit"]
+        launches.update(timed("13 entry points", phase_entry_points, device,
+                              work, card, protocol))
     log(f"lstm_recurrence launches per path: {launches}")
+    log(f"wall per phase, s ({card}): {walls}; total "
+        f"{sum(walls.values()):.1f}")
     record["launches"] = launches["accelerator"]
     record["launches_per_path"] = launches
+    record["phase_walls_s"] = walls
     print(json.dumps({"kernels": [record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

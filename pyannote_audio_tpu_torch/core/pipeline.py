@@ -14,8 +14,8 @@ registered model and ``Inference``.
 
 A list of files goes to the subclass's ``apply_batch`` when it has one,
 else through ``apply`` one file after another while a worker thread
-decodes the next. ``yaml`` is imported only where a ``.yaml`` file is read
-or written.
+decodes the next. ``config.yaml`` is read and written by
+``utils/yaml_subset.py`` (no PyYAML).
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ from typing import Any, Callable, Dict, List, Optional, Union
 import torch
 from torch import nn
 
-from ..utils import native
+from ..utils import native, yaml_subset
 from ..utils.runtime import check_device
 from .inference import Inference, pin_waveform
 from .io import Audio, AudioFile, get_audio_metadata
@@ -242,9 +242,7 @@ class Pipeline:
                     f"{checkpoint} is neither a directory nor a config "
                     f"file: this package loads local snapshots only (it "
                     f"has no hub access)")
-            import yaml
-            with open(config_yml) as f:
-                config = yaml.safe_load(f)
+            config = yaml_subset.load_file(config_yml)
 
         config = expand_subfolders(config, model_id)
         if "pipeline" not in config:
@@ -310,12 +308,10 @@ class Pipeline:
 
     def save_config(self, path: Union[str, Path]) -> Path:
         """Write ``dump_config()`` to ``path/config.yaml``."""
-        import yaml
         path = Path(path)
         path.mkdir(parents=True, exist_ok=True)
-        with open(path / PIPELINE_CONFIG, "w") as f:
-            yaml.safe_dump(self.dump_config(), f)
-        return path / PIPELINE_CONFIG
+        return yaml_subset.dump_file(self.dump_config(),
+                                     path / PIPELINE_CONFIG)
 
     # -- devices ----------------------------------------------------------------
 

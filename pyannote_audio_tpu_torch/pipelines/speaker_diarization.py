@@ -24,6 +24,14 @@ embedder (the x-vectors) takes the per-chunk path, in batches, on
 long-file slices too, and its minimum speech comes from
 ``speaker_verification.analytic_min_num_samples``.
 
+With ``training`` set (the CLI's ``optimize``), a file dict keeps its
+segmentation under ``training_cache/segmentation`` and its embeddings
+under ``training_cache/embeddings`` (the latter keyed on
+``segmentation.threshold`` for a non-powerset model), so a second pass
+over the same dict with other clustering or post-processing
+hyperparameters runs neither model; the shared trunk is not started
+early, as in the JAX package. Both caches hold device tensors.
+
 ``apply`` is ``_finalize(_stage(file))``. ``_stage`` queues a file's whole
 device program (segmentation, the early shared trunk, count and
 statistics, masks and embeddings) and starts the copies of its small
@@ -57,6 +65,7 @@ reconstruction.
 from __future__ import annotations
 
 import functools
+import itertools
 import math
 import textwrap
 import threading
@@ -92,6 +101,14 @@ from .utils.diarization import SpeakerDiarizationMixin, set_num_speakers
 from .utils.getter import PipelineModel, get_model, get_plda
 
 
+def batchify(iterable, batch_size: int = 32, fillvalue=None):
+    """Tuples of ``batch_size`` items, the last padded with
+    ``fillvalue``: batchify("ABCDEFG", 3) -> ("A", "B", "C"),
+    ("D", "E", "F"), ("G", None, None)."""
+    args = [iter(iterable)] * batch_size
+    return itertools.zip_longest(*args, fillvalue=fillvalue)
+
+
 @dataclass
 class DiarizeOutput:
     """Diarization, its exclusive variant, and one centroid per speaker."""
@@ -99,6 +116,18 @@ class DiarizeOutput:
     speaker_diarization: Annotation
     exclusive_speaker_diarization: Annotation
     speaker_embeddings: Optional[np.ndarray] = None
+
+    def serialize(self) -> Dict[str, Any]:
+        """The turns of both annotations as JSON-ready dicts (times
+        rounded to the millisecond), as the JAX package serializes them."""
+        def turns(annotation: Annotation):
+            return [{"start": round(segment.start, 3),
+                     "end": round(segment.end, 3), "speaker": label}
+                    for segment, _, label in
+                    annotation.itertracks(yield_label=True)]
+        return {"diarization": turns(self.speaker_diarization),
+                "exclusive_diarization":
+                    turns(self.exclusive_speaker_diarization)}
 
 
 class EmbeddingMixin:
@@ -114,6 +143,8 @@ class EmbeddingMixin:
     TRUNK_PANEL_CORE = 512
     TRUNK_PANEL_HALO = 64
     TRUNK_PANEL_BATCH = 8
+    # file-dict key of the training cache, as in the JAX package
+    CACHED_EMBEDDINGS = "training_cache/embeddings"
 
     def _frame_shift_samples(self) -> int:
         emb = self._embedding
@@ -268,10 +299,17 @@ class EmbeddingMixin:
         shared-trunk path). A file past the memory budget runs in slices:
         each slice's front-end (trunk, fbank or chunks) is computed from
         its own upload and released after its batches. Returns a host
-        array, or the device tensor with ``defer_fetch``. ``hook`` gets
-        ``("embeddings", None, total=batches, completed=...)`` before the
-        first batch and after each.
+        array, or the device tensor with ``defer_fetch``; in training the
+        device tensor is also kept in ``cache`` (the file dict) under
+        ``training_cache/embeddings`` and returned from there while it is
+        valid. ``hook`` gets ``("embeddings", None,
+        total=batches, completed=...)`` before the first batch and after
+        each.
         """
+        if self.training:
+            cached = self._cached_embeddings(cache)
+            if cached is not None:
+                return cached if defer_fetch else cached.cpu().numpy()
         scores = binarized.data
         num_chunks, num_frames, _ = scores.shape
         emb = self._embedding
@@ -382,7 +420,26 @@ class EmbeddingMixin:
                 # the queued work holds its buffers until it has run
                 release_upload(gi)
         embeddings = torch.cat(out) if len(out) > 1 else out[0]
+        if self.training and cache is not None:
+            entry = {"embeddings": embeddings}
+            if not getattr(self, "_powerset", False):
+                entry["segmentation.threshold"] = self.segmentation.threshold
+            cache[self.CACHED_EMBEDDINGS] = entry
         return embeddings if defer_fetch else embeddings.cpu().numpy()
+
+    def _cached_embeddings(self, file) -> Optional[torch.Tensor]:
+        """The embeddings cached in a file dict in training, if they are
+        still valid (a non-powerset model's depend on its binarization
+        threshold)."""
+        entry = file.get(self.CACHED_EMBEDDINGS) \
+            if isinstance(file, Mapping) else None
+        if not entry or "embeddings" not in entry:
+            return None
+        if getattr(self, "_powerset", False) or \
+                entry.get("segmentation.threshold") == \
+                self.segmentation.threshold:
+            return entry["embeddings"]
+        return None
 
 
 class SpeakerDiarization(SpeakerDiarizationMixin, EmbeddingMixin,
@@ -406,6 +463,8 @@ class SpeakerDiarization(SpeakerDiarizationMixin, EmbeddingMixin,
 
     # apply_batch streams its own decode
     STREAMS_DECODE = True
+    # file-dict key of the training cache, as in the JAX package
+    CACHED_SEGMENTATION = "training_cache/segmentation"
 
     def __init__(self, segmentation: PipelineModel = None,
                  embedding: Optional[PipelineModel] = None,
@@ -518,6 +577,58 @@ class SpeakerDiarization(SpeakerDiarizationMixin, EmbeddingMixin,
 
     # -- apply --------------------------------------------------------------
 
+    def warmup(self, duration: float = 600.0, **kwargs) -> None:
+        """Run one synthetic ``duration``-second file through ``__call__``
+        (the JAX package's recipe: noise and a harmonic voice every 7 s,
+        loud enough that trained models find speakers), so that the
+        kernel build, cuDNN's plans and the embedding, clustering and
+        reconstruction paths are warm before serving. ``kwargs`` go to
+        ``apply`` (for example ``max_speakers``)."""
+        sr = self._audio.sample_rate
+        n = int(duration * sr)
+        rng = np.random.default_rng(0)
+        t = np.arange(n) / sr
+        waveform = 0.003 * rng.standard_normal(n).astype(np.float32)
+        seg_len = 5.0
+        for i, start in enumerate(
+                np.arange(0.0, max(duration - seg_len, 0.0), 7.0)):
+            f0 = [140.0, 210.0, 320.0][i % 3]
+            i0, i1 = int(start * sr), int((start + seg_len) * sr)
+            tt = t[i0:i1]
+            waveform[i0:i1] += (
+                0.2 * np.sin(2 * np.pi * f0 * tt)
+                * (0.5 + 0.5 * np.abs(np.sin(2 * np.pi * 3 * tt)))
+            ).astype(np.float32)
+        self({"waveform": waveform[None], "sample_rate": sr,
+              "uri": "__warmup__"}, **kwargs)
+
+    def get_segmentations(self, file, hook: Optional[Callable] = None,
+                          source=None, sample_rate: Optional[int] = None
+                          ) -> SlidingWindowFeature:
+        """The file's (chunks, frames, classes) segmentation scores on the
+        device. ``source`` is its uploaded waveform, or its host waveform
+        for a file that runs in slices (decoded and uploaded here when
+        None). In training the result is cached in the file dict."""
+        if self.training and self.CACHED_SEGMENTATION in file:
+            return file[self.CACHED_SEGMENTATION]
+        if source is None:
+            waveform, sample_rate = self._audio(file)
+            source = self._source(waveform, file)
+        segmentations = self._segmentation.slide(
+            source, sample_rate, cache=file,
+            hook=None if hook is None
+            else functools.partial(hook, "segmentation", None))
+        if self.training:
+            file[self.CACHED_SEGMENTATION] = segmentations
+        return segmentations
+
+    def _source(self, waveform: np.ndarray, file) -> Any:
+        """A whole file is uploaded once and shared by the stages; a long
+        file's slices are uploaded by the stages themselves."""
+        if self._plan(waveform.shape[1]) is not None:
+            return waveform
+        return _upload_waveform_cached(waveform, file, self.device)
+
     def preload(self, file) -> None:
         """Start a file's upload early (the segmentation's
         ``Inference.preload``: the whole waveform, or a long file's first
@@ -566,19 +677,21 @@ class SpeakerDiarization(SpeakerDiarizationMixin, EmbeddingMixin,
             else:
                 raise ValueError(f"num_speakers must be provided when using "
                                  f"{self.klustering} clustering")
-        waveform, sample_rate = self._audio(file)
-        # a whole file is uploaded once, here, and shared by the stages;
-        # a long file's slices are uploaded by the stages themselves
-        source = waveform if self._plan(waveform.shape[1]) is not None \
-            else _upload_waveform_cached(waveform, file, self.device)
+        waveform = source = sample_rate = None
+        # in training, a file whose caches hold what its models would give
+        # is not even decoded
+        if not (self.training and self.CACHED_SEGMENTATION in file and (
+                self._embedding is None
+                or self._cached_embeddings(file) is not None)):
+            waveform, sample_rate = self._audio(file)
+            source = self._source(waveform, file)
 
-        segmentations = self._segmentation.slide(
-            source, sample_rate, cache=file,
-            hook=functools.partial(hook, "segmentation", None))
+        segmentations = self.get_segmentations(
+            file, hook=hook, source=source, sample_rate=sample_rate)
         hook("segmentation", segmentations)
         # queued behind segmentation, before anything the host waits for
         trunk = self._start_shared_trunk(source) \
-            if self._embedding is not None else None
+            if self._embedding is not None and not self.training else None
         scores = segmentations.data                           # (C, F, S)
         binarized = segmentations
         if not self._powerset:
@@ -595,11 +708,13 @@ class SpeakerDiarization(SpeakerDiarizationMixin, EmbeddingMixin,
             binarized.data, offsets_dev, num_output_frames)
         fetch = {"count": count, "speaker_frames": speaker_frames,
                  "clean_frames": clean_frames}
+        embeddings = None
         if self._embedding is not None:
-            fetch["embeddings"] = self.get_embeddings(
+            embeddings = self.get_embeddings(
                 source, binarized,
                 exclude_overlap=self.embedding_exclude_overlap, trunk=trunk,
                 hook=hook, cache=file, defer_fetch=True)
+            fetch["embeddings"] = embeddings
         host, event = self._fetch_async(fetch)
         return {"file": file, "hook": hook, "num_speakers": num_speakers,
                 "min_speakers": min_speakers, "max_speakers": max_speakers,

@@ -1,6 +1,8 @@
-"""Resolve models, PLDA and pipelines from instances or local checkpoints.
+"""Resolve models, PLDA, calibrations and pipelines from instances or
+local checkpoints, and pick CUDA devices.
 
-Counterpart of ``get_model``, ``get_plda`` and ``get_pipeline`` of
+Counterpart of ``get_model``, ``get_plda``, ``get_pipeline``,
+``get_calibration`` and ``get_devices`` of
 pyannote_audio_tpu/pipelines/utils/getter.py. An instance comes back as
 it is; a path or a ``{"checkpoint": <dir>, "subfolder": ...}`` dict (what
 ``$model/...`` config placeholders expand to) is loaded from the local
@@ -10,10 +12,12 @@ disk. There is no hub access: an id that is not a local path raises.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Mapping, Union
+from typing import List, Mapping, Union
 
+import torch
 from torch import nn
 
+from ...core.calibration import CALIBRATION_FILE, Calibration
 from ...core.model import Model
 from ...core.plda import PLDA
 
@@ -54,3 +58,33 @@ def get_pipeline(pipeline, **kwargs):
     if isinstance(pipeline, Pipeline):
         return pipeline
     return Pipeline.from_pretrained(pipeline, **kwargs)
+
+
+def get_calibration(calibration) -> Calibration:
+    """A ``Calibration`` instance, or one loaded from a
+    ``calibration.safetensors`` file, a directory holding one, or a
+    ``{checkpoint, subfolder}`` dict."""
+    if isinstance(calibration, Calibration):
+        return calibration
+    if isinstance(calibration, Mapping):
+        path = Path(calibration["checkpoint"])
+        if path.exists():
+            if calibration.get("subfolder"):
+                path = path / calibration["subfolder"]
+            return Calibration.from_file(path / CALIBRATION_FILE)
+        return Calibration.from_pretrained(calibration["checkpoint"],
+                                           subfolder=calibration.get(
+                                               "subfolder"))
+    if Path(calibration).is_file():
+        return Calibration.from_file(calibration)
+    return Calibration.from_pretrained(calibration)
+
+
+def get_devices(needs: int = 1) -> List[torch.device]:
+    """``needs`` CUDA devices, round-robin over the cards there are;
+    without a card this raises (there is no CPU list)."""
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if count == 0:
+        raise RuntimeError("get_devices needs a CUDA device and none is "
+                           "available")
+    return [torch.device("cuda", i % count) for i in range(needs)]

@@ -3,8 +3,8 @@
 Counterpart of pyannote_audio_tpu/utils/database.py: a protocol yields
 file dicts ``{uri, audio, annotation, annotated}`` for each subset, built
 from in-memory lists or from RTTM / UEM / LST sidecar files, or declared
-in a ``database.yml`` of pyannote.database's shape (``register_database``;
-PyYAML is imported only there).
+in a ``database.yml`` of pyannote.database's shape (``register_database``,
+read by ``utils/yaml_subset.py``).
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from pathlib import Path
 from typing import Dict, Iterator, List, Optional, Union
 
 from ..core.annotation import Annotation, Timeline
+from . import yaml_subset
 from .rttm import load_lst, load_rttm, load_uem
 
 PathLike = Union[str, Path]
@@ -98,11 +99,8 @@ def register_database(path: PathLike) -> None:
 
     Relative paths are read from the file's directory.
     """
-    import yaml
-
     path = Path(path)
-    with open(path) as f:
-        config = yaml.safe_load(f)
+    config = yaml_subset.load_file(path)
     root = path.parent
 
     def resolve(p):

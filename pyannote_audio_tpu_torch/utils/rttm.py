@@ -1,15 +1,15 @@
-"""RTTM, UEM and LST file parsing.
+"""RTTM, UEM and LST files.
 
 Counterpart of pyannote_audio_tpu/utils/rttm.py: NIST RTTM speaker
 records, from which the oracle pipelines, the metrics and the protocols
-read reference annotations (``Annotation.write_rttm`` writes them), UEM
-evaluation maps and plain-text URI lists (``utils.database``).
+read reference annotations, UEM evaluation maps and plain-text URI lists
+(``utils.database``). The writers produce the JAX package's bytes.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, List, Union
+from typing import Dict, List, TextIO, Union
 
 from ..core.annotation import Annotation, Timeline
 from ..core.segment import Segment
@@ -38,6 +38,17 @@ def load_rttm(path: PathLike) -> Dict[str, Annotation]:
     return annotations
 
 
+def write_rttm(file: TextIO, *annotations: Annotation) -> None:
+    for annotation in annotations:
+        annotation.write_rttm(file)
+
+
+def dump_rttm(annotations: Dict[str, Annotation], path: PathLike) -> None:
+    """One RTTM file of every annotation, in URI order."""
+    with open(path, "w", encoding="utf-8") as f:
+        for uri in sorted(annotations):
+            annotations[uri].write_rttm(f)
+
 
 def load_uem(path: PathLike) -> Dict[str, Timeline]:
     """Parse a UEM file into one Timeline per URI."""
@@ -51,6 +62,14 @@ def load_uem(path: PathLike) -> Dict[str, Timeline]:
             timeline = timelines.setdefault(uri, Timeline(uri=uri))
             timeline.add(Segment(float(start), float(end)))
     return timelines
+
+
+def dump_uem(timelines: Dict[str, Timeline], path: PathLike) -> None:
+    """One UEM file of every timeline, in URI order."""
+    with open(path, "w", encoding="utf-8") as f:
+        for uri in sorted(timelines):
+            for segment in timelines[uri]:
+                f.write(f"{uri} 1 {segment.start:.3f} {segment.end:.3f}\n")
 
 
 def load_lst(path: PathLike) -> List[str]:

@@ -23,6 +23,7 @@ from pyannote_audio_tpu.ops import ahc as jax_ahc
 from pyannote_audio_tpu_torch.ops import ahc
 from pyannote_audio_tpu_torch.pipelines import clustering
 from test_torch_port_vbx import port_stats, same_partition, speakers
+from test_torch_port_models import one_torch_thread  # noqa: F401
 
 
 def blobs(n_clusters=3, per=12, dim=8, spread=0.05, seed=0):

@@ -46,6 +46,7 @@ from pyannote_audio_tpu_torch.utils.convert import (pyannet_state_dict,
 from pyannote_audio_tpu_torch.utils.runtime import exact_float32
 from test_torch_port_models import (SMALL_BLOCKS, SMALL_CHANNELS,
                                     jax_pyannet, jax_wespeaker)
+from test_torch_port_models import one_torch_thread  # noqa: F401
 
 CONFIG_PARAMS = {"segmentation": {"min_duration_off": 0.0},
                  "clustering": {"threshold": 0.6, "Fa": 0.07, "Fb": 0.8}}

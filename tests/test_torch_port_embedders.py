@@ -46,6 +46,7 @@ from pyannote_audio_tpu_torch.pipelines.speaker_diarization import \
 from pyannote_audio_tpu_torch.utils import onnx
 from pyannote_audio_tpu_torch.utils.convert import wespeaker_state_dict
 from test_torch_port_models import perturb
+from test_torch_port_models import one_torch_thread  # noqa: F401
 
 ECAPA_CFG = dict(n_mels=24, channels=(32, 32, 32, 32, 96),
                  kernel_sizes=(5, 3, 3, 3, 1), dilations=(1, 2, 3, 4, 1),

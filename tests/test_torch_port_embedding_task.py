@@ -54,6 +54,7 @@ from pyannote_audio_tpu_torch.utils.convert import (
 from pyannote_audio_tpu_torch.utils.database import Protocol
 from test_torch_port_models import perturb
 from test_torch_port_train import _port_file
+from test_torch_port_models import one_torch_thread  # noqa: F401
 
 LOSS_RTOL = 1e-5
 LR = 1e-3
@@ -61,14 +62,6 @@ EMBEDDING_ATOL = 2e-3
 EER_ATOL = 1e-6
 TASK = dict(duration=3.0, min_duration=1.0, num_classes_per_batch=3,
             num_chunks_per_class=2, seed=5)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

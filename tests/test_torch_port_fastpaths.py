@@ -51,6 +51,7 @@ from test_torch_port_models import (SmallWeSpeakerBF16, jax_pyannet,
                                     torch_wespeaker_from)
 from test_torch_port_pipeline import (PARAMS, _assert_same_annotation,
                                       _capture_clusters)
+from test_torch_port_models import one_torch_thread  # noqa: F401
 
 GATES = ("PYANNOTE_TPU_SEG_BF16", "PYANNOTE_TPU_SHARED_SINC",
          "PYANNOTE_TPU_SHARED_TRUNK")

@@ -40,6 +40,7 @@ from pyannote_audio_tpu_torch.pipelines.utils.hook import (ArtifactHook,
 from test_torch_port_models import (jax_pyannet, jax_wespeaker,
                                     torch_pyannet_from, torch_wespeaker_from)
 from test_torch_port_pipeline import PARAMS
+from test_torch_port_models import one_torch_thread  # noqa: F401
 
 SR = 16000
 STEPS = ("segmentation", "speaker_counting", "embeddings",

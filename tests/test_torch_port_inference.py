@@ -35,6 +35,7 @@ from pyannote_audio_tpu_torch.models.segmentation.pyannet import \
 from pyannote_audio_tpu_torch.utils.convert import (pyannet_state_dict,
                                                     write_reference_checkpoint)
 from test_torch_port_models import perturb
+from test_torch_port_models import one_torch_thread  # noqa: F401
 
 SR = 16000
 MODEL_TOL = 2e-4

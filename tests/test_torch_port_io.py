@@ -28,6 +28,7 @@ from pyannote_audio_tpu_torch.core.pipeline import Pipeline
 from pyannote_audio_tpu_torch.core.segment import Segment
 from pyannote_audio_tpu_torch.utils import native
 from test_native_fuzz import make_corpus
+from test_torch_port_models import one_torch_thread  # noqa: F401
 
 
 def _wave(channels, samples, seed):

@@ -35,6 +35,7 @@ from pyannote_audio_tpu_torch.utils import flops
 from test_torch_port_fastpaths import PANELS
 from test_torch_port_models import (jax_pyannet, jax_wespeaker,
                                     torch_pyannet_from, torch_wespeaker_from)
+from test_torch_port_models import one_torch_thread  # noqa: F401
 
 SR = 16000
 KNOBS = ("PYANNOTE_TPU_SEGMENT_MINUTES", "PYANNOTE_TPU_HBM_BUDGET_GB",

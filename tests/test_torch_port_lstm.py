@@ -19,6 +19,7 @@ from pyannote_audio_tpu_torch.models.blocks.rnn import LSTM
 from pyannote_audio_tpu_torch.ops import lstm_kernel
 from pyannote_audio_tpu_torch.ops.lstm import (
     lstm_bidirectional_recurrence_plain, lstm_recurrence, multilayer_lstm)
+from test_torch_port_models import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 

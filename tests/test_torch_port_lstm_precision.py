@@ -33,6 +33,7 @@ from pyannote_audio_tpu_torch.ops import lstm_kernel
 from pyannote_audio_tpu_torch.ops.lstm import (
     lstm_bidirectional_recurrence_plain, lstm_recurrence, split_bf16)
 from pyannote_audio_tpu_torch.utils.runtime import lstm_precision
+from test_torch_port_models import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 DRIFT_BOUND = {"default": 1e-3, "high": 2e-6}

@@ -34,6 +34,20 @@ from pyannote_audio_tpu_torch.ops.fbank import wespeaker_fbank
 from pyannote_audio_tpu_torch.utils.convert import (pyannet_state_dict,
                                                     wespeaker_state_dict)
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Each port test module runs torch on one intra-op thread, restored
+    after the module. The suite runs six pytest workers on one machine,
+    and torch's default of a thread per core in each of them oversubscribes
+    its cores: a port test file ran 5x slower so (tests/test_torch_port_
+    hooks.py, six copies at once on 8 CPU cores: 146 s each against 28 s
+    on one thread). Every port test module imports this fixture."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SMALL_BLOCKS = (1, 1, 1, 1)
 SMALL_CHANNELS = 8
 

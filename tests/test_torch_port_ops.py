@@ -20,6 +20,7 @@ from pyannote_audio_tpu.ops.powerset import Powerset as JaxPowerset
 from pyannote_audio_tpu_torch.core.inference import _chunk_grid
 from pyannote_audio_tpu_torch.ops import diarize_fused
 from pyannote_audio_tpu_torch.ops.powerset import Powerset
+from test_torch_port_models import one_torch_thread  # noqa: F401
 
 
 def _binarized(num_chunks=37, num_frames=29, num_speakers=3, seed=0,

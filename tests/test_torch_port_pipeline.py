@@ -26,6 +26,7 @@ from pyannote_audio_tpu_torch.pipelines.speaker_diarization import \
     SpeakerDiarization
 from test_torch_port_models import (jax_pyannet, jax_wespeaker,
                                     torch_pyannet_from, torch_wespeaker_from)
+from test_torch_port_models import one_torch_thread  # noqa: F401
 
 # bench.py's settings, but a cut distance that splits these random-weight
 # embeddings (their centroid-linkage merges span 0.01-0.13) into more
@@ -122,7 +123,8 @@ def test_same_centroids_and_list_input(both_outputs):
 def test_port_imports_no_jax():
     """The package and every one of its modules (walked with pkgutil, so
     each new module is checked) load without JAX, the JAX package,
-    scikit-learn or PyYAML (none of which the card machine may have), and
+    scikit-learn, safetensors or PyYAML (none of which the card machine
+    may have), and
     a config's JAX-package class path resolves to the port without
     importing the JAX package."""
     root = Path(__file__).resolve().parent.parent
@@ -133,7 +135,11 @@ def test_port_imports_no_jax():
     assert "pyannote_audio_tpu_torch.pipelines.speech_separation" in modules
     assert "pyannote_audio_tpu_torch.models.blocks.ssl" in modules
     for name in ("tasks.embedding", "tasks.separation",
-                 "utils.preprocessors", "models.embedding.convert"):
+                 "utils.preprocessors", "models.embedding.convert",
+                 "__main__", "serve", "sample", "core.calibration",
+                 "core.optimizer", "pipelines.pyannoteai.client",
+                 "pipelines.pyannoteai.sdk", "pipelines.pyannoteai.local",
+                 "utils.yaml_subset", "utils.safetensors"):
         assert f"pyannote_audio_tpu_torch.{name}" in modules
     code = ("import importlib, sys\n"
             f"for name in {modules!r}:\n"
@@ -160,7 +166,7 @@ def test_port_imports_no_jax():
             "        'pyannote_audio_tpu_torch.'), name\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in (\n"
             "    'jax', 'flax', 'jaxlib', 'pyannote_audio_tpu', 'sklearn',\n"
-            "    'yaml'))\n"
+            "    'yaml', 'safetensors'))\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,
                           capture_output=True, text=True, timeout=120)

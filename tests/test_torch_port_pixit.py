@@ -45,6 +45,7 @@ from pyannote_audio_tpu_torch.utils.convert import totatonet_state_dict
 from pyannote_audio_tpu_torch.utils.database import Protocol
 from test_torch_port_models import perturb
 from test_torch_port_train import _port_file
+from test_torch_port_models import one_torch_thread  # noqa: F401
 
 LOSS_RTOL = 1e-5
 PIXIT_LOSS_RTOL = 1e-4
@@ -58,14 +59,6 @@ HPARAMS = dict(dprnn={"n_repeats": 2, "bn_chan": 32, "hid_size": 32,
                encoder_decoder={"n_filters": 16},
                linear={"hidden_size": 16, "num_layers": 1})
 TASK = dict(duration=2.0, batch_size=4, seed=7)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -17,6 +17,7 @@ from pyannote_audio_tpu_torch import Pipeline
 from pyannote_audio_tpu_torch.core import pipeline as pipeline_module
 from pyannote_audio_tpu_torch.utils import preprocessors
 from test_torch_port_train import _port_file
+from test_torch_port_models import one_torch_thread  # noqa: F401
 
 PREPROCESSORS = {
     "coarse": ("LowerTemporalResolution", {"resolution": 0.5}),

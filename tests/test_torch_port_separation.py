@@ -40,6 +40,7 @@ from pyannote_audio_tpu_torch.utils.convert import (totatonet_state_dict,
                                                     write_reference_checkpoint)
 from test_torch_port_models import (_wave, jax_wespeaker, perturb,
                                     torch_wespeaker_from)
+from test_torch_port_models import one_torch_thread  # noqa: F401
 
 HPARAMS = dict(dprnn={"n_repeats": 2, "bn_chan": 16, "hid_size": 16,
                       "chunk_size": 20},
@@ -78,17 +79,6 @@ def torch_totatonet_from(model, hparams=HPARAMS):
     state = totatonet_state_dict(model.params, model.hparams,
                                  WAVLM["layers"])
     return port.load_reference_state_dict(state).eval()
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The port's CPU work here is thousands of tiny ops (the plain
-    recurrence steps), which torch's thread pool only slows, and slows
-    badly when parallel test workers share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -30,6 +30,7 @@ from pyannote_audio_tpu_torch.core.segment import (Segment, SlidingWindow,
                                                    SlidingWindowFeature)
 from pyannote_audio_tpu_torch.ops.binarize import hysteresis
 from pyannote_audio_tpu_torch.utils import signal
+from test_torch_port_models import one_torch_thread  # noqa: F401
 
 
 def _scores(shape, seed, nan=True):

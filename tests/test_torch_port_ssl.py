@@ -44,6 +44,7 @@ from pyannote_audio_tpu_torch.utils.convert import (
     debug_embedding_state_dict, debug_segmentation_state_dict,
     sseriouss_state_dict, ssl_state_dict, write_reference_checkpoint)
 from test_torch_port_models import _wave, perturb
+from test_torch_port_models import one_torch_thread  # noqa: F401
 
 # the two trunk kinds: BASE (post-LN, group-norm convs, WavLM's gated
 # relative position bias) and LARGE (pre-LN, layer-norm convs)

@@ -76,6 +76,7 @@ from pyannote_audio_tpu_torch.utils.protocol import (
     FilterByNumberOfSpeakers, check_protocol)
 
 from corpus import default_two_speaker_file, make_file
+from test_torch_port_models import one_torch_thread  # noqa: F401
 
 LOSS_RTOL = 1e-5
 GRAD_RTOL = 1e-4
@@ -86,17 +87,6 @@ UPDATE_RTOL = 5e-3
 MODEL_UPDATE_RTOL = 5e-2
 DER_ATOL = 1e-6
 HIDDEN = 16
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """Torch on one thread for this module: its steps are many small ops,
-    which slow down many times over when the test workers' thread pools
-    share the cores; restored afterwards."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _port_file(file):

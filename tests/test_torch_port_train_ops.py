@@ -35,20 +35,10 @@ from pyannote_audio_tpu_torch.ops import losses, lstm_kernel
 from pyannote_audio_tpu_torch.ops.lstm import \
     lstm_bidirectional_recurrence_plain
 from pyannote_audio_tpu_torch.ops.powerset import Powerset
+from test_torch_port_models import one_torch_thread  # noqa: F401
 
 ATOL = 1e-6
 LSTM_ATOL = 1e-5
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """Torch on one thread for this module: the recurrences are many small
-    ops, which slow down many times over when the test workers' thread
-    pools share the cores; restored afterwards."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _probs(rng, shape):

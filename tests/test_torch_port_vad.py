@@ -46,6 +46,7 @@ from test_torch_port_models import jax_wespeaker, torch_wespeaker_from
 from test_torch_port_pipeline import _assert_same_annotation, \
     _capture_clusters
 from test_torch_port_vbx import port_annotation
+from test_torch_port_models import one_torch_thread  # noqa: F401
 
 
 def _tracks(annotation):

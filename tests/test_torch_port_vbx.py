@@ -46,6 +46,7 @@ from pyannote_audio_tpu_torch.pipelines.utils.oracle import \
 from pyannote_audio_tpu_torch.utils import vbx
 from test_torch_port_config import write_snapshot
 from test_torch_port_models import jax_pyannet, jax_wespeaker
+from test_torch_port_models import one_torch_thread  # noqa: F401
 
 DIM, LDA_DIM = 256, 32
 

@@ -47,6 +47,7 @@ from test_torch_port_embedders import (ECAPA_CFG, TITANET_CFG, _built,
                                        _close, _wave)
 from test_torch_port_models import jax_pyannet, torch_pyannet_from
 from test_torch_port_pipeline import _capture_clusters
+from test_torch_port_models import one_torch_thread  # noqa: F401
 
 HYPERPARAMS = ("n_mels: 24\nembedding_model: !new:speechbrain.lobes.models."
                "ECAPA_TDNN.ECAPA_TDNN\n    channels: [32, 32, 32, 32, 96]\n"

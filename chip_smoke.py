@@ -76,7 +76,7 @@ Phases, each fatal on failure:
      TitaNet-large from a NeMo state dict, XVectorSincNet and XVectorMFCC
      from reference checkpoints, each at its published width with seeded
      weights, on one batch of 32 five-second chunks, unmasked and with
-     masks that leave some rows too short (NaN), card against CPU (on 8
+     masks that leave some rows too short (NaN), card against CPU (on 4
      of the 32 rows for ResNet293), with its time per batch; (s) SpeakerEmbedding from a config dict over
      (l)'s PyanNet and the ECAPA snapshot on three 1-minute files (card
      against CPU on the exact path, LSTM launches), then
@@ -119,7 +119,8 @@ Phases, each fatal on failure:
      Model.from_pretrained and PretrainedSpeakerEmbedding, and
      speaker_verification.main on seeded trials (EER); (z) PixIT at its
      defaults with ToTaToNet and the WavLM-large branch: one step on 2
-     chunks card against CPU ("highest"), the kernel path against the
+     chunks card against CPU ("highest"; WavLM-large at its widths and 6
+     of its 24 layers), the kernel path against the
      all-plain one, pixit_optimizer's two rates after one step, then
      Trainer.fit with validation in batches of 16 (1 epoch x 3 steps:
      MoM share, LSTM launches exact, warm step, split, peak, der/val).
@@ -130,7 +131,8 @@ Phases, each fatal on failure:
      same pipeline in this process, the same command without a visible
      card (it must fail), and ``main`` in this process against
      ``apply_batch`` (LSTM launches equal), ``download`` on the card and
-     with a hub id (it must fail); (B) DiarizationServer with a
+     with a hub id that resolves nowhere (it must fail); (B)
+     DiarizationServer with a
      token on 127.0.0.1: four jobs at once from the port's client (each
      output equal to the pipeline's, batched with no failure and no
      retry, latency per request), the SDK, a wrong token (401) and a
@@ -143,6 +145,23 @@ Phases, each fatal on failure:
      scikit-learn, safetensors or PyYAML loaded; (F) a cold server's
      first request: in a new process, apply on the 1-minute file with
      and without ``warmup(60)`` before it (times, launches, outputs).
+ 14. data parallelism and hub resolution: (G) SpeakerDiarization over a
+     mesh of two slots on the one card (``make_mesh(devices=["cuda:0",
+     "cuda:0"])``) on 10 + 3 min through ``apply_batch`` and file by
+     file, against the single-device run by the near-tie rule of
+     (g)-(i), its LSTM launches twice the single run's, warm walls and
+     peaks; (H) DistributedDataParallel, two gloo ranks on cuda:0
+     (``torch.multiprocessing.spawn``): (x)'s PyanNet on its protocol,
+     a batch of 32 (16 per rank), 1 epoch x 3 steps and one validation,
+     against the single-process fit (losses, der/val), the checkpoint
+     written once by rank 0 and reloaded, ``broadcast_from_host0`` and
+     the task's cache path on both ranks; (H1) the same with one rank
+     over NCCL; (I) ``Pipeline.from_pretrained`` on the community-1 hub
+     id through a PYANNOTE_TPU_HUB root holding (l)'s snapshot and over
+     HTTP from a 127.0.0.1 server into an empty cache, against the
+     pipeline loaded from its directory. Every spawn joins within its
+     own timeout. Nothing leaves the machine: HF_ENDPOINT points at a
+     closed local port unless a check serves one.
 
 The line before the last is a JSON object describing each kernel (its
 ``launches`` is the accelerator path's; ``launches_per_path`` has every
@@ -404,6 +423,10 @@ def phase_kernels(device: torch.device) -> dict:
     shapes = [(f"main B={B} layer {layer}", 589, B, D_in, 128, 2)
               for B in sorted(main_batches, reverse=True)
               for layer, D_in in enumerate((60, 256))]
+    # phase 14's shards, once each (a layer's D_in does not reach the
+    # kernel, whose input is the projected xw)
+    shapes += [(name, T, B, D_in, 128, 2)
+               for name, T, B, D_in in phase14_lstm_shapes()]
     # phase 8's multi-label PyanNet on 5 s chunks: T = 293 frames, every
     # batch size of its 10-minute file, layer 0 and layers 1-3
     shapes += [(f"5 s chunks B={B} layer {name}", 293, B, D_in, 128, 2)
@@ -499,13 +522,17 @@ def phase_kernels(device: torch.device) -> dict:
         + ", ".join(f"{k} {'%.3f ms' % v if v is not None else 'n/a'}"
                     for k, v in library5.items()))
 
-    # each phase-10 shape: the kernel in each precision against its bound,
-    # the plain version ("default") and cuDNN's whole layer
-    new_shapes = {}
-    for name, T, B, D_in in phase10_lstm_shapes():
+    # each phase-10 and phase-14 shape: the kernel in each precision
+    # against its bound, the plain version ("default") and cuDNN's whole
+    # layer
+    new_shapes, mesh_shapes = {}, {}
+    for name, T, B, D_in in phase10_lstm_shapes() + phase14_lstm_shapes():
         xw, w_hh, _ = layer_inputs(device, T, B, D_in, H, D)
         entry = {"T": T, "B": B, "D_in": D_in}
-        for precision in KERNEL_ATOL:
+        # phase 14's shapes run "default" only (held in every mode above)
+        timed_modes = ("default",) if name.startswith("phase 14") \
+            else KERNEL_ATOL
+        for precision in timed_modes:
             prepared = prepare_recurrent_weights(w_hh, precision)
             entry[precision] = dict(
                 ms=cuda_ms(lambda: lstm_bidirectional_recurrence(
@@ -518,11 +545,12 @@ def phase_kernels(device: torch.device) -> dict:
             runs=3, warmup=1)
         del xw
         entry["library"] = library_lstm_ms(device, T, B, D_in, H)
-        new_shapes[name] = entry
+        (mesh_shapes if name.startswith("phase 14") else new_shapes)[name] \
+            = entry
         log(f"lstm_recurrence at {name} (T={T}, B={B}, D_in={D_in}): "
             + "; ".join(f"{p} {entry[p]['ms']:.3f} ms (bound "
                         f"{entry[p]['bound_ms']:.4f} ms, "
-                        f"{entry[p]['bound_by']})" for p in KERNEL_ATOL)
+                        f"{entry[p]['bound_by']})" for p in timed_modes)
             + f"; plain (default) {entry['plain_ms']:.3f} ms; cuDNN "
             "torch.nn.LSTM layer "
             + ", ".join(f"{k} {'%.3f ms' % v if v is not None else 'n/a'}"
@@ -538,7 +566,8 @@ def phase_kernels(device: torch.device) -> dict:
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": library["float32"], "modes": modes,
             "layer_ms": layer_ms, "projection_ms": projection_ms,
-            "library": library, "t293": t293, "phase10_shapes": new_shapes}
+            "library": library, "t293": t293, "phase10_shapes": new_shapes,
+            "phase14_shapes": mesh_shapes}
 
 
 def build_pipeline(segmentation, embedding, device):
@@ -2460,8 +2489,8 @@ EMBED_BF16_MAX, EMBED_BF16_MEAN = 2e-2, 2e-3
 EMBED_RUNS = 20
 # rows of the batch held card against CPU, where the CPU's passes are long
 # (ResNet293's four: bf16 and its float32 reference, unmasked and masked);
-# the first 8 rows hold every mask pattern twice
-EMBED_CPU_ROWS = {"WeSpeakerResNet293 (.onnx)": 8}
+# the first 4 rows hold every mask pattern once
+EMBED_CPU_ROWS = {"WeSpeakerResNet293 (.onnx)": 4}
 # (s): three 1-minute files; the Inference's default batch of 32 chunks
 SPEAKER_EMBEDDING_MINUTES = (1.0, 1.0, 1.0)
 INFERENCE_BATCH = 32
@@ -2845,6 +2874,23 @@ SEP_PARAMS = {"segmentation": {"min_duration_off": 0.0, "threshold": 0.5},
 SEP_LOGIT_SPREAD = 1.5
 
 
+def mesh_shard_sizes(batches) -> list:
+    """The batch sizes a MESH_DEVICES mesh splits ``batches`` into (as
+    ``torch.tensor_split`` does: the first shards one longer)."""
+    n = len(MESH_DEVICES)
+    return [B // n + (k < B % n) for B in batches for k in range(n)
+            if B // n + (k < B % n)]
+
+
+def phase14_lstm_shapes() -> list:
+    """(name, T, B, D_in) of the LSTM launches phase 14 adds: (G)'s mesh
+    shards of the 10 + 3 min batches (256, 256, 79, 171 -> 128, 40 / 39,
+    86 / 85) and each DDP rank's share of (H)'s batch of 32 (16)."""
+    sizes = sorted(set(mesh_shard_sizes(segmentation_batches())),
+                   reverse=True) + [DDP_BATCH // DDP_WORLD]
+    return [(f"phase 14 B={B} layer 1", 589, B, 256) for B in sizes]
+
+
 def phase10_lstm_shapes() -> list:
     """(name, T, B, D_in) of the LSTM launches of phase 10: DPRNN's at a
     full batch and at the 3-minute file's tail, SSeRiouSS's at every
@@ -2982,15 +3028,18 @@ def check_sseriouss(device, workdir: Path, card: str) -> int:
     return counts["lstm_launches"]
 
 
-def make_totatonet(device):
-    """ToTaToNet at its defaults with the WAVLM_LARGE branch, seeded, on
+def make_totatonet(device, wavlm_layers: int = None):
+    """ToTaToNet at its defaults with the WAVLM_LARGE branch (its published
+    widths; ``wavlm_layers`` of its 24 layers when given), seeded, on
     ``device``."""
     from pyannote_audio_tpu_torch.models.segmentation.sseriouss import \
         SSL_CONFIGS
     from pyannote_audio_tpu_torch.models.separation.totatonet import \
         ToTaToNet
-    model = ToTaToNet(use_wavlm=True,
-                      wavlm_config=SSL_CONFIGS["WAVLM_LARGE"],
+    config = dict(SSL_CONFIGS["WAVLM_LARGE"])
+    if wavlm_layers is not None:
+        config["layers"] = wavlm_layers
+    model = ToTaToNet(use_wavlm=True, wavlm_config=config,
                       generator=torch.Generator().manual_seed(60))
     return model.eval().to(device)
 
@@ -3254,7 +3303,7 @@ def phase_separation(device, workdir: Path, card: str) -> dict:
 # In "highest" the two backwards are the same computation on the same
 # inputs
 TRAIN_SHAPES = (("B=32 layer 0", 589, 32, 60), ("B=32 layer 1", 589, 32, 256),
-                ("B=7 layer 0", 589, 7, 60))
+                ("B=7 layer 0", 589, 7, 60), ("B=16 layer 1", 589, 16, 256))
 # PixIT's (z): the DPRNN's intra-chunk (T = chunk size, B = chunks x 102
 # folds) and inter-chunk (T = 102 folds, B = chunks x 100 frames) BiLSTMs
 # at a batch of 32 five-second chunks and at 31 (phase 10's shapes), and at
@@ -3460,12 +3509,15 @@ def check_kernel_autograd(device: torch.device) -> dict:
 
     row = autograd_timings(device, 589, TRAIN_BATCH, 256)
     log_autograd_timings("training shape", row)
+    # phase 14 (H): each DDP rank's share of the batch of 32
+    rank_row = autograd_timings(device, 589, DDP_BATCH // DDP_WORLD, 256)
+    log_autograd_timings("DDP rank shape", rank_row)
     dprnn = {}
     for name, T, B, D_in in DPRNN_TRAIN_SHAPES:
         dprnn[name] = autograd_timings(device, T, B, D_in)
         log_autograd_timings(name, dprnn[name])
         torch.cuda.empty_cache()
-    return {**row, "dprnn": dprnn,
+    return {**row, "dprnn": dprnn, "ddp_rank": rank_row,
             "max_abs_err": {p: v["forward"] for p, v in worst.items()},
             "grad_rel_l2": {p: max(v["xw"], v["w_hh"])
                             for p, v in worst.items()}}
@@ -3949,6 +4001,10 @@ ARC_TRIAL_SPEAKERS, ARC_TRIAL_FILES, ARC_TRIAL_SECONDS = 4, 3, 3.0
 # forward and the within-batch MoM's)
 PIXIT_BATCH = 16
 PIXIT_CPU_CHUNKS = 2
+# the one step card vs CPU runs WavLM-large at its published widths and 6
+# of its 24 layers (the CPU's side of a step takes about 90 s at 24); the
+# fit runs all 24
+PIXIT_STEP_WAVLM_LAYERS = 6
 PIXIT_EPOCHS, PIXIT_STEPS = 1, 3
 PIXIT_LR, PIXIT_WAVLM_LR, PIXIT_CLIP = 1e-3, 1e-5, 5.0
 PIXIT_MOVE_RTOL = 0.1
@@ -4289,12 +4345,13 @@ def pixit_trainer(device, **kwargs):
 
 
 def check_pixit_step(device, protocol) -> None:
-    """(z) one PixIT step of ToTaToNet + WavLM-large on PIXIT_CPU_CHUNKS
-    chunks, card against CPU with the LSTM at "highest"; the card's
+    """(z) one PixIT step of ToTaToNet + WavLM-large (its widths,
+    PIXIT_STEP_WAVLM_LAYERS layers) on PIXIT_CPU_CHUNKS chunks, card against
+    CPU with the LSTM at "highest"; the card's
     kernel path against its all-plain path; one pixit_optimizer step's
     moves per group."""
     task = pixit_task(protocol, batch_size=PIXIT_CPU_CHUNKS, num_workers=0)
-    cpu_model = make_totatonet("cpu")
+    cpu_model = make_totatonet("cpu", wavlm_layers=PIXIT_STEP_WAVLM_LAYERS)
     task.setup(cpu_model)
     card_model = copy.deepcopy(cpu_model).to(device)
     batch = next(task.train_batches(epoch=0))
@@ -4314,7 +4371,9 @@ def check_pixit_step(device, protocol) -> None:
                 card_launches = lstm_launches()
             seconds[where] = time.perf_counter() - t0
         per_step = 2 * lstm_launches_per_forward(card_model)
-        hold_gradients("(z) one PixIT step, LSTM at highest",
+        hold_gradients(f"(z) one PixIT step (WavLM-large at "
+                       f"{PIXIT_STEP_WAVLM_LAYERS} of its 24 layers), LSTM at "
+                       f"highest",
                        results["card"], results["cpu"],
                        f"; forward + backward card {seconds['card']:.2f} s "
                        f"({card_launches} LSTM launches), CPU "
@@ -4875,6 +4934,438 @@ def phase_entry_points(device, workdir: Path, card: str, protocol) -> dict:
     return launches
 
 
+# -- phase 14: data parallelism and hub resolution --------------------------
+
+# (G) one process, a mesh of two slots on the one card: every batch splits
+# into two shards (replicas on a repeated device are one module), so the
+# LSTM kernel launches twice per batch and layer
+MESH_DEVICES = ("cuda:0", "cuda:0")
+# (G2) a mesh of two distinct devices, the card and the CPU, on the
+# 1-minute file: the CPU's replicas are copies, every shard's inputs cross
+# devices and the outputs gather on the card. Float32 on both
+# (PYANNOTE_TPU_SEG_BF16=0, a float32 ResNet34), so that the CPU's half
+# differs from the card's by summation order only, held by the near-tie
+# rule of (g)-(i)
+CROSS_DEVICES, CROSS_MINUTES = ("cuda:0", "cpu"), 1.0
+# (H) DDP, two ranks on cuda:0 over gloo (NCCL refuses two ranks on one
+# GPU), and (H1) one rank over NCCL: (x)'s PyanNet on its protocol, a
+# global batch of 32 (16 per rank), 1 epoch of 3 steps and one validation,
+# against the single-process fit of the same seed. Both fits run SincNet
+# in float32 (PYANNOTE_TPU_SEG_BF16=0) with cuDNN's deterministic
+# algorithms, so that they differ by the split alone: the losses and
+# der/val within the JAX package's mesh-fit bound (tests/test_train.py,
+# rel 1e-4) for two ranks, and within 1e-6 for one rank, whose only
+# difference is DDP's all-reduce of one gradient
+DDP_WORLD, DDP_BATCH, DDP_STEPS = 2, 32, 3
+DDP_LOSS_RTOL, NCCL_LOSS_RTOL = 1e-4, 1e-6
+# every spawn joins within its own timeout; a collective one rank never
+# reaches fails its group before that
+SPAWN_TIMEOUT_S, GROUP_TIMEOUT_S = 400.0, 180.0
+HUB_ID = "pyannote/speaker-diarization-community-1"
+
+
+def check_mesh_inference(device, workdir: Path, card: str) -> dict:
+    """(G) SpeakerDiarization on a MESH_DEVICES mesh against the same
+    models without one, on the accelerator path: 10 + 3 min through
+    ``apply_batch`` and file by file (launches, paths, warm walls, peaks),
+    each file held to the single-device run by the near-tie rule."""
+    from pyannote_audio_tpu_torch.parallel import make_mesh
+    from pyannote_audio_tpu_torch.pipelines.speaker_diarization import \
+        SpeakerDiarization
+    set_gates(None)
+    segmentation, embedding = make_models(torch.bfloat16)
+    single = build_pipeline(segmentation, embedding, device)
+    mesh = make_mesh(devices=list(MESH_DEVICES))
+    sharded = SpeakerDiarization(
+        segmentation=segmentation, embedding=embedding,
+        clustering="AgglomerativeClustering",
+        segmentation_batch_size=BATCH_SIZE, embedding_batch_size=BATCH_SIZE,
+        mesh=mesh).instantiate(PARAMS)
+    files = write_files(workdir, FILE_MINUTES)
+    result = {}
+    for name, pipeline in (("single", single), ("mesh", sharded)):
+        run_batch(pipeline, files)                  # warm: plans, kernel
+        torch.cuda.synchronize()
+        reset_counts(pipeline)
+        peak, wall = peak_and_wall(device, lambda: run_batch(pipeline,
+                                                             files))
+        counts = read_counts(pipeline)
+        one_by_one = wall_seconds(lambda: run_one_by_one(pipeline, files))
+        result[name] = {"counts": counts, "wall_s": wall,
+                        "file_by_file_s": one_by_one, "peak_bytes": peak}
+        log(f"(G) {name}{' ' + repr(mesh) if name == 'mesh' else ''}: "
+            f"{sum(FILE_MINUTES):g} min through apply_batch {wall:.3f} s "
+            f"warm, file by file {one_by_one:.3f} s; peak "
+            f"{peak / 2**30:.3f} GiB; counts {counts} ({card})")
+    a, b = result["mesh"]["counts"], result["single"]["counts"]
+    expected = dict(b, lstm_launches=2 * b["lstm_launches"],
+                    trunk_panel_batches=2 * b["trunk_panel_batches"])
+    log(f"(G) mesh counts {a} (expected {expected}: two shards per "
+        f"segmentation and trunk-panel batch, one whole-file conv and "
+        f"fbank per file)")
+    if a != expected:
+        raise AssertionError("(G) the mesh did not split every batch")
+    batch_outputs = run_batch(sharded, files)
+    check_outputs(files, batch_outputs)
+    frames = segmentation.receptive_field
+    for f, from_batch in zip(files, batch_outputs):
+        ours, theirs = traced_run(sharded, f), traced_run(single, f)
+        if from_batch.speaker_diarization != ours[0].speaker_diarization:
+            raise AssertionError(f"(G) {f['uri']}: apply_batch and apply "
+                                 f"differ under the mesh")
+        waveform = single._audio(dict(f))[0]
+        check_same_diarization(f"(G) {f['uri']} mesh vs single", ours,
+                               theirs, logprobs(sharded, waveform),
+                               logprobs(single, waveform), frames)
+    return {"launches": a["lstm_launches"], "single": result["single"],
+            "mesh": result["mesh"]}
+
+
+def same_weights(a: torch.nn.Module, b: torch.nn.Module) -> bool:
+    return all(torch.equal(p.detach().cpu(), q.detach().cpu())
+               for p, q in zip(a.parameters(), b.parameters()))
+
+
+def check_mesh_across_devices(device, workdir: Path, card: str) -> dict:
+    """(G2) SpeakerDiarization on a CROSS_DEVICES mesh against the same
+    models on the card alone, on CROSS_MINUTES: the CPU's replicas are
+    copies with the card's weights, copied afresh by ``to``; the LSTM
+    kernel launches for the card's shards alone, as often as on the card
+    alone (one shard per batch); the outputs are held by the near-tie
+    rule."""
+    from pyannote_audio_tpu_torch.parallel import make_mesh
+    from pyannote_audio_tpu_torch.pipelines.speaker_diarization import \
+        SpeakerDiarization
+    set_gates(None)
+    segmentation, embedding = make_models(torch.float32)
+    mesh = make_mesh(devices=list(CROSS_DEVICES))
+    [file] = write_files(workdir, (CROSS_MINUTES,))
+    with environ({"PYANNOTE_TPU_SEG_BF16": "0"}):
+        single = build_pipeline(segmentation, embedding, device)
+        crossed = SpeakerDiarization(
+            segmentation=segmentation, embedding=embedding,
+            clustering="AgglomerativeClustering",
+            segmentation_batch_size=BATCH_SIZE,
+            embedding_batch_size=BATCH_SIZE, mesh=mesh).instantiate(PARAMS)
+
+        def copies():
+            return (crossed._segmentation._replicas[1],
+                    crossed._embedding_replicas[1])
+        before = copies()
+        crossed.to(device)
+        after = copies()
+        copied = all(
+            c is not m and next(c.parameters()).device.type == "cpu"
+            and same_weights(c, m) for c, m in
+            zip(before + after, (segmentation, embedding) * 2)) \
+            and all(a is not b for a, b in zip(after, before))
+        runs = {}
+        for name, pipeline in (("mesh", crossed), ("single", single)):
+            traced_run(pipeline, file)                  # warm
+            reset_counts(pipeline)
+            start = time.perf_counter()
+            runs[name] = traced_run(pipeline, file)
+            torch.cuda.synchronize()
+            runs[name] += (time.perf_counter() - start, read_counts(pipeline))
+        waveform = single._audio(dict(file))[0]
+        logp = {name: logprobs(pipeline, waveform).cpu()
+                for name, pipeline in (("mesh", crossed), ("single", single))}
+    counts, single_counts = runs["mesh"][3], runs["single"][3]
+    log(f"(G2) {mesh}: replicas on the CPU are copies with the card's "
+        f"weights, copied afresh by to(): {copied}; {CROSS_MINUTES:g} min "
+        f"{runs['mesh'][2]:.3f} s warm against {runs['single'][2]:.3f} s on "
+        f"the card alone; counts {counts} against {single_counts} ({card})")
+    if not copied:
+        raise AssertionError("(G2) the CPU replicas are not copies of the "
+                             "card's models")
+    if counts["lstm_launches"] != single_counts["lstm_launches"] or \
+            not counts["lstm_launches"] or \
+            counts["trunk_panel_batches"] < \
+            single_counts["trunk_panel_batches"]:
+        raise AssertionError("(G2) the card's shards did not launch as the "
+                             "card alone does")
+    check_same_diarization(f"(G2) {file['uri']} card + CPU vs card",
+                           runs["mesh"][:2], runs["single"][:2], logp["mesh"],
+                           logp["single"], segmentation.receptive_field)
+    check_outputs([file], [runs["mesh"][0]])
+    return {"launches": counts["lstm_launches"], "wall_s": runs["mesh"][2],
+            "single_wall_s": runs["single"][2]}
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_ranks(fn, world: int, args: tuple, label: str) -> None:
+    """``fn(rank, world, port, *args)`` in ``world`` processes of
+    ``torch.multiprocessing.spawn``; each is killed, and the check fails,
+    past SPAWN_TIMEOUT_S."""
+    context = torch.multiprocessing.spawn(
+        fn, args=(world, _free_port()) + args, nprocs=world, join=False)
+    deadline = time.monotonic() + SPAWN_TIMEOUT_S
+    while not context.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for process in context.processes:
+                process.kill()
+            raise AssertionError(f"{label}: the ranks did not finish in "
+                                 f"{SPAWN_TIMEOUT_S} s")
+
+
+def ddp_fit(device, protocol, workdir: Path, mesh=None) -> dict:
+    """The fit of (H) / (H1): (x)'s PyanNet (seed 2), DDP_STEPS steps of
+    DDP_BATCH chunks and one validation; the rank's losses, record,
+    launches, weights and wall."""
+    from pyannote_audio_tpu_torch.train import Trainer
+    from pyannote_audio_tpu_torch.train import trainer as trainer_module
+    # count this process's checkpoint writes (rank 0 alone writes)
+    writes, save = [], trainer_module.save_checkpoint
+
+    def counted_save(model, path):
+        writes.append(Path(path).name)
+        return save(model, path)
+    trainer_module.save_checkpoint = counted_save
+    task = training_task(protocol, batch_size=DDP_BATCH,
+                         cache=str(workdir / f"cache_rank{mesh.rank}")
+                         if mesh is not None else None)
+    model = published_pyannet(seed=2)
+    trainer = Trainer(max_epochs=1, limit_train_batches=DDP_STEPS,
+                      learning_rate=TRAIN_LR, mesh=mesh,
+                      device=None if mesh is not None else device,
+                      checkpoint_dir=workdir / "checkpoints")
+    reset_lstm()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    try:
+        trainer.fit(model, task)
+    finally:
+        trainer_module.save_checkpoint = save
+    torch.cuda.synchronize()
+    return {"losses": trainer.step_losses, "history": trainer.history,
+            "writes": writes,
+            "launches": lstm_launches(),
+            "wall_s": time.perf_counter() - start, "cache": task.cache,
+            "params": {n: p.detach().cpu().clone()
+                       for n, p in model.named_parameters()}}
+
+
+def ddp_worker(rank: int, world: int, port: int, backend: str, protocol,
+               workdir: str) -> None:
+    """One rank of (H) / (H1) on cuda:0: the group, ``make_mesh()``,
+    ``broadcast_from_host0`` and the fit; its results under
+    ``workdir/rank{rank}.pt``."""
+    import datetime
+    import torch.distributed as dist
+    from pyannote_audio_tpu_torch.parallel import (broadcast_from_host0,
+                                                   make_mesh)
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.deterministic = True
+    dist.init_process_group(
+        backend, init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+        rank=rank, timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    try:
+        mesh = make_mesh()
+        result = ddp_fit(torch.device("cuda", 0), protocol, Path(workdir),
+                         mesh)
+        result["broadcast"] = broadcast_from_host0(f"rank {rank}'s value")
+        result["mesh"] = repr(mesh)
+        torch.save(result, Path(workdir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def hold_fit(label: str, ours: dict, theirs: dict, rtol: float) -> float:
+    """The largest relative difference of the per-step losses, the epoch
+    loss and the validation record (der/val, its optimal value, loss/val)
+    of ``ours`` against ``theirs``; raises past ``rtol``."""
+    pairs = list(zip(ours["losses"], theirs["losses"]))
+    for key in ("loss", "der/val", "der/val/optimal", "loss/val"):
+        pairs.append((ours["history"][0][key], theirs["history"][0][key]))
+    worst = max(abs(a - b) / max(abs(b), 1e-12) for a, b in pairs)
+    log(f"{label}: per-step losses {ours['losses']} vs {theirs['losses']}; "
+        f"epoch loss, der/val, der/val/optimal, loss/val relative "
+        f"difference at most {worst:.3e} (limit {rtol})")
+    if len(ours["losses"]) != DDP_STEPS or not worst <= rtol:
+        raise AssertionError(f"{label}: the fit differs from the "
+                             f"single-process fit")
+    return worst
+
+
+def check_ddp(device, protocol, workdir: Path, card: str) -> dict:
+    """(H) two gloo ranks and (H1) one NCCL rank on cuda:0 against the
+    single-process fit: losses, record, launches, checkpoints written
+    once, broadcast_from_host0, walls."""
+    from pyannote_audio_tpu_torch.core.model import Model
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with environ({"PYANNOTE_TPU_SEG_BF16": "0"}):
+            single = ddp_fit(device, protocol, workdir / "ddp_single")
+            out = {}
+            for label, backend, world in (("(H)", "gloo", DDP_WORLD),
+                                          ("(H1)", "nccl", 1)):
+                root = workdir / f"ddp_{backend}"
+                root.mkdir(parents=True)
+                start = time.perf_counter()
+                run_ranks(ddp_worker, world, (backend, protocol, str(root)),
+                          label)
+                wall = time.perf_counter() - start
+                ranks = [torch.load(root / f"rank{r}.pt", weights_only=False)
+                         for r in range(world)]
+                out[label] = {"ranks": ranks, "wall_s": wall, "root": root}
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    record = {"single_wall_s": single["wall_s"],
+              "single_launches": single["launches"]}
+    for label, tol in (("(H)", DDP_LOSS_RTOL), ("(H1)", NCCL_LOSS_RTOL)):
+        ranks, root = out[label]["ranks"], out[label]["root"]
+        world = len(ranks)
+        worst = hold_fit(f"{label} {world} rank(s) vs one process", ranks[0],
+                         single, tol)
+        same = all(r["losses"] == ranks[0]["losses"]
+                   and r["history"] == ranks[0]["history"]
+                   and all(torch.equal(p, ranks[0]["params"][n])
+                           for n, p in r["params"].items()) for r in ranks)
+        caches = {r["cache"] for r in ranks}
+        broadcasts = {r["broadcast"] for r in ranks}
+        writes = [r["writes"] for r in ranks]
+        reloaded = Model.from_pretrained(root / "checkpoints" / "epoch_0")
+        reloads = all(torch.equal(p.detach(), ranks[0]["params"][n])
+                      for n, p in reloaded.named_parameters())
+        # each rank, as the single process: 2 layers per step (on its
+        # share of the batch) and per validation batch (padded to the
+        # batch size, so every rank's share holds chunks)
+        launches = [r["launches"] for r in ranks]
+        expected = single["launches"]
+        log(f"{label} {ranks[0]['mesh']}: ranks agree on losses, record and "
+            f"weights: {same}; cache path on every rank {caches} (rank 0's: "
+            f"{str(root / 'cache_rank0')}), broadcast_from_host0 "
+            f"{broadcasts}; checkpoints written per rank {writes} (single "
+            f"process {single['writes']}), the epoch checkpoint reloads rank "
+            f"0's weights: {reloads}; lstm_recurrence "
+            f"launches per rank {launches} (expected {expected}; single "
+            f"process {single['launches']}); {out[label]['wall_s']:.1f} s "
+            f"wall with start-up (the fit {ranks[0]['wall_s']:.1f} s, one "
+            f"process {single['wall_s']:.1f} s) on {card}")
+        if not (same and caches == {str(root / "cache_rank0")}
+                and broadcasts == {"rank 0's value"}
+                and writes[0] == single["writes"] and not any(writes[1:])
+                and reloads and all(n == expected for n in launches)):
+            raise AssertionError(f"{label}: the ranks do not agree, or "
+                                 f"wrote more than once")
+        record[label] = {"max_rel_diff": worst, "launches": launches,
+                         "wall_s": out[label]["wall_s"],
+                         "fit_s": ranks[0]["wall_s"]}
+    return record
+
+
+class HubServer:
+    """``http.server`` on 127.0.0.1 serving the hub's
+    ``/{org}/{name}/resolve/{revision}/{path}`` from ``root/{org}/{name}/``
+    (revision ignored); ``requests`` counts what it served."""
+
+    def __init__(self, root: Path):
+        import http.server
+        import threading
+        self.requests = []
+        server = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def do_GET(self):
+                parts = self.path.strip("/").split("/")
+                path = root.joinpath(parts[0], parts[1], *parts[4:]) \
+                    if len(parts) > 4 and parts[2] == "resolve" else None
+                if path is None or not path.is_file():
+                    self.send_error(404)
+                    return
+                data = path.read_bytes()
+                server.requests.append(self.path)
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+        self.httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                     Handler)
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.endpoint = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=10)
+
+
+def check_hub(device, workdir: Path, config: dict) -> None:
+    """(I) ``Pipeline.from_pretrained(HUB_ID)`` through a PYANNOTE_TPU_HUB
+    root holding (l)'s snapshot, then over HTTP from a 127.0.0.1 server
+    into an empty cache; each on a 1-minute file against the pipeline
+    loaded from the snapshot's directory."""
+    from pyannote_audio_tpu_torch import Pipeline
+    snapshot = Path(config["checkpoint"])
+    roots = workdir / "hub_roots"
+    (roots / HUB_ID).parent.mkdir(parents=True)
+    (roots / HUB_ID).symlink_to(snapshot)
+    file = write_files(workdir, (1.0,))[0]
+    expected = Pipeline.from_pretrained(snapshot, device=device)(dict(file))
+    server = HubServer(roots)
+    try:
+        for route, env in (
+                ("PYANNOTE_TPU_HUB root",
+                 {"PYANNOTE_TPU_HUB": str(roots),
+                  "PYANNOTE_TPU_CACHE": str(workdir / "hub_cache_roots")}),
+                (f"HTTP {server.endpoint} into an empty cache",
+                 {"PYANNOTE_TPU_HUB": "", "HF_ENDPOINT": server.endpoint,
+                  "PYANNOTE_TPU_CACHE": str(workdir / "hub_cache_http")})):
+            served = len(server.requests)
+            with environ(env):
+                start = time.perf_counter()
+                pipeline = Pipeline.from_pretrained(HUB_ID, device=device)
+                load_s = time.perf_counter() - start
+                output = pipeline(dict(file))
+            same = output.speaker_diarization == \
+                expected.speaker_diarization and np.array_equal(
+                    output.speaker_embeddings, expected.speaker_embeddings)
+            log(f"(I) Pipeline.from_pretrained({HUB_ID!r}) through the "
+                f"{route}: loaded in {load_s:.2f} s, "
+                f"{len(server.requests) - served} file(s) served; on 1 min "
+                f"equal to the pipeline loaded from its directory: {same}")
+            if not same:
+                raise AssertionError(f"(I) the hub route {route} differs")
+        if len(server.requests) < 4:
+            raise AssertionError("(I) the HTTP route fetched too little: "
+                                 f"{server.requests}")
+    finally:
+        server.close()
+
+
+def phase_parallel_and_hub(device, workdir: Path, card: str, protocol,
+                           config: dict) -> dict:
+    """Phase 14: (G) inference over a mesh, (H) / (H1) DDP training and
+    (I) hub resolution; returns each path's launches."""
+    log(f"phase 14, data parallelism and hub resolution, on {card}")
+    root = workdir / "parallel"
+    root.mkdir(parents=True)
+    start = time.perf_counter()
+    mesh = check_mesh_inference(device, root, card)
+    mesh["(G2)"] = check_mesh_across_devices(device, root, card)
+    ddp = check_ddp(device, protocol, root, card)
+    check_hub(device, root, config)
+    log(f"phase 14 took {time.perf_counter() - start:.1f} s")
+    return {"mesh (G)": mesh["launches"],
+            "mesh across devices (G2)": mesh["(G2)"]["launches"],
+            "DDP (H) per rank": ddp["(H)"]["launches"],
+            "DDP (H1)": ddp["(H1)"]["launches"],
+            "phase 14": {"mesh": mesh, "ddp": ddp}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run",
@@ -4882,6 +5373,10 @@ def main() -> int:
         return 1
     device = torch.device("cuda", 0)
     walls = {}
+    # hub ids resolve through utils/hf_hub.py: no snapshot root and a
+    # closed local endpoint unless a check sets its own
+    os.environ.update({"HF_ENDPOINT": "http://127.0.0.1:9",
+                       "PYANNOTE_TPU_HUB": ""})
 
     def timed(name, fn, *args):
         """``fn(*args)``, its wall time kept under ``name``."""
@@ -4898,6 +5393,7 @@ def main() -> int:
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         work = Path(tmp)
+        os.environ["PYANNOTE_TPU_CACHE"] = str(work / "hub_cache")
         launches["exact"] = timed("4 exact path", phase_exact, device, work)
         pipeline, launches["accelerator"] = timed(
             "5 accelerator path", phase_accelerator, device, work)
@@ -4931,6 +5427,10 @@ def main() -> int:
         record["training_pixit"] = more["pixit"]
         launches.update(timed("13 entry points", phase_entry_points, device,
                               work, card, protocol))
+        parallel = timed("14 parallel, hub", phase_parallel_and_hub, device,
+                         work, card, protocol, config)
+        record["phase14"] = parallel.pop("phase 14")
+        launches.update(parallel)
     log(f"lstm_recurrence launches per path: {launches}")
     log(f"wall per phase, s ({card}): {walls}; total "
         f"{sum(walls.values()):.1f}")

@@ -20,9 +20,11 @@ times faster than real time, a speaker-count confusion table, and
   ``pytorch_model.bin``) and drops trainer state; ``export`` rewrites a
   checkpoint as a plain reference checkpoint (``utils/convert.py``
   ``write_reference_checkpoint``), which both packages read.
-- There is no hub access: ``download`` checks that a local snapshot
-  loads, and fails on a hub id; the JAX CLI's ``--revision``,
-  ``--token`` and ``--cache`` are not taken.
+- A pipeline argument may be a hub id, resolved as the JAX package
+  resolves it (``utils/hf_hub.py``: the ``PYANNOTE_TPU_HUB`` roots, the
+  download cache, then ``HF_ENDPOINT``); ``download`` loads one for
+  later offline use, with the JAX CLI's ``token``, ``--revision`` and
+  ``--cache``.
 
 YAML (configs, registries, reports) goes through ``utils/yaml_subset.py``.
 """
@@ -120,12 +122,15 @@ class MinDurationOffOptimizer:
         return best, self._reports[best]
 
 
-def _load_pipeline(pipeline_path: str, device: Optional[str] = None):
-    """The pipeline of a local snapshot (directory or ``config.yaml``) on
-    ``parse_device(device)``."""
+def _load_pipeline(pipeline_path: str, device: Optional[str] = None,
+                   **hub):
+    """The pipeline of a snapshot (directory or ``config.yaml``) or a hub
+    id on ``parse_device(device)``; ``hub`` holds ``token`` and
+    ``revision``."""
     from .core.pipeline import Pipeline
     device = parse_device(device)
-    return Pipeline.from_pretrained(pipeline_path, device=device).to(device)
+    return Pipeline.from_pretrained(pipeline_path, device=device,
+                                    **hub).to(device)
 
 
 def _audio_files(path: Path):
@@ -381,11 +386,14 @@ def cmd_serve(args) -> int:
 
 
 def cmd_download(args) -> int:
-    """Check that a pretrained pipeline loads for later offline use, on
-    ``--device`` (the card by default). There is no hub access: a local
-    snapshot loads, and a hub id fails."""
+    """Load a pretrained pipeline (a hub id's files into the download
+    cache, ``--cache`` or ``PYANNOTE_TPU_CACHE``) for later offline use,
+    on ``--device`` (the card by default)."""
+    if args.cache:
+        os.environ["PYANNOTE_TPU_CACHE"] = args.cache
     try:
-        pipeline = _load_pipeline(args.model, device=args.device)
+        pipeline = _load_pipeline(args.model, device=args.device,
+                                  revision=args.revision, token=args.token)
     except (ValueError, FileNotFoundError, OSError) as error:
         print(f"Could not load pretrained pipeline from {args.model}: "
               f"{error}")
@@ -432,8 +440,12 @@ def strip(checkpoint: str, into: str) -> int:
     return cmd_strip(argparse.Namespace(checkpoint=checkpoint, into=into))
 
 
-def download(model: str, device: Optional[str] = None) -> int:
-    return cmd_download(argparse.Namespace(model=model, device=device))
+def download(model: str, token: Optional[str] = None,
+             revision: Optional[str] = None, cache: Optional[str] = None,
+             device: Optional[str] = None) -> int:
+    return cmd_download(argparse.Namespace(
+        model=model, token=token, revision=revision, cache=cache,
+        device=device))
 
 
 def main(argv=None) -> int:
@@ -506,9 +518,15 @@ def main(argv=None) -> int:
     p_srv.set_defaults(fn=cmd_serve)
 
     p_dl = sub.add_parser(
-        "download", help="check that a pretrained pipeline loads")
-    p_dl.add_argument("model", help="a local snapshot directory or "
-                                    "config.yaml")
+        "download", help="cache a pretrained pipeline for offline use")
+    p_dl.add_argument("model", help="a hub id, a local snapshot directory "
+                                    "or config.yaml")
+    p_dl.add_argument("token", nargs="?", default=None,
+                      help="Huggingface token")
+    p_dl.add_argument("--revision", default=None)
+    p_dl.add_argument("--cache", default=None,
+                      help="download cache directory "
+                           "(default: PYANNOTE_TPU_CACHE)")
     p_dl.add_argument("--device", default=None, help=device_help)
     p_dl.set_defaults(fn=cmd_download)
 

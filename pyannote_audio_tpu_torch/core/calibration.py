@@ -192,11 +192,17 @@ class Calibration:
     @classmethod
     def from_pretrained(cls, checkpoint: Union[str, Path],
                         subfolder: Optional[str] = None,
-                        **hub_kwargs) -> "Calibration":
+                        revision: Optional[str] = None,
+                        token: Optional[str] = None,
+                        cache_dir=None) -> "Calibration":
         """Load ``calibration.safetensors`` from a local file or directory
-        (``/subfolder``). ``revision``, ``token`` and ``cache_dir`` are
-        accepted for the JAX package's signature and unused: there is no
-        hub access, and an id that is not a local path raises."""
+        (``/subfolder``), or from a hub id (``utils/hf_hub.py``)."""
+        from ..utils.hf_hub import hub_asset
+        found = hub_asset(checkpoint, CALIBRATION_FILE, subfolder=subfolder,
+                          revision=revision, token=token,
+                          cache_dir=cache_dir)
+        if found is not None:
+            return cls.from_file(found)
         path = Path(checkpoint)
         if subfolder:
             path = path / subfolder
@@ -205,6 +211,5 @@ class Calibration:
         if not path.is_file():
             raise ValueError(
                 f"{checkpoint} (subfolder {subfolder!r}) holds no "
-                f"{CALIBRATION_FILE}: this package loads local checkpoints "
-                f"only (it has no hub access)")
+                f"{CALIBRATION_FILE}, locally or as a hub id")
         return cls.from_file(path)

@@ -35,6 +35,16 @@ chunk-level path); aggregating runs release each after its batches.
 Uploads to a CUDA device go through page-locked host memory with
 ``non_blocking=True``: a copy from pageable memory would make the host
 wait for all the work already queued on the stream.
+
+With a ``mesh`` (``parallel/mesh.py``) each batch splits into contiguous
+shards over the mesh's devices, as the JAX package shards the chunk axis
+over ``"data"``: each device runs its own replica of the model (devices
+that repeat share one), the shared front-end's whole-file conv runs once
+on the first device, each shard's conv frames and raw samples move to
+their device with ``non_blocking=True``, and the outputs concatenate on
+the first device. Shards may be ragged, so nothing is padded, and the
+host never waits between shards. Without a mesh every batch takes the
+same path, over a mesh of the model's device alone.
 """
 
 from __future__ import annotations
@@ -51,6 +61,7 @@ from torch import nn
 
 from ..ops.aggregate import aggregate_scores
 from ..ops.powerset import Powerset
+from ..parallel.mesh import Mesh, map_shards, replicate
 from ..utils.runtime import check_device, device_flag
 from .io import Audio, AudioFile
 from .longfile import (plan_slices, retained_upload_bytes_ok,
@@ -212,6 +223,27 @@ def _concat(parts: list):
     return torch.cat(parts)
 
 
+def drop_prepared(model: nn.Module) -> None:
+    """Clear the per-device constants a model's layers cache (the LSTM's
+    packed recurrent weights)."""
+    for module in model.modules():
+        prepared = getattr(module, "_prepared", None)
+        if isinstance(prepared, dict):
+            prepared.clear()
+
+
+def _forward_from_frontend(model: nn.Module, frames: torch.Tensor,
+                           raw: torch.Tensor):
+    """The shared front-end's batch: per chunk its conv frames and the
+    population mean and variance of its raw samples."""
+    var, mean = torch.var_mean(raw, dim=-1, correction=0)
+    return model.forward_from_frontend(frames, mean, var)
+
+
+def _forward_chunks(model: nn.Module, chunks: torch.Tensor):
+    return model(chunks.contiguous())
+
+
 class Inference:
     """Run a model over a file with a sliding (or whole-file) window.
 
@@ -220,7 +252,9 @@ class Inference:
     ``device``: the CUDA card when None (a CUDA device without a card
     raises; ``device="cpu"`` runs on the CPU). ``step`` defaults to the
     model's left warm-up, else a tenth of ``duration`` (by default the
-    model's training duration).
+    model's training duration). ``mesh`` splits each batch over its
+    devices (``batch_size`` rounds up to a multiple of their number, as
+    in the JAX package); ``device`` is then the mesh's first device.
     """
 
     def __init__(self, model: Union[nn.Module, str, Path],
@@ -229,7 +263,8 @@ class Inference:
                  pre_aggregation_hook: Optional[Callable] = None,
                  skip_aggregation: bool = False,
                  skip_conversion: bool = False, batch_size: int = 32,
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None,
+                 mesh=None):
         if window not in ("sliding", "whole"):
             raise ValueError('`window` must be "sliding" or "whole".')
         self.model = model if isinstance(model, nn.Module) \
@@ -243,6 +278,11 @@ class Inference:
         self.skip_aggregation = skip_aggregation
         self.skip_conversion = skip_conversion
         self.pre_aggregation_hook = pre_aggregation_hook
+        self.mesh = mesh
+        if mesh is not None:
+            batch_size = -(-batch_size // mesh.size) * mesh.size
+            if device is None:
+                device = mesh.device_list[0]
         self.batch_size = batch_size
         training_duration = spec.duration
         duration = duration or training_duration
@@ -282,16 +322,20 @@ class Inference:
 
     def to(self, device: Union[str, torch.device]) -> "Inference":
         """Move the model to ``device`` and drop the per-device constants
-        cached for it (the powerset mapping, the LSTM's packed weights)."""
+        cached for it (the powerset mapping, the LSTM's packed weights).
+        Under a mesh ``device`` must be the mesh's first device, and the
+        other devices' replicas are copied afresh from the model; without
+        one the model runs on a mesh of ``device`` alone."""
+        if self.mesh is not None:
+            self.mesh.check_first(device)
         self.model.to(device)
         for converter in (self._powerset if isinstance(self._powerset, tuple)
                           else (self._powerset,)):
             if converter is not None:
                 converter._mapping_on.clear()
-        for module in self.model.modules():
-            prepared = getattr(module, "_prepared", None)
-            if isinstance(prepared, dict):
-                prepared.clear()
+        drop_prepared(self.model)
+        self._mesh = self.mesh or Mesh([device])
+        self._replicas = replicate(self.model, self._mesh)
         return self
 
     def _shared_frontend(self, window_size: int, step_size: int,
@@ -356,20 +400,17 @@ class Inference:
             frames = conv_whole[0][:, first // stride:].unfold(
                 1, model.frontend_num_frames(window_size),
                 step // stride)[:, :len(starts)].transpose(0, 1)
+            forward, inputs = _forward_from_frontend, (frames, raw)
         else:
-            chunks = chunks_at(device_waveform, starts, window_size)
+            forward = _forward_chunks
+            inputs = (chunks_at(device_waveform, starts, window_size),)
         B = self.batch_size
         num_chunks = len(starts)
         outputs = []
         for b in range(0, num_chunks, B):
             try:
-                if shared:
-                    var, mean = torch.var_mean(raw[b:b + B], dim=-1,
-                                               correction=0)
-                    out = model.forward_from_frontend(frames[b:b + B],
-                                                      mean, var)
-                else:
-                    out = model(chunks[b:b + B].contiguous())
+                out = map_shards(self._mesh, self._replicas, forward,
+                                 *(x[b:b + B] for x in inputs))
             except torch.cuda.OutOfMemoryError as exception:
                 message = (f"batch_size ({self.batch_size: d}) is probably "
                            f"too large. Try with a smaller value until "

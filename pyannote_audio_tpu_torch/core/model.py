@@ -379,7 +379,16 @@ _DERIVED_BUFFERS = (".filterbank.n_", ".filterbank.window_")
 
 
 def _checkpoint_file(checkpoint: Union[str, Path],
-                     subfolder: Optional[str]) -> Path:
+                     subfolder: Optional[str], **hub) -> Path:
+    """The ``pytorch_model.bin`` of a local file or directory
+    (``/subfolder``), or of a hub id (``utils/hf_hub.py``: the
+    ``PYANNOTE_TPU_HUB`` roots, the download cache, then ``HF_ENDPOINT``;
+    ``hub`` holds ``revision``, ``token`` and ``cache_dir``)."""
+    from ..utils.hf_hub import AssetFileName, hub_asset
+    found = hub_asset(checkpoint, AssetFileName.Model, subfolder=subfolder,
+                      **hub)
+    if found is not None:
+        return found
     path = Path(checkpoint)
     if subfolder:
         path = path / subfolder
@@ -387,9 +396,8 @@ def _checkpoint_file(checkpoint: Union[str, Path],
         path = path / CHECKPOINT
     if not path.is_file():
         raise ValueError(
-            f"{checkpoint} (subfolder {subfolder!r}) holds no {CHECKPOINT}: "
-            f"this package loads local checkpoints only (it has no hub "
-            f"access)")
+            f"{checkpoint} (subfolder {subfolder!r}) holds no {CHECKPOINT}, "
+            f"locally or as a hub id")
     return path
 
 
@@ -433,10 +441,13 @@ class Model:
                         subfolder: Optional[str] = None,
                         **overrides) -> nn.Module:
         """Load a reference-layout ``pytorch_model.bin``: the file itself,
-        or a directory (``/subfolder``) holding one. ``token``,
-        ``cache_dir`` and ``revision`` are dropped (no hub access)."""
-        for key in ("token", "use_auth_token", "cache_dir", "revision"):
-            overrides.pop(key, None)
+        a directory (``/subfolder``) holding one, or a hub id's, resolved
+        as the JAX package resolves it with ``token`` (or
+        ``use_auth_token``), ``cache_dir`` and ``revision``."""
+        alias = overrides.pop("use_auth_token", None)
+        hub = {key: overrides.pop(key, None)
+               for key in ("token", "cache_dir", "revision")}
+        hub["token"] = hub["token"] or alias
         return model_from_checkpoint(
-            load_checkpoint(_checkpoint_file(checkpoint, subfolder)),
+            load_checkpoint(_checkpoint_file(checkpoint, subfolder, **hub)),
             **overrides)

@@ -8,9 +8,11 @@ stay pinned) and ``freeze`` pins them. ``from_pretrained`` builds a
 pipeline from a config dict, a ``config.yaml`` file or a local snapshot
 directory, expanding ``$model/{subfolder}[@revision]`` placeholders; class
 paths that name the reference (``pyannote.audio.``) or the JAX package
-(``pyannote_audio_tpu.``) resolve to this package. There is no hub
-access: an id that is not a local path raises. ``to(device)`` moves every
-registered model and ``Inference``.
+(``pyannote_audio_tpu.``) resolve to this package. A hub id resolves
+through ``utils/hf_hub.py``: the ``PYANNOTE_TPU_HUB`` snapshot roots, the
+download cache, then an HTTP download from ``HF_ENDPOINT``; its
+placeholders keep the hub id, so each sub-model's files resolve the same
+way. ``to(device)`` moves every registered model and ``Inference``.
 
 A list of files goes to the subclass's ``apply_batch`` when it has one,
 else through ``apply`` one file after another while a worker thread
@@ -48,14 +50,18 @@ _REGISTRIES = ("_models", "_inferences", "_parameters", "_instantiated",
                "_pipelines", "_frozen", "_preprocessors")
 
 
-def expand_subfolders(config: Any, model_id: str) -> Any:
+def expand_subfolders(config: Any, model_id: str, token=None,
+                      cache_dir=None) -> Any:
     """Rewrite ``$model/{subfolder}[@revision]`` strings of a config into
     ``{"checkpoint": model_id, "subfolder": ..., "revision": ...}``
-    dicts, recursively."""
+    dicts, recursively; the caller's hub ``token`` and ``cache_dir`` ride
+    along, so that a gated repo's sub-models authenticate."""
     if isinstance(config, dict):
-        return {k: expand_subfolders(v, model_id) for k, v in config.items()}
+        return {k: expand_subfolders(v, model_id, token, cache_dir)
+                for k, v in config.items()}
     if isinstance(config, list):
-        return [expand_subfolders(v, model_id) for v in config]
+        return [expand_subfolders(v, model_id, token, cache_dir)
+                for v in config]
     if isinstance(config, str) and config.startswith("$model"):
         rest = config[len("$model"):]
         revision = None
@@ -67,6 +73,10 @@ def expand_subfolders(config: Any, model_id: str) -> Any:
             out["subfolder"] = subfolder
         if revision:
             out["revision"] = revision
+        if token is not None:
+            out["token"] = token
+        if cache_dir is not None:
+            out["cache_dir"] = cache_dir
         return out
     return config
 
@@ -212,39 +222,47 @@ class Pipeline:
                         device: Optional[Union[str, torch.device]] = None,
                         pipeline_params: Optional[Dict] = None,
                         **hub_kwargs) -> "Pipeline":
-        """Build a pipeline from a config dict, a ``config.yaml`` file or a
-        local snapshot directory holding one.
+        """Build a pipeline from a config dict, a ``config.yaml`` file, a
+        local snapshot directory holding one, or a hub id.
 
         A dict's ``checkpoint`` key (default ".") is the root that
         ``$model/...`` placeholders point into; for a file or directory
-        the root is the directory. ``pipeline_params`` override the
-        config's constructor ``params``; ``device``, where the pipeline
-        class takes one, is passed to its constructor. ``token``,
-        ``cache_dir`` and ``revision`` are accepted for the JAX package's
-        signature and unused: there is no hub access, and an id that is
-        not a local path raises.
+        the root is the directory, for a hub id the id itself, whose
+        ``config.yaml`` and sub-model files ``utils/hf_hub.py`` resolves
+        with ``token`` (or ``use_auth_token``), ``cache_dir`` and
+        ``revision``. ``pipeline_params`` override the config's
+        constructor ``params``; ``device``, where the pipeline class takes
+        one, is passed to its constructor.
         """
         unknown = set(hub_kwargs) - {"token", "use_auth_token", "cache_dir",
                                      "revision"}
         if unknown:
             raise TypeError(f"unexpected arguments {sorted(unknown)}")
+        token = hub_kwargs.get("token") or hub_kwargs.get("use_auth_token")
+        cache_dir = hub_kwargs.get("cache_dir")
         if isinstance(checkpoint, Mapping):
             config = dict(checkpoint)
             model_id = str(config.get("checkpoint", "."))
         else:
+            from ..utils.hf_hub import AssetFileName, hub_asset
             path = Path(checkpoint)
-            if path.is_dir():
+            found = hub_asset(checkpoint, AssetFileName.Pipeline,
+                              revision=hub_kwargs.get("revision"),
+                              token=token, cache_dir=cache_dir)
+            if found is not None:
+                config_yml, model_id = found, str(checkpoint)
+            elif path.is_dir():
                 config_yml, model_id = path / PIPELINE_CONFIG, str(path)
             elif path.is_file():
                 config_yml, model_id = path, str(path.parent)
             else:
                 raise ValueError(
-                    f"{checkpoint} is neither a directory nor a config "
-                    f"file: this package loads local snapshots only (it "
-                    f"has no hub access)")
+                    f"{checkpoint} is neither a directory, a config file "
+                    f"nor a hub id")
             config = yaml_subset.load_file(config_yml)
 
-        config = expand_subfolders(config, model_id)
+        config = expand_subfolders(config, model_id, token=token,
+                                   cache_dir=cache_dir)
         if "pipeline" not in config:
             raise ValueError("config has no 'pipeline' section")
         Klass = get_class_by_name(config["pipeline"]["name"],
@@ -361,7 +379,13 @@ class Pipeline:
     def __call__(self, file: Union[AudioFile, List[AudioFile]],
                  hook: Optional[Callable] = None, **kwargs):
         """Apply to one file, or to a list (any iterable that is not a
-        path or a mapping) of files through ``_apply_batch``."""
+        path or a mapping) of files through ``_apply_batch``. Each call
+        is one ``pipeline_apply`` telemetry event (opt-in, ``telemetry``)."""
+        from ..telemetry import track_pipeline_apply
+        track_pipeline_apply(self, file,
+                             num_speakers=kwargs.get("num_speakers"),
+                             min_speakers=kwargs.get("min_speakers"),
+                             max_speakers=kwargs.get("max_speakers"))
         if not self.instantiated:
             try:
                 self.instantiate(self.default_parameters())

@@ -62,23 +62,30 @@ class PLDA:
 
     @classmethod
     def from_pretrained(cls, checkpoint: Union[str, Path],
-                        subfolder: str = "", **hub_kwargs) -> "PLDA":
+                        subfolder: str = "", revision=None, token=None,
+                        cache_dir=None) -> "PLDA":
         """Load from a local directory (``/subfolder``) holding
-        ``xvec_transform.npz`` and ``plda.npz``. ``token``, ``cache_dir``
-        and ``revision`` are dropped: there is no hub access."""
+        ``xvec_transform.npz`` and ``plda.npz``, or from a hub id hosting
+        those two files (``utils/hf_hub.py``)."""
         if checkpoint is None:
             raise ValueError(
-                "PLDA.from_pretrained requires a directory holding "
-                "xvec_transform.npz and plda.npz")
-        path = Path(checkpoint)
-        if subfolder:
-            path = path / subfolder
+                "PLDA.from_pretrained requires a directory or hub id "
+                "holding xvec_transform.npz and plda.npz")
+        from ..utils.hf_hub import hub_asset
+        hub = dict(subfolder=subfolder or None, revision=revision,
+                   token=token, cache_dir=cache_dir)
+        xvec = hub_asset(checkpoint, "xvec_transform.npz", **hub)
+        if xvec is not None:
+            hub_asset(checkpoint, "plda.npz", **hub)
+            path = xvec.parent
+        else:
+            path = Path(checkpoint) / subfolder if subfolder \
+                else Path(checkpoint)
         if not (path / "xvec_transform.npz").is_file() or \
                 not (path / "plda.npz").is_file():
             raise ValueError(
-                f"{path} holds no xvec_transform.npz + plda.npz: this "
-                f"package loads local checkpoints only (it has no hub "
-                f"access)")
+                f"{path} holds no xvec_transform.npz + plda.npz, locally "
+                f"or as a hub id")
         x = np.load(path / "xvec_transform.npz")
         p = np.load(path / "plda.npz")
         return cls(mean1=x["mean1"], mean2=x["mean2"], lda=x["lda"],

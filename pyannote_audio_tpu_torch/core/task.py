@@ -148,11 +148,19 @@ class Task:
         database- and global-scope label indices. With ``cache`` set they
         are written with ``np.savez_compressed``; a warm cache rebuilds
         the file tables with no protocol access (no audio header read, no
-        annotation parsed). One process: there is no cache path to agree
-        on across hosts.
+        annotation parsed). Under data parallelism every rank takes rank
+        0's cache path (``parallel.broadcast_from_host0``, the reference's
+        ``trainer.strategy.broadcast``); the call is unconditional, as a
+        collective gated on a rank's own state would hang the group
+        where ranks disagree, and without a process group it returns the
+        path unchanged.
         """
         if self._prepared:
             return
+        from ..parallel.mesh import broadcast_from_host0
+        agreed = broadcast_from_host0(
+            str(self.cache) if self.cache is not None else "")
+        self.cache = agreed or None
         if self.cache is not None:
             from pathlib import Path
             cache_path = Path(self.cache)
@@ -552,6 +560,16 @@ class Task:
     def loss_from_output(self, output, batch: TrainingBatch):
         """Scalar loss of a model's ``output`` on ``batch``."""
         raise NotImplementedError
+
+    def loss_normalizer(self, batch: TrainingBatch) -> float:
+        """What the loss of ``batch`` divides its sum by, up to a factor
+        that is the same for every batch: the item count, for a loss that
+        is a mean over items. Data-parallel training
+        (``Trainer(mesh=)``) weighs each rank's loss by its share of the
+        global sum, so that its averaged gradient is the global batch's;
+        a task whose loss is normalised otherwise (by frame weights)
+        overrides this."""
+        return float(batch.X.shape[0])
 
     def validation_loss(self, model, output, batch: TrainingBatch):
         """The loss of a validation batch, given the validation forward's

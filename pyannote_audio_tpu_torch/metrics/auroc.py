@@ -4,14 +4,17 @@ Counterpart of pyannote_audio_tpu/metrics/auroc.py: per class, two score
 histograms (positives, negatives) whose sums merge across batches; the
 macro-average AUROC is the trapezoidal ROC integral over the bins. The
 segmentation tasks' ``default_metric`` and ``Trainer.validate``'s
-``auroc/val`` for VAD and multi-label tasks.
+``auroc/val`` for VAD and multi-label tasks. Under data parallelism
+``sync(group)`` sums the histograms over the ranks.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 
 class BinnedAUROC:
@@ -45,6 +48,30 @@ class BinnedAUROC:
             t = targets[..., k].reshape(-1)
             self._pos[k] += np.bincount(b[t], minlength=self.num_bins)
             self._neg[k] += np.bincount(b[~t], minlength=self.num_bins)
+
+    def sync(self, group: Optional[Any] = None) -> None:
+        """Sum the histograms over the ranks of ``group`` (the default
+        group when None), so that every rank computes the global AUROC.
+        Every rank must call it, once after its last update (a rank with
+        none contributes zeros); without an initialised group it does
+        nothing."""
+        if not (dist.is_available() and dist.is_initialized()):
+            return
+        from ..parallel.mesh import collective_device
+        device = collective_device(group)
+        # agree on the class count first: a rank may have seen no batch
+        classes = torch.tensor(
+            0 if self._pos is None else self._pos.shape[0], device=device)
+        dist.all_reduce(classes, op=dist.ReduceOp.MAX, group=group)
+        num_classes = int(classes)
+        if num_classes == 0:
+            return
+        if self._pos is None:
+            self._pos = np.zeros((num_classes, self.num_bins))
+            self._neg = np.zeros((num_classes, self.num_bins))
+        both = torch.from_numpy(np.stack([self._pos, self._neg])).to(device)
+        dist.all_reduce(both, group=group)
+        self._pos, self._neg = both.cpu().numpy()
 
     def compute(self) -> float:
         """Macro-average AUROC via the trapezoidal ROC integral."""

@@ -7,17 +7,20 @@ batch's own value). One pass computes the components for every threshold
 at once: the speakers are aligned once on the soft predictions (each of
 the K! permutations scored, for K <= 6; the host Hungarian beyond), then
 the threshold axis broadcasts through the binarization. Components stay
-device tensors and accumulate on the device; ``compute`` reads them. One
-process: there is no cross-device reduction (``Trainer(mesh=)`` is not
-taken). ``det_curve`` and ``EqualErrorRate`` are host numpy, as there.
+device tensors and accumulate on the device; ``compute`` reads them.
+Under data parallelism each rank accumulates its own batches and
+``sync(group)`` sums the components over the ranks (torchmetrics'
+``dist_reduce_fx="sum"``; they are pure sums). ``det_curve`` and
+``EqualErrorRate`` are host numpy, as there.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Any, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ops.permutation import permutate_device
 
@@ -147,6 +150,32 @@ class _StreamingMetric:
                          speech_total) -> float:
         raise NotImplementedError
 
+    #: thresholds per component (the Optimal family has a sweep)
+    _width = 1
+
+    def sync(self, group: Optional[Any] = None) -> None:
+        """Sum the accumulated components over the ranks of ``group``
+        (the default group when None) with one all-reduce, so that every
+        rank computes the global value. Every rank must call it, once
+        after its last update; without an initialised group it does
+        nothing."""
+        if not (dist.is_available() and dist.is_initialized()):
+            return
+        from ..parallel.mesh import collective_device
+        width = self._width
+        fields = ("false_alarm", "missed_detection", "speaker_confusion",
+                  "speech_total")
+        values = [torch.as_tensor(getattr(self, name), dtype=torch.float64)
+                  .cpu().reshape(-1).expand(1 if name == "speech_total"
+                                            else width)
+                  for name in fields]
+        packed = torch.cat(values).to(collective_device(group))
+        dist.all_reduce(packed, group=group)
+        packed = packed.cpu()
+        parts = torch.split(packed, [width, width, width, 1])
+        for name, part in zip(fields, parts):
+            setattr(self, name, _squeeze(part))
+
     def compute(self) -> float:
         return self._from_components(*_floats(
             self.false_alarm, self.missed_detection,
@@ -253,6 +282,7 @@ class OptimalDiarizationErrorRate(_StreamingMetric):
     def __init__(self, thresholds: Optional[np.ndarray] = None):
         self.thresholds = DEFAULT_THRESHOLDS if thresholds is None \
             else np.asarray(thresholds)
+        self._width = len(self.thresholds)
         self.reset()
 
     def update(self, preds, target):

@@ -21,9 +21,10 @@ softmax is masked with -inf. BatchNorm uses running statistics (eval
 mode). Everything runs in float32 under ``utils.runtime.exact_float32``
 (the JAX package's XLA default is float32 on its CPU reference; no TF32).
 
-``from_speechbrain(dir)`` reads a local snapshot (``hyperparams.yaml``
-by a lenient scan, no PyYAML; ``embedding_model.ckpt`` by
-``torch.load``); there is no hub access.
+``from_speechbrain(dir or hub id)`` reads a snapshot
+(``hyperparams.yaml`` by a lenient scan, no PyYAML;
+``embedding_model.ckpt`` by ``torch.load``), a hub id's through
+``utils/hf_hub.py``.
 """
 
 from __future__ import annotations
@@ -315,24 +316,33 @@ class ECAPA_TDNN(nn.Module):
 
     @classmethod
     def from_speechbrain(cls, source: Union[str, Path],
-                         **kwargs) -> "ECAPA_TDNN":
-        """Load a local SpeechBrain snapshot directory
-        (``hyperparams.yaml`` for what shapes cannot tell, and
-        ``embedding_model.ckpt``); the module comes back on the CPU in
-        eval mode. ``kwargs`` (``revision``, ``token``, ``cache_dir``) are
-        accepted and unused: there is no hub access."""
+                         revision: Optional[str] = None,
+                         token: Optional[str] = None,
+                         cache_dir=None) -> "ECAPA_TDNN":
+        """Load a SpeechBrain snapshot (``hyperparams.yaml`` for what
+        shapes cannot tell, and ``embedding_model.ckpt``): a local
+        directory or a hub id (``utils/hf_hub.py``; a snapshot without
+        ``hyperparams.yaml`` is read from the weights alone); the module
+        comes back on the CPU in eval mode."""
+        from ...utils.hf_hub import hub_asset
+        hub = dict(revision=revision, token=token, cache_dir=cache_dir)
         path = Path(source)
-        ckpt = path / "embedding_model.ckpt"
+        ckpt = hub_asset(source, "embedding_model.ckpt", **hub) or \
+            path / "embedding_model.ckpt"
         if not ckpt.is_file():
             raise ValueError(
                 f"{source!r} is not a SpeechBrain snapshot directory "
-                f"holding embedding_model.ckpt: this package loads local "
-                f"snapshots only (it has no hub access)")
+                f"holding embedding_model.ckpt, locally or as a hub id")
+        hyper_path = ckpt.parent / "hyperparams.yaml"
+        if ckpt.parent != path:
+            try:
+                hyper_path = hub_asset(source, "hyperparams.yaml", **hub)
+            except ValueError:
+                hyper_path = None
         raw = torch.load(ckpt, map_location="cpu", weights_only=True)
         state = {k: v.numpy() for k, v in raw.items()}
-        hyper_path = path / "hyperparams.yaml"
         hyper = _parse_hyperparams(hyper_path.read_text()) \
-            if hyper_path.is_file() else {}
+            if hyper_path is not None and hyper_path.is_file() else {}
         model = cls(**_infer_ecapa_config(state, hyper))
         return model.convert_speechbrain_state_dict(state).eval()
 

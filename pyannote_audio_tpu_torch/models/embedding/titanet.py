@@ -23,9 +23,10 @@ statistics (eval mode); everything runs in float32 under
 state dict onto the module (the ``mconv`` indices are parsed, so repeat
 counts and separability of each TitaNet size map), and
 ``export_nemo_state_dict`` / ``export_nemo_checkpoint`` write one
-(``_mconv_layout`` gives NeMo's indices). ``from_nemo`` reads a local
-``.nemo`` tar or an extracted directory; ``yaml`` is imported only where
-``model_config.yaml`` is read or written, and there is no hub access.
+(``_mconv_layout`` gives NeMo's indices). ``from_nemo`` reads a
+``.nemo`` tar or an extracted directory, local or a hub id's
+(``utils/hf_hub.py``); ``yaml`` is imported only where
+``model_config.yaml`` is read or written.
 """
 
 from __future__ import annotations
@@ -371,13 +372,15 @@ class TitaNet(nn.Module):
         return self
 
     @classmethod
-    def from_nemo(cls, source: Union[str, Path], **kwargs) -> "TitaNet":
-        """Load a local ``.nemo`` tar or a directory holding
-        ``model_config.yaml`` and ``model_weights.ckpt`` (needs PyYAML);
-        the module comes back on the CPU in eval mode. ``kwargs``
-        (``revision``, ``token``, ``cache_dir``) are accepted and unused:
-        there is no hub access."""
-        config, state = _load_nemo_archive(source)
+    def from_nemo(cls, source: Union[str, Path], revision=None, token=None,
+                  cache_dir=None) -> "TitaNet":
+        """Load a ``.nemo`` tar or a directory holding
+        ``model_config.yaml`` and ``model_weights.ckpt`` (needs PyYAML),
+        local or a hub id's (``utils/hf_hub.py``: the asset named after
+        the repo, ``<name>.nemo``); the module comes back on the CPU in
+        eval mode."""
+        config, state = _load_nemo_archive(source, revision=revision,
+                                           token=token, cache_dir=cache_dir)
         model = cls(**_model_kwargs_from_config(config))
         return model.convert_nemo_state_dict(state).eval()
 
@@ -425,15 +428,23 @@ def _model_kwargs_from_config(config: Mapping) -> Dict:
     return kwargs
 
 
-def _load_nemo_archive(source: Union[str, Path]):
-    """(config dict, state dict) of a local ``.nemo`` tar or directory."""
+def _load_nemo_archive(source: Union[str, Path], revision=None, token=None,
+                       cache_dir=None):
+    """(config dict, state dict) of a ``.nemo`` tar or directory, or of a
+    hub id's ``<name>.nemo`` (the JAX package's rule: an ``org/name`` id
+    not ending in ``.nemo``)."""
     import yaml
 
     path = Path(source)
+    if not path.exists() and isinstance(source, str) \
+            and source.count("/") == 1 and not source.endswith(".nemo"):
+        from ...utils.hf_hub import hub_asset
+        path = hub_asset(source, source.split("/", 1)[1] + ".nemo",
+                         revision=revision, token=token,
+                         cache_dir=cache_dir)
     if not path.exists():
-        raise ValueError(f"no .nemo checkpoint at {source!r}: this package "
-                         f"loads local checkpoints only (it has no hub "
-                         f"access)")
+        raise ValueError(f"no .nemo checkpoint at {source!r}, locally or "
+                         f"as a hub id")
     if path.is_dir():
         config_bytes = (path / "model_config.yaml").read_bytes()
         state = _torch_load((path / "model_weights.ckpt").read_bytes())

@@ -43,6 +43,14 @@ ones, so host work overlaps the device's. Files past the device-memory
 budget run in halo'd slices (core/longfile.py). Hooks see every stage,
 under the JAX package's step names.
 
+With a ``mesh`` (``parallel/mesh.py``) the segmentation ``Inference``
+splits its batches over the mesh's devices, and so do the embedding
+batches and the shared trunk's panel batches: each device runs its own
+replica of the embedding model, shards move with ``non_blocking=True``
+and outputs concatenate on the first device, which is the pipeline's
+device. ``embedding_batch_size`` rounds up to a multiple of the mesh's
+size, as in the JAX package.
+
 The constructor takes the JAX package's surface: models as instances,
 local checkpoint paths or ``{checkpoint, subfolder}`` dicts (which is what
 ``Pipeline.from_pretrained`` passes for a community-1 style snapshot),
@@ -94,6 +102,7 @@ from ..ops.binarize import hysteresis
 from ..ops.diarize_fused import (fused_count_stats, fused_reconstruct,
                                  make_embedding_masks)
 from ..ops.fbank import fbank_num_frames, whole_fbank
+from ..parallel.mesh import Mesh, map_shards, replicate
 from ..utils.runtime import device_flag
 from .clustering import Clustering, OracleClustering
 from .speaker_verification import analytic_min_num_samples
@@ -135,7 +144,9 @@ class EmbeddingMixin:
     of the three paths (shared trunk, shared fbank, per chunk): the
     counterpart of the JAX package's ``EmbeddingHotPathMixin``. A host
     class has ``_embedding``, ``_segmentation`` (an ``Inference``),
-    ``device``, ``embedding_batch_size`` and the path ``counts``."""
+    ``device``, ``embedding_batch_size`` and the path ``counts``, and
+    may have a ``mesh``; it calls ``_replicate_embedding`` once it has
+    its embedding model."""
 
     # shared-trunk panel geometry, in trunk frames: halo * stride fbank
     # frames of context on each side cover the trunk's receptive field, so
@@ -145,6 +156,26 @@ class EmbeddingMixin:
     TRUNK_PANEL_BATCH = 8
     # file-dict key of the training cache, as in the JAX package
     CACHED_EMBEDDINGS = "training_cache/embeddings"
+
+    def _replicate_embedding(self) -> None:
+        """The embedding model's mesh (the pipeline's, else its device
+        alone) and one replica of the model per device of it."""
+        self._embedding_mesh = getattr(self, "mesh", None) \
+            or Mesh([self.device])
+        self._embedding_replicas = None if self._embedding is None \
+            else replicate(self._embedding, self._embedding_mesh)
+
+    def to(self, device: Union[str, torch.device]):
+        """The pipeline's ``to``, then the embedding replicas afresh."""
+        super().to(device)
+        self._replicate_embedding()
+        return self
+
+    def _embed_sharded(self, fn: Callable, *args):
+        """``fn(embedding replica, *shard)`` on each device's shard of
+        ``args``' leading axis, gathered on the pipeline's device."""
+        return map_shards(self._embedding_mesh, self._embedding_replicas,
+                          fn, *args)
 
     def _frame_shift_samples(self) -> int:
         emb = self._embedding
@@ -237,12 +268,13 @@ class EmbeddingMixin:
         x = self.prepare(feats, num_real_frames, window_samples)
         # (panels, mel, (core + 2 halo) * stride) views, one per core
         panels = x.unfold(0, (core + 2 * halo) * stride, core * stride)
-        parts = []
-        for b in range(0, panels.shape[0], pbatch):
-            out = self._embedding.frames_from_fbank(
-                panels[b:b + pbatch].transpose(1, 2), centered=True)
-            parts.append(out[:, halo:halo + core])
+
+        def panel_cores(emb, batch):
             self.counts["trunk_panel_batches"] += 1
+            return emb.frames_from_fbank(batch.transpose(1, 2),
+                                         centered=True)[:, halo:halo + core]
+        parts = [self._embed_sharded(panel_cores, panels[b:b + pbatch])
+                 for b in range(0, panels.shape[0], pbatch)]
         trunk = torch.cat(parts) if len(parts) > 1 else parts[0]
         return trunk.reshape(-1, trunk.shape[-1])
 
@@ -342,8 +374,8 @@ class EmbeddingMixin:
             def translate(chunk_starts):
                 return chunk_starts // shift // stride
 
-            def batch(frames, masks):
-                return emb.embed(frames, masks)
+            def batch(model, frames, masks):
+                return model.embed(frames, masks)
         elif self._shared_fbank(step_samples):
             width = self._fbank_frames_per_chunk(window_samples)
             shift = self._frame_shift_samples()
@@ -354,18 +386,18 @@ class EmbeddingMixin:
             def translate(chunk_starts):
                 return chunk_starts // shift
 
-            def batch(feats, masks):
+            def batch(model, feats, masks):
                 self.counts["chunk_trunk_batches"] += 1
-                return emb.embed(emb.frames_from_fbank(feats), masks)
+                return model.embed(model.frames_from_fbank(feats), masks)
         else:
             translate = None
 
             def input_for(buffer, num_real_samples):
                 return buffer
 
-            def batch(chunks, masks):
+            def batch(model, chunks, masks):
                 self.counts["chunk_trunk_batches"] += 1
-                return emb.embed(emb.frames(chunks.contiguous()), masks)
+                return model.embed(model.frames(chunks.contiguous()), masks)
 
         # groups of (input thunk, slice-local chunk starts, first global
         # chunk): one for the whole file, or one per slice of a long
@@ -412,7 +444,8 @@ class EmbeddingMixin:
                     inputs = views[b:e]
                 else:
                     inputs = source[first[b:e, None] + offsets]
-                out.append(batch(inputs, masks[chunk0 + b:chunk0 + e]))
+                out.append(self._embed_sharded(
+                    batch, inputs, masks[chunk0 + b:chunk0 + e]))
                 if hook is not None:
                     hook("embeddings", None, total=num_batches,
                          completed=len(out))
@@ -454,11 +487,16 @@ class SpeakerDiarization(SpeakerDiarizationMixin, EmbeddingMixin,
     ``{checkpoint, subfolder}`` dict; both are moved to ``device`` and run
     in eval mode. ``embedding`` may be None only for oracle clustering.
     ``plda`` (an instance, a directory or such a dict) serves
-    ``clustering="VBxClustering"``. ``device`` is the CUDA card by
-    default; without one the constructor raises, and ``device="cpu"``
-    runs the exact path on the CPU; ``to(device)`` moves the pipeline
-    later. ``legacy`` returns only the diarization ``Annotation``.
-    ``counts`` records which embedding path ran (reset it at will).
+    ``clustering="VBxClustering"``. A model or PLDA may also be a hub id
+    (``utils/hf_hub.py``, with ``token`` and ``cache_dir``). ``device``
+    is the CUDA card by default; without one the constructor raises, and
+    ``device="cpu"`` runs the exact path on the CPU; ``to(device)`` moves
+    the pipeline later. ``mesh`` (``parallel.make_mesh``) splits the
+    segmentation, embedding and trunk-panel batches over its devices;
+    ``device`` must be the mesh's first, and ``to`` takes no other.
+    ``legacy`` returns only the diarization ``Annotation``. ``counts``
+    records which embedding path ran, one count per batch and mesh shard
+    (reset it at will).
     """
 
     # apply_batch streams its own decode
@@ -476,8 +514,14 @@ class SpeakerDiarization(SpeakerDiarizationMixin, EmbeddingMixin,
                  segmentation_batch_size: int = 32,
                  der_variant: Optional[dict] = None,
                  legacy: bool = False,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda",
+                 mesh=None, token=None, cache_dir=None):
         super().__init__()
+        self.mesh = mesh
+        if mesh is not None:
+            mesh.check_first(device)
+            embedding_batch_size = -(-embedding_batch_size // mesh.size) \
+                * mesh.size
         self.device = check_device(device)
         try:
             Klustering = Clustering[clustering].value
@@ -486,7 +530,8 @@ class SpeakerDiarization(SpeakerDiarizationMixin, EmbeddingMixin,
                              f"{[member.name for member in Clustering]}")
         if segmentation is None:
             raise ValueError("a segmentation model is required")
-        segmentation = get_model(segmentation)
+        hub = dict(token=token, cache_dir=cache_dir)
+        segmentation = get_model(segmentation, **hub)
         if embedding is None and Klustering is not OracleClustering:
             raise ValueError(f"{clustering} needs an embedding model")
         self._powerset = segmentation.specifications.powerset
@@ -497,14 +542,16 @@ class SpeakerDiarization(SpeakerDiarizationMixin, EmbeddingMixin,
         self.klustering = clustering
         self.der_variant = der_variant or {"collar": 0.0,
                                            "skip_overlap": False}
-        self._embedding = get_model(embedding).to(self.device).eval() \
+        self._embedding = get_model(embedding, **hub).to(self.device).eval() \
             if embedding is not None else None
         segmentation = segmentation.to(self.device).eval()
         duration = segmentation.specifications.duration
         self._segmentation = Inference(
             segmentation, duration=duration,
             step=segmentation_step * duration, skip_aggregation=True,
-            batch_size=segmentation_batch_size, device=self.device)
+            batch_size=segmentation_batch_size, device=self.device,
+            mesh=mesh)
+        self._replicate_embedding()
         if self._powerset:
             self.segmentation = ParamDict(min_duration_off=Uniform(0.0, 1.0))
         else:
@@ -514,7 +561,7 @@ class SpeakerDiarization(SpeakerDiarizationMixin, EmbeddingMixin,
         if Klustering is OracleClustering:
             self.clustering = OracleClustering()
         elif clustering == "VBxClustering":
-            self.clustering = Klustering(plda=get_plda(plda),
+            self.clustering = Klustering(plda=get_plda(plda, **hub),
                                          metric="cosine")
         else:
             self.clustering = Klustering(metric="cosine")
@@ -539,7 +586,10 @@ class SpeakerDiarization(SpeakerDiarizationMixin, EmbeddingMixin,
         """Move the models, the segmentation ``Inference`` and the
         clustering's device to ``device``, dropping what was cached for
         the old one (the powerset mapping, the LSTM's packed weights, the
-        fbank's constants)."""
+        fbank's constants). Under a mesh ``device`` must be the mesh's
+        first device; the replicas on the others are copied afresh."""
+        if self.mesh is not None:
+            self.mesh.check_first(device)
         super().to(device)
         fbank_ops._constant.cache_clear()
         return self

@@ -22,8 +22,9 @@ batch), and a frame mask from the compacted lengths (relative lengths for
 SpeechBrain, the ``1 + samples // hop`` prefix for NeMo); rows shorter
 than ``min_num_samples`` are NaN. Every wrapper and ``SpeakerEmbedding``
 runs on ``device``: the CUDA card when it is None (raising without
-one), ``device="cpu"`` on the CPU. Hub ids raise: there is no hub
-access.
+one), ``device="cpu"`` on the CPU. Hub ids resolve as the JAX package
+resolves them (``utils/hf_hub.py``), except on the ONNX route, which
+reads local files only, as there.
 """
 
 from __future__ import annotations
@@ -103,7 +104,8 @@ class PyannoteAudioPretrainedSpeakerEmbedding(_PretrainedEmbedding):
                  device: Union[str, torch.device, None] = None,
                  token=None, cache_dir=None):
         self.embedding = embedding
-        super().__init__(get_model(embedding), device)
+        super().__init__(get_model(embedding, token=token,
+                                   cache_dir=cache_dir), device)
 
     @torch.inference_mode()
     def __call__(self, waveforms, masks=None) -> np.ndarray:
@@ -148,8 +150,8 @@ class ONNXWeSpeakerPretrainedSpeakerEmbedding(
         if not path.is_file():
             raise ValueError(
                 f"wespeaker embedding {embedding!r} is not a local .onnx "
-                f"file: this package loads local files only (it has no hub "
-                f"access)")
+                f"file: the ONNX route reads local files only and takes no "
+                f"hub id, as the JAX package's does")
         state = {k if k.startswith("resnet.") else f"resnet.{k}": v
                  for k, v in read_onnx_initializers(path).items()}
         n3 = len({k.split(".")[2] for k in state
@@ -211,9 +213,9 @@ def _compacted_masked_embed(model, waveforms, masks, frame_mask_fn,
 
 
 class SpeechBrainPretrainedSpeakerEmbedding(_PretrainedEmbedding):
-    """A local SpeechBrain snapshot (``embedding_model.ckpt`` +
-    ``hyperparams.yaml``) on the port's ECAPA-TDNN, or an ``ECAPA_TDNN``
-    instance."""
+    """A SpeechBrain snapshot (``embedding_model.ckpt`` +
+    ``hyperparams.yaml``; a directory or a hub id) on the port's
+    ECAPA-TDNN, or an ``ECAPA_TDNN`` instance."""
 
     def __init__(self, embedding: Union[str, Path, torch.nn.Module] =
                  "speechbrain/spkrec-ecapa-voxceleb",
@@ -222,7 +224,9 @@ class SpeechBrainPretrainedSpeakerEmbedding(_PretrainedEmbedding):
         from ..models.embedding.ecapa import ECAPA_TDNN
         self.embedding = embedding
         super().__init__(embedding if isinstance(embedding, torch.nn.Module)
-                         else ECAPA_TDNN.from_speechbrain(embedding), device)
+                         else ECAPA_TDNN.from_speechbrain(
+                             embedding, token=token, cache_dir=cache_dir),
+                         device)
 
     def __call__(self, waveforms, masks=None) -> np.ndarray:
         def relative_frame_mask(wav_lens, max_len, num_frames):
@@ -235,7 +239,7 @@ class SpeechBrainPretrainedSpeakerEmbedding(_PretrainedEmbedding):
 
 
 class NeMoPretrainedSpeakerEmbedding(_PretrainedEmbedding):
-    """A local NeMo ``.nemo`` archive or extracted directory on the port's
+    """A NeMo ``.nemo`` archive, extracted directory or hub id on the port's
     TitaNet (PyYAML reads its ``model_config.yaml``), or a ``TitaNet``
     instance. As in the JAX package, the compacted speech is embedded
     (the reference passes the uncompacted waveforms with compacted
@@ -248,7 +252,9 @@ class NeMoPretrainedSpeakerEmbedding(_PretrainedEmbedding):
         from ..models.embedding.titanet import TitaNet
         self.embedding = embedding
         super().__init__(embedding if isinstance(embedding, torch.nn.Module)
-                         else TitaNet.from_nemo(embedding), device)
+                         else TitaNet.from_nemo(
+                             embedding, token=token, cache_dir=cache_dir),
+                         device)
 
     def __call__(self, waveforms, masks=None) -> np.ndarray:
         hop = self.model.hop_length
@@ -277,17 +283,20 @@ def PretrainedSpeakerEmbedding(embedding: PipelineModel,
         lowered = name.lower()
         if "speechbrain" in lowered or (
                 path.is_dir() and (path / "embedding_model.ckpt").is_file()):
-            return SpeechBrainPretrainedSpeakerEmbedding(name, device=device)
+            return SpeechBrainPretrainedSpeakerEmbedding(
+                name, device=device, token=token, cache_dir=cache_dir)
         if "nvidia" in lowered or "nemo" in lowered or (
                 path.is_dir() and (path / "model_weights.ckpt").is_file()):
-            return NeMoPretrainedSpeakerEmbedding(name, device=device)
+            return NeMoPretrainedSpeakerEmbedding(
+                name, device=device, token=token, cache_dir=cache_dir)
         # checkpoint directories (even ones named *wespeaker*) load as
         # checkpoints; files and names go to the ONNX route
         if ("wespeaker" in lowered or lowered.endswith(".onnx")) \
                 and not path.is_dir():
             return ONNXWeSpeakerPretrainedSpeakerEmbedding(name,
                                                            device=device)
-    return PyannoteAudioPretrainedSpeakerEmbedding(embedding, device=device)
+    return PyannoteAudioPretrainedSpeakerEmbedding(
+        embedding, device=device, token=token, cache_dir=cache_dir)
 
 
 class SpeakerEmbedding(Pipeline):

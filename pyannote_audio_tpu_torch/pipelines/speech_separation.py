@@ -103,6 +103,7 @@ class SpeechSeparation(SpeakerDiarizationMixin, EmbeddingMixin, Pipeline):
             asr_collar=Uniform(0.0, 1.0))
         self._embedding = get_model(embedding).to(self.device).eval() \
             if embedding is not None else None
+        self._replicate_embedding()
         self._audio = Audio(sample_rate=model.sample_rate, mono="downmix")
         self.clustering = OracleClustering() \
             if Klustering is OracleClustering else Klustering(metric="cosine")

@@ -53,14 +53,13 @@ class OracleVoiceActivityDetection(Pipeline):
 class VoiceActivityDetection(Pipeline):
     """Voice activity detection with a segmentation model.
 
-    ``segmentation`` is a model instance, a local checkpoint path or a
+    ``segmentation`` is a model instance, a checkpoint path, a hub id or a
     ``{checkpoint, subfolder}`` dict; it runs on ``device`` (the CUDA card
     by default; without one the constructor raises, and ``device="cpu"``
     runs on the CPU). ``fscore`` selects the metric that ``get_metric``
     returns. Other keyword arguments go to the ``Inference`` (``step``,
-    ``batch_size``, ``pre_aggregation_hook``, ...); ``token``,
-    ``use_auth_token`` and ``cache_dir`` are accepted and unused (there is
-    no hub access).
+    ``batch_size``, ``pre_aggregation_hook``, ...); ``token`` (or
+    ``use_auth_token``) and ``cache_dir`` serve a hub id.
     """
 
     def __init__(self, segmentation: PipelineModel = None,
@@ -71,7 +70,8 @@ class VoiceActivityDetection(Pipeline):
         super().__init__()
         self.segmentation = segmentation
         self.fscore = fscore
-        model = get_model(segmentation)
+        model = get_model(segmentation, token=token or use_auth_token,
+                          cache_dir=cache_dir)
         inference_kwargs.setdefault("pre_aggregation_hook", max_over_classes)
         self._segmentation = Inference(model, device=device,
                                        **inference_kwargs)

@@ -301,6 +301,14 @@ class SpeakerDiarization(SegmentationTaskMixin):
             y = np.pad(y, ((0, 0), (0, K - y.shape[1])))
         return self._with_weight({"X": X, "y": y}, file, chunk)
 
+    def loss_normalizer(self, batch):
+        """The powerset NLL's denominator: the frame weights' sum where
+        the frames are weighted, else the item count."""
+        weight = self.loss_weight(batch, batch.y.shape[1])
+        if weight is None:
+            return float(batch.X.shape[0])
+        return weight.sum()
+
     def loss_from_output(self, output, batch):
         class_weight = torch.clamp(self.powerset.cardinality, min=1) \
             if self.weigh_by_cardinality else None

@@ -8,6 +8,12 @@ marginals ``exp(log_probs) @ mapping``, for ``der/val/optimal``). A
 padded batch item carries ``valid = 0``, which zeroes its predictions and
 targets, so it adds nothing to any component at any threshold. The
 outputs stay on the device.
+
+Under data parallelism each rank runs the step on its slice of the
+padded batch; the components are pure sums, so the streaming metrics
+that accumulate them sum them over the ranks with one ``sync`` at the
+end of the validation (the JAX step's ``merge_psum`` under
+``shard_map``, torchmetrics' ``dist_reduce_fx="sum"``).
 """
 
 from __future__ import annotations

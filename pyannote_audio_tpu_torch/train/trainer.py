@@ -43,8 +43,34 @@ Counterpart of pyannote_audio_tpu/train/trainer.py, with its semantics:
   once per fit.
 
 It runs on one device: the CUDA card unless ``device`` says otherwise
-(``"cpu"``); without a card it raises. ``mesh`` (data parallelism over
-several cards) is not taken yet.
+(``"cpu"``); without a card it raises.
+
+``mesh`` (``parallel.make_mesh()`` inside an initialised process group)
+trains with ``DistributedDataParallel``, one process per device, as the
+reference's lightning DDP does; ``torchrun`` or
+``torch.multiprocessing.spawn`` starts the processes and each calls
+``torch.distributed.init_process_group`` first (gloo for two ranks on
+one card: NCCL refuses a duplicate GPU). Every rank draws the same
+global batch, the JAX package's single-controller stream, and takes its
+contiguous slice of it, so the fit equals the JAX ``Trainer(mesh=)``'s
+and the single-device fit of the same seed:
+
+- each rank's loss is weighed by its share of the global normaliser
+  (``Task.loss_normalizer``: the item count, or the frame weights' sum),
+  so that DDP's averaged gradient is the global batch's; the reported
+  loss is the global one, all-reduced, and the non-finite skip reads it,
+  so every rank keeps or rolls back the same step;
+- validation splits each (padded) batch over the ranks: each rank's
+  metrics accumulate its DER components and AUROC counts and ``sync``
+  sums them once at the end (the JAX ``merge_psum``), and the outputs
+  are assembled with an all-reduce for the loss, so the
+  record, the best checkpoint and early stopping agree on every rank;
+- rank 0 alone writes checkpoints, ``train_state.pt``, ``metrics.jsonl``
+  and figures; ``resume_from`` works on every rank.
+
+The collectives are ``all_reduce`` and ``broadcast`` (DDP's own are
+those too). A mesh of several devices in one process raises: one
+process per device is the torch idiom.
 """
 
 from __future__ import annotations
@@ -60,10 +86,12 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.inference import to_device
 from ..core.model import attach_specifications, is_frozen
 from ..core.task import Task, TrainingBatch
+from ..parallel.mesh import normalize_device, pad_to_devices, split_leading
 from ..utils.runtime import check_device, exact_float32
 
 TRAIN_STATE = "train_state.pt"
@@ -87,8 +115,39 @@ def _state_tensors(optimizer: torch.optim.Optimizer, params):
             if isinstance(value, torch.Tensor)]
 
 
+class _LossModule(torch.nn.Module):
+    """The model and the task's trainable parameters, whose forward is
+    the task's loss on a batch: one ``DistributedDataParallel`` forward
+    per step, however many model forwards the loss runs (PixIT's two).
+
+    Returns (this rank's loss weighed by ``world * d / sum(d)``, the
+    global loss ``sum(loss * d) / sum(d)``), where ``d`` is the rank's
+    ``Task.loss_normalizer``: DDP averages the gradients of the first
+    over the ranks, which gives the global loss's gradient."""
+
+    def __init__(self, model, task, task_params, group):
+        super().__init__()
+        self.model = model
+        self.task_params = torch.nn.ParameterDict(task_params)
+        self.task = task
+        self.group = group
+
+    def forward(self, batch: TrainingBatch):
+        loss = self.task.loss(self.model, batch)
+        world = dist.get_world_size(self.group)
+        local = torch.as_tensor(self.task.loss_normalizer(batch),
+                                dtype=torch.float64,
+                                device=loss.device).reshape(())
+        # one all-reduce for both: [sum of normalisers, sum of loss * d]
+        sums = torch.stack([local, loss.detach().double() * local])
+        dist.all_reduce(sums, group=self.group)
+        weight = (world * local / sums[0]).to(loss.dtype)
+        return loss * weight, (sums[1] / sums[0]).to(loss.dtype)
+
+
 class Trainer:
-    """Epoch-driven training loop on one device."""
+    """Epoch-driven training loop on one device, or one device per rank
+    of a process group (``mesh``)."""
 
     def __init__(
         self,
@@ -110,10 +169,25 @@ class Trainer:
         device: Union[str, torch.device, None] = None,
     ):
         if mesh is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=...) is not ported yet: data parallelism over "
-                "several cards waits on ROADMAP.md §1's DDP item")
+            if not mesh.distributed and mesh.size > 1:
+                raise ValueError(
+                    f"Trainer(mesh=) trains one process per device, with "
+                    f"DistributedDataParallel; {mesh} is one process over "
+                    f"{mesh.size} devices. Launch one process per device "
+                    f"(torchrun, or torch.multiprocessing.spawn), call "
+                    f"torch.distributed.init_process_group in each, and "
+                    f"pass parallel.make_mesh()")
+            if device is not None and normalize_device(device) != \
+                    mesh.local_device:
+                raise ValueError(f"device {device} is not this rank's "
+                                 f"device in {mesh}")
+            device = mesh.local_device
+            if not mesh.distributed:
+                mesh = None          # one device: the plain loop
+        self.mesh = mesh
         self.device = check_device(device)
+        if mesh is not None and self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
         self.max_epochs = max_epochs
         self.limit_train_batches = limit_train_batches
         self.learning_rate = learning_rate
@@ -135,6 +209,14 @@ class Trainer:
         #: events; None on the CPU))
         self.step_timings: List[Tuple[int, float, float,
                                       Optional[float]]] = []
+        #: every step's loss (the global one under a mesh), read once per
+        #: epoch
+        self.step_losses: List[float] = []
+
+    @property
+    def is_main(self) -> bool:
+        """Does this process write checkpoints and logs? (Rank 0.)"""
+        return self.mesh is None or self.mesh.rank == 0
 
     def make_optimizer(self, params: List[torch.nn.Parameter],
                        names: Optional[List[str]] = None
@@ -189,6 +271,18 @@ class Trainer:
             self.best_epoch = state["best_epoch"]
         self.frozen_prefixes = tuple(getattr(model, "frozen_modules", ()))
         task.trainable_params = task_params
+        ddp = None
+        if self.mesh is not None:
+            # the reducer's buckets are fixed here: the frozen prefixes
+            # zero updates and never touch requires_grad, so they stay
+            # valid when a callback changes them. A task's loss need not
+            # reach every parameter (a head it does not train), hence
+            # find_unused_parameters
+            ddp = torch.nn.parallel.DistributedDataParallel(
+                _LossModule(model, task, task_params, self.mesh.group),
+                device_ids=[self.device] if self.device.type == "cuda"
+                else None, process_group=self.mesh.group,
+                find_unused_parameters=True)
         for cb in self.callbacks:
             if hasattr(cb, "on_fit_start"):
                 cb.on_fit_start(self, model)
@@ -203,18 +297,20 @@ class Trainer:
                       for name in names]
             record = {"epoch": epoch,
                       "loss": self._train_epoch(model, task, optimizer,
-                                                params, frozen, epoch)}
+                                                params, frozen, epoch,
+                                                ddp=ddp)}
             record.update(self.validate(model, task,
                                         max_chunks=self.limit_val_chunks,
                                         epoch=epoch))
             self.history.append(record)
-            if self.log_dir is not None:
+            main = self.is_main
+            if self.log_dir is not None and main:
                 self.log_dir.mkdir(parents=True, exist_ok=True)
                 with open(self.log_dir / "metrics.jsonl", "a") as f:
                     f.write(json.dumps(
                         {k: (None if isinstance(v, float) and math.isnan(v)
                              else v) for k, v in record.items()}) + "\n")
-            if self.checkpoint_dir is not None:
+            if self.checkpoint_dir is not None and main:
                 save_checkpoint(model, self.checkpoint_dir
                                 / f"epoch_{epoch}")
             # best checkpoint and early stopping on the monitored metric;
@@ -230,13 +326,13 @@ class Trainer:
                 best_score = effective_sign * float(score)
                 epochs_since_best = 0
                 self.best_epoch = epoch
-                if self.checkpoint_dir is not None:
+                if self.checkpoint_dir is not None and main:
                     save_checkpoint(model, self.checkpoint_dir / "best")
             else:
                 # a NaN or missing score is no improvement: a diverged
                 # run still stops early
                 epochs_since_best += 1
-            if self.checkpoint_dir is not None:
+            if self.checkpoint_dir is not None and main:
                 _save_atomic({
                     "model": model.state_dict(),
                     "task": {k: v.detach() for k, v in task_params.items()},
@@ -252,9 +348,10 @@ class Trainer:
         return model
 
     def _train_epoch(self, model, task, optimizer, params, frozen,
-                     epoch: int) -> float:
+                     epoch: int, ddp=None) -> float:
         """One epoch of steps; returns the mean finite loss (NaN if
-        none)."""
+        none). Under a mesh each rank steps on its slice of the global
+        batch through ``ddp``."""
         train_mode(model)
         losses = []
         events = []
@@ -271,8 +368,9 @@ class Trainer:
                 pair = (torch.cuda.Event(enable_timing=True),
                         torch.cuda.Event(enable_timing=True))
                 pair[0].record()
-            losses.append(self.train_step(model, task, optimizer, params,
-                                          frozen, self.to_device(batch)))
+            losses.append(self.train_step(
+                model, task, optimizer, params, frozen,
+                self.to_device(self.rank_slice(batch)), ddp=ddp))
             if pair is not None:
                 pair[1].record()
             events.append(pair)
@@ -282,6 +380,7 @@ class Trainer:
         # the epoch's one host read of the device
         values = torch.stack(losses).cpu().numpy() if losses \
             else np.zeros(0)
+        self.step_losses.extend(values.tolist())
         first = len(self.step_timings) - len(events)
         for k, pair in enumerate(events):
             if pair is not None:
@@ -295,6 +394,22 @@ class Trainer:
                 f"skipped {len(bad)} batch(es) of epoch {epoch} with "
                 f"non-finite loss (indices {bad.tolist()})")
         return float(np.mean(finite)) if len(finite) else math.nan
+
+    def rank_slice(self, batch: TrainingBatch) -> TrainingBatch:
+        """This rank's contiguous slice of a global host batch (every
+        part, ``meta`` included, along its leading axis); the batch
+        itself without a mesh."""
+        if self.mesh is None:
+            return batch
+        world, rank = self.mesh.size, self.mesh.rank
+
+        def pick(value):
+            return None if value is None \
+                else split_leading(np.asarray(value), world)[rank]
+        return TrainingBatch(
+            X=pick(batch.X), y=pick(batch.y), weight=pick(batch.weight),
+            meta=None if batch.meta is None else {
+                k: pick(v) for k, v in batch.meta.items()})
 
     def to_device(self, batch: TrainingBatch) -> TrainingBatch:
         """A host batch on the trainer's device: X and weight as float32,
@@ -314,12 +429,18 @@ class Trainer:
                 k: put(v) for k, v in batch.meta.items()})
 
     def train_step(self, model, task, optimizer, params, frozen,
-                   batch: TrainingBatch) -> torch.Tensor:
+                   batch: TrainingBatch, ddp=None) -> torch.Tensor:
         """One optimizer step on a device batch; returns the loss (a
         device scalar). Queues work only: nothing here waits for the
-        device."""
+        device (under a mesh, gloo's collectives do). With ``ddp``
+        (a ``DistributedDataParallel`` over ``_LossModule``) the loss is
+        the global batch's, and so is the skip decision."""
         optimizer.zero_grad(set_to_none=True)
-        loss = task.loss(model, batch)
+        if ddp is None:
+            loss = task.loss(model, batch)
+            reported = loss.detach()
+        else:
+            loss, reported = ddp(batch)
         with exact_float32():
             loss.backward()
         with torch.no_grad():
@@ -332,7 +453,7 @@ class Trainer:
             state = _state_tensors(optimizer, params)
             old_state = [s[k].clone() for s, k in state]
             optimizer.step()
-            good = torch.isfinite(loss.detach())
+            good = torch.isfinite(reported)
             for p, before, freeze in zip(params, old, frozen):
                 p.copy_(torch.where(good, before if freeze else p, before))
             # state that the first step created starts from zeros
@@ -343,12 +464,15 @@ class Trainer:
                 if (id(s), k) not in seen:
                     s[k].copy_(torch.where(good.to(s[k].device), s[k],
                                            torch.zeros_like(s[k])))
-        return loss.detach()
+        return reported
 
     def validate(self, model, task: Task, max_chunks: Optional[int] = None,
                  epoch: int = 0, eval_batch_size: int = 32) -> Dict:
         """One pass over the task's validation grid (every chunk, or
-        ``max_chunks`` of them strided); returns the record's entries."""
+        ``max_chunks`` of them strided); returns the record's entries.
+        Under a mesh each rank runs its contiguous slice of every batch
+        (``eval_batch_size`` rounds down to a multiple of the ranks, as in
+        the JAX package) and every rank returns the same record."""
         chunks = task.prepare_validation()
         if not chunks:
             return {}
@@ -368,6 +492,10 @@ class Trainer:
         if max_chunks:
             # stride for coverage, then cap
             chunks = chunks[::max(1, len(chunks) // max_chunks)][:max_chunks]
+        group = None if self.mesh is None else self.mesh.group
+        world = 1 if self.mesh is None else self.mesh.size
+        rank = 0 if self.mesh is None else self.mesh.rank
+        eval_batch_size = max(eval_batch_size // world, 1) * world
         metrics = {
             "der/val": DiarizationErrorRate(),
             "der/val/false_alarm": FalseAlarmRate(),
@@ -382,9 +510,28 @@ class Trainer:
         eval_step = make_eval_step(model, powerset=powerset)
         with_der = powerset is not None or getattr(task, "val_optimal_der",
                                                    False)
-        want_plot = self.log_dir is not None and _power_of_two_or_zero(epoch)
+        want_plot = self.is_main and self.log_dir is not None and \
+            _power_of_two_or_zero(epoch)
         loss_sum = torch.zeros((), device=self.device)
         state = {"n": 0, "der": False, "auroc": False, "plot": None}
+
+        def local(array):
+            """This rank's contiguous slice of a host batch."""
+            return array if group is None \
+                else split_leading(array, world)[rank]
+
+        def assemble(output, total):
+            """The whole batch's outputs on every rank, from each rank's
+            slice: zeros elsewhere, summed with one all-reduce."""
+            if group is None:
+                return output
+            sizes = [len(part)
+                     for part in split_leading(np.zeros(total), world)]
+            full = output.new_zeros((total,) + tuple(output.shape[1:]))
+            start = sum(sizes[:rank])
+            full[start:start + sizes[rank]] = output
+            dist.all_reduce(full, group=group)
+            return full
 
         def flush(batch_X, batch_y):
             if batch_y[0] is None:
@@ -394,32 +541,45 @@ class Trainer:
             y = np.stack(batch_y).astype(np.float32)
             if with_der:
                 Xp, yp, valid = pad_eval_batch(X, y, eval_batch_size)
-                X_dev = to_device(Xp, self.device)
-                y_dev = torch.as_tensor(yp).to(self.device)
+                X_dev = to_device(local(Xp), self.device)
+                y_dev = torch.as_tensor(local(yp)).to(self.device)
                 hard4, softp, output = eval_step(
-                    X_dev, y_dev, torch.as_tensor(valid).to(self.device))
+                    X_dev, y_dev, torch.as_tensor(local(valid)).to(
+                        self.device))
                 for m in metrics.values():
                     m.update_from_components(*unpack_der_components(hard4, 1))
                 optimal.update_from_components(*unpack_der_components(
                     softp, len(DEFAULT_THRESHOLDS)))
                 state["der"] = True
+                output = assemble(output, eval_batch_size)[:n]
                 if want_plot and state["plot"] is None:
-                    preds = powerset.to_multilabel(output[:n]) \
-                        if powerset is not None else output[:n]
+                    preds = powerset.to_multilabel(output) \
+                        if powerset is not None else output
                     state["plot"] = (preds.float().cpu().numpy(), y)
-                X_dev, y_dev, output = X_dev[:n], y_dev[:n], output[:n]
+            else:
+                # zero chunks pad the batch to a multiple of the ranks, so
+                # that no rank forwards an empty slice
+                padded = pad_to_devices(n, world)
+                Xp = np.concatenate([X, np.zeros((padded - n,) + X.shape[1:],
+                                                  X.dtype)]) \
+                    if padded > n else X
+                X_dev = to_device(local(Xp), self.device)
+                y_dev = torch.as_tensor(y).to(self.device)
+                with torch.no_grad():
+                    output = assemble(model(X_dev), padded)[:n]
+                preds = output.float().cpu().numpy()
+                if preds.ndim == 3:
+                    # each rank counts its share of the real chunks
+                    k = min(preds.shape[1], y.shape[1])
+                    auroc.update(local(preds[:, :k]), local(y[:, :k]))
+                    state["auroc"] = True
+                    if self.is_main and state["plot"] is None:
+                        state["plot"] = (preds, y)
+            if group is None:
+                X_dev, y_dev = X_dev[:n], y_dev[:n]
             else:
                 X_dev = to_device(X, self.device)
                 y_dev = torch.as_tensor(y).to(self.device)
-                with torch.no_grad():
-                    output = model(X_dev)
-                preds = output.float().cpu().numpy()
-                if preds.ndim == 3:
-                    k = min(preds.shape[1], y.shape[1])
-                    auroc.update(preds[:, :k], y[:, :k])
-                    state["auroc"] = True
-                    if state["plot"] is None:
-                        state["plot"] = (preds, y)
             with torch.no_grad():
                 loss = task.validation_loss(model, output, TrainingBatch(
                     X=X_dev, y=y_dev))
@@ -444,6 +604,10 @@ class Trainer:
                 flush(batch_X, batch_y)
         finally:
             train_mode(model)
+        if group is not None:
+            # every rank holds the same state: it saw the same batches
+            for metric in (*metrics.values(), optimal, auroc):
+                metric.sync(group)
         out: Dict = {}
         if state["der"]:
             for name, metric in metrics.items():

@@ -132,7 +132,12 @@ def test_safetensors_round_trips_every_dtype(tmp_path):
         safetensors.load_file(tmp_path / "bad.safetensors")
 
 
-def test_get_calibration_resolves_its_four_forms(tmp_path):
+def test_get_calibration_resolves_its_four_forms(tmp_path, monkeypatch):
+    # hub ids resolve through utils/hf_hub.py: no snapshot root, an empty
+    # cache and a closed local endpoint, so nothing leaves the machine
+    monkeypatch.setenv("PYANNOTE_TPU_HUB", "")
+    monkeypatch.setenv("PYANNOTE_TPU_CACHE", str(tmp_path / "hub_cache"))
+    monkeypatch.setenv("HF_ENDPOINT", "http://127.0.0.1:9")
     ours, theirs = fit_both(seed=12)
     (tmp_path / "sub").mkdir()
     theirs.save(tmp_path / "sub" / "calibration.safetensors")

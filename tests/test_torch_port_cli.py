@@ -421,9 +421,19 @@ def test_export_writes_a_checkpoint_both_packages_read(workspace, tmp_path,
     assert "not ported" in capsys.readouterr().out
 
 
-def test_download_loads_local_snapshots_only(workspace, capsys):
+def test_download_loads_local_snapshots_only(workspace, capsys, tmp_path,
+                                             monkeypatch):
+    """A local snapshot loads; so does a hub id whose snapshot lies under
+    a ``PYANNOTE_TPU_HUB`` root (tests/test_torch_port_utils.py serves
+    one over HTTP); one that resolves nowhere fails."""
     from pyannote_audio_tpu_torch.__main__ import download
     root, _, _ = workspace
+    # hub ids resolve through utils/hf_hub.py: no snapshot root, an empty
+    # cache and a closed local endpoint, so nothing leaves the machine
+    monkeypatch.setenv("PYANNOTE_TPU_HUB", "")
+    monkeypatch.setenv("PYANNOTE_TPU_CACHE", str(tmp_path / "hub_cache"))
+    monkeypatch.setenv("HF_ENDPOINT", "http://127.0.0.1:9")
+
     assert main(["download", str(root / "snapshot"), "--device", "cpu"]) \
         == 0
     assert "SpeakerDiarization" in capsys.readouterr().out
@@ -434,6 +444,13 @@ def test_download_loads_local_snapshots_only(workspace, capsys):
                  "--device", "cpu"]) == 1
     out = capsys.readouterr().out
     assert "Could not load" in out and "local" in out
+    (tmp_path / "roots" / "pyannote").mkdir(parents=True)
+    (tmp_path / "roots" / "pyannote" / "speaker-diarization-community-1"
+     ).symlink_to(root / "snapshot")
+    monkeypatch.setenv("PYANNOTE_TPU_HUB", str(tmp_path / "roots"))
+    assert main(["download", "pyannote/speaker-diarization-community-1",
+                 "--device", "cpu"]) == 0
+    assert "SpeakerDiarization" in capsys.readouterr().out
 
 
 def test_device_parsing_has_no_cpu_fallback(workspace, monkeypatch):

@@ -215,7 +215,14 @@ def test_reference_specifications_load_through_the_shim(tmp_path, layout):
     assert torch.equal(model.lstm.weight_hh_l1, port.lstm.weight_hh_l1)
 
 
-def test_unported_architectures_and_hub_ids_raise(tmp_path):
+def test_unported_architectures_and_hub_ids_raise(tmp_path, monkeypatch):
+    """Unported architectures raise, and so do hub ids that resolve
+    nowhere (tests/test_torch_port_utils.py resolves them)."""
+    # hub ids resolve through utils/hf_hub.py: no snapshot root, an empty
+    # cache and a closed local endpoint, so nothing leaves the machine
+    monkeypatch.setenv("PYANNOTE_TPU_HUB", "")
+    monkeypatch.setenv("PYANNOTE_TPU_CACHE", str(tmp_path / "hub_cache"))
+    monkeypatch.setenv("HF_ENDPOINT", "http://127.0.0.1:9")
     torch.save({"state_dict": {}, "pyannote.audio": {"architecture": {
         "class": "SincTDNN"}}}, tmp_path / "pytorch_model.bin")
     with pytest.raises(ValueError, match="not ported yet"):

@@ -425,7 +425,19 @@ def test_ecapa_at_its_minimum_length(ecapa_pair, extra):
         _run(port, _wave(1, port.min_num_samples - 160, seed=20))
 
 
-def test_ecapa_from_speechbrain_snapshot(ecapa_pair, tmp_path):
+def _hub_root(monkeypatch, tmp_path, hub_id, snapshot):
+    """``snapshot`` as ``hub_id`` under a ``PYANNOTE_TPU_HUB`` root, an
+    empty cache and a closed local endpoint: nothing leaves the
+    machine."""
+    root = tmp_path / "hub_roots"
+    (root / hub_id).parent.mkdir(parents=True, exist_ok=True)
+    (root / hub_id).symlink_to(snapshot)
+    monkeypatch.setenv("PYANNOTE_TPU_HUB", str(root))
+    monkeypatch.setenv("PYANNOTE_TPU_CACHE", str(tmp_path / "hub_cache"))
+    monkeypatch.setenv("HF_ENDPOINT", "http://127.0.0.1:9")
+
+
+def test_ecapa_from_speechbrain_snapshot(ecapa_pair, tmp_path, monkeypatch):
     model, state, port = ecapa_pair
     torch.save({k: torch.from_numpy(np.array(v)) for k, v in state.items()},
                tmp_path / "embedding_model.ckpt")
@@ -445,7 +457,13 @@ def test_ecapa_from_speechbrain_snapshot(ecapa_pair, tmp_path):
     np.testing.assert_array_equal(_run(loaded, wav), _run(port, wav))
     jax_loaded = jax_ecapa.ECAPA_TDNN.from_speechbrain(tmp_path)
     _close(_run(loaded, wav), np.asarray(jax_loaded(wav)))
-    with pytest.raises(ValueError, match="no hub access"):
+    # a hub id: its snapshot under a PYANNOTE_TPU_HUB root, or nowhere
+    _hub_root(monkeypatch, tmp_path / "hub", "speechbrain/ecapa-test",
+              tmp_path)
+    np.testing.assert_array_equal(
+        _run(ecapa.ECAPA_TDNN.from_speechbrain("speechbrain/ecapa-test"),
+             wav), _run(port, wav))
+    with pytest.raises(ValueError, match="hub id"):
         ecapa.ECAPA_TDNN.from_speechbrain("speechbrain/spkrec-ecapa-voxceleb")
 
 
@@ -493,7 +511,7 @@ def test_titanet_frame_mask_entry_matches_jax(titanet_pair):
     assert port.num_frames(12000) == model.num_frames(12000) == 76
 
 
-def test_titanet_nemo_archive_both_ways(titanet_pair, tmp_path):
+def test_titanet_nemo_archive_both_ways(titanet_pair, tmp_path, monkeypatch):
     """The port's archive loads in both packages, the JAX package's in the
     port, and an extracted directory as well."""
     import tarfile
@@ -511,7 +529,15 @@ def test_titanet_nemo_archive_both_ways(titanet_pair, tmp_path):
     np.testing.assert_array_equal(
         _run(titanet.TitaNet.from_nemo(tmp_path / "extracted"), wav),
         expected)
-    with pytest.raises(ValueError, match="no hub access"):
+    # a hub id: its <name>.nemo under a PYANNOTE_TPU_HUB root, or nowhere
+    (tmp_path / "repo").mkdir()
+    (tmp_path / "repo" / "titanet-test.nemo").symlink_to(ours)
+    _hub_root(monkeypatch, tmp_path / "hub", "nvidia/titanet-test",
+              tmp_path / "repo")
+    np.testing.assert_array_equal(
+        _run(titanet.TitaNet.from_nemo("nvidia/titanet-test"), wav),
+        expected)
+    with pytest.raises(ValueError, match="hub id"):
         titanet.TitaNet.from_nemo("nvidia/speakerverification_en_titanet")
 
 

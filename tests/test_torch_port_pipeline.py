@@ -139,7 +139,10 @@ def test_port_imports_no_jax():
                  "__main__", "serve", "sample", "core.calibration",
                  "core.optimizer", "pipelines.pyannoteai.client",
                  "pipelines.pyannoteai.sdk", "pipelines.pyannoteai.local",
-                 "utils.yaml_subset", "utils.safetensors"):
+                 "utils.yaml_subset", "utils.safetensors", "parallel",
+                 "parallel.mesh", "utils.hf_hub", "utils.dependencies",
+                 "utils.probe", "utils.multi_task", "utils.preview",
+                 "telemetry", "telemetry.metrics"):
         assert f"pyannote_audio_tpu_torch.{name}" in modules
     code = ("import importlib, sys\n"
             f"for name in {modules!r}:\n"

@@ -609,8 +609,11 @@ def test_head_swap_keeps_the_other_weights(protocols):
 
 
 def test_trainer_devices_and_mesh():
-    with pytest.raises(NotImplementedError, match="DDP"):
-        Trainer(device="cpu", mesh=object())
+    """A mesh of several devices in one process raises (DDP runs one
+    process per device: tests/test_torch_port_parallel.py)."""
+    from pyannote_audio_tpu_torch.parallel import make_mesh
+    with pytest.raises(ValueError, match="torchrun"):
+        Trainer(device="cpu", mesh=make_mesh(devices=["cpu", "cpu"]))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device=\"cpu\""):
             Trainer()

@@ -140,8 +140,14 @@ def test_plda_from_pretrained_and_vbx_setup(tmp_path):
     np.testing.assert_allclose(ours[2], theirs[2], atol=1e-10)
     for y in (x[0], x):
         np.testing.assert_array_equal(vbx.l2_norm(y), jax_vbx.l2_norm(y))
-    with pytest.raises(ValueError, match="local"):
-        PLDA.from_pretrained("pyannote/speaker-diarization-community-1")
+    with pytest.MonkeyPatch.context() as mp:
+        # a hub id that resolves nowhere: no snapshot root, a closed
+        # local endpoint
+        mp.setenv("PYANNOTE_TPU_HUB", "")
+        mp.setenv("HF_ENDPOINT", "http://127.0.0.1:9")
+        with pytest.raises(ValueError, match="local"):
+            PLDA.from_pretrained("pyannote/speaker-diarization-community-1",
+                                 cache_dir=tmp_path / "hub_cache")
 
 
 def _latent(seed, per_speaker=30, dim=LDA_DIM):

@@ -241,7 +241,13 @@ def test_nemo_route_matches_jax(assets, tmp_path, form):
     "pyannote/embedding", "speechbrain/spkrec-ecapa-voxceleb",
     "nvidia/speakerverification_en_titanet_large",
     "pyannote/wespeaker-voxceleb-resnet34-LM"])
-def test_hub_ids_raise(name):
+def test_hub_ids_raise(name, tmp_path, monkeypatch):
+    """Hub ids that resolve nowhere raise on every route."""
+    # hub ids resolve through utils/hf_hub.py: no snapshot root, an empty
+    # cache and a closed local endpoint, so nothing leaves the machine
+    monkeypatch.setenv("PYANNOTE_TPU_HUB", "")
+    monkeypatch.setenv("PYANNOTE_TPU_CACHE", str(tmp_path / "hub_cache"))
+    monkeypatch.setenv("HF_ENDPOINT", "http://127.0.0.1:9")
     with pytest.raises(ValueError, match="hub"):
         sv.PretrainedSpeakerEmbedding(name, device="cpu")
 

@@ -14,11 +14,15 @@ Phases, each fatal on failure:
      "highest"), with kernel and plain times, the bound of each mode, and
      cuDNN's torch.nn.LSTM over the same layer beside the port's
      projection + kernel (a yardstick only), phase 10's shapes each
-     timed on its own; and LSTMRecurrence (the kernel forward, the plain
-     float32 backward) against the all-plain autograd at the training
-     shape (589 x 32) and a ragged one, with the forward, the backward per
-     layer and cuDNN's layer forward + backward timed, and the same at the
-     DPRNN's shapes of (w) and (z), with the backward's bound;
+     timed on its own; the backward kernel (recompute at "highest" into a
+     workspace, reverse walk, one product for W_hh) against the plain
+     backward at every training shape (589 x 32 / 7 / 16, the DPRNN's of
+     (w) and (z) and their tails), and LSTMRecurrence (the kernel forward
+     and the backward kernel) against the all-plain autograd there, with
+     the forward, the backward per layer (its bound, the workspace's peak
+     bytes), the plain backward, the plain recurrence's autograd (the
+     backward before the kernel) and cuDNN's layer backward and forward +
+     backward timed at 589 x 32 / 16 and the DPRNN's shapes;
   4. the exact path (the accelerator gates PYANNOTE_TPU_SEG_BF16,
      _SHARED_SINC and _SHARED_TRUNK forced to "0", a float32 trunk,
      PYANNOTE_TPU_LSTM_PRECISION=highest):
@@ -104,8 +108,9 @@ Phases, each fatal on failure:
      also in float64, 3 Adam steps), the card's kernel path against its
      all-plain path, then Trainer.fit under SpeakerDiarization at the
      reference's defaults on a synthetic protocol written from a seed (2
-     epochs of 5 steps of 32, validation, checkpoints): LSTM launches
-     (per step from the fit's counts), the step's time split, peak
+     epochs of 5 steps of 32, validation, checkpoints): LSTM forward and
+     backward launches (per step from the fit's counts), the step's time
+     split, peak
      memory, losses, der/val, the best checkpoint reloaded through
      Model.from_pretrained and resume_from epoch 0 (parameters, their
      epoch-1 updates, Adam's step counts and moments, the epoch-1 loss).
@@ -123,7 +128,8 @@ Phases, each fatal on failure:
      of its 24 layers), the kernel path against the
      all-plain one, pixit_optimizer's two rates after one step, then
      Trainer.fit with validation in batches of 16 (1 epoch x 3 steps:
-     MoM share, LSTM launches exact, warm step, split, peak, der/val).
+     MoM share, LSTM forward and backward launches exact, warm step,
+     split, peak, der/val).
  13. the entry points on the community-1 snapshot, read from its
      config.yaml (written by the port's YAML writer), over files of 10,
      3 and 1 minutes: (A) ``python -m pyannote_audio_tpu_torch apply``
@@ -153,7 +159,8 @@ Phases, each fatal on failure:
      peaks; (H) DistributedDataParallel, two gloo ranks on cuda:0
      (``torch.multiprocessing.spawn``): (x)'s PyanNet on its protocol,
      a batch of 32 (16 per rank), 1 epoch x 3 steps and one validation,
-     against the single-process fit (losses, der/val), the checkpoint
+     against the single-process fit (losses, der/val, forward and
+     backward LSTM launches per rank), the checkpoint
      written once by rank 0 and reloaded, ``broadcast_from_host0`` and
      the task's cache path on both ranks; (H1) the same with one rank
      over NCCL; (I) ``Pipeline.from_pretrained`` on the community-1 hub
@@ -163,9 +170,10 @@ Phases, each fatal on failure:
      own timeout. Nothing leaves the machine: HF_ENDPOINT points at a
      closed local port unless a check serves one.
 
-The line before the last is a JSON object describing each kernel (its
-``launches`` is the accelerator path's; ``launches_per_path`` has every
-path's; ``phase_walls_s`` the wall of each phase, also logged above it);
+The line before the last is a JSON object describing each kernel (the
+forward's ``launches`` is the accelerator path's, ``launches_per_path``
+has every path's and ``phase_walls_s`` the wall of each phase, also
+logged above it; the backward's ``launches`` is (x)'s fit's);
 the last line is {"ok": true, "device": {...}}. Without a CUDA
 device the script exits non-zero and prints no result.
 """
@@ -337,22 +345,24 @@ def phase_environment() -> str:
 
 def phase_build() -> None:
     """Every native library of the path, each compiler started at once:
-    the LSTM kernel (nvcc), the audio runtime (g++), and the FFmpeg codec
-    (g++, built only where FFmpeg's headers are found)."""
+    the LSTM kernel and its backward (nvcc), the audio runtime (g++), and
+    the FFmpeg codec (g++, built only where FFmpeg's headers are found)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from pyannote_audio_tpu_torch.utils import native
     from pyannote_audio_tpu_torch.utils.build import build, build_host
-    with ThreadPoolExecutor(3) as pool:
-        kernel = pool.submit(build, "lstm_recurrence")
+    with ThreadPoolExecutor(4) as pool:
+        kernels = [pool.submit(build, name) for name in
+                   ("lstm_recurrence", "lstm_recurrence_backward")]
         audio = pool.submit(build_host, "pat_audio")
         codec = pool.submit(native.codec_available)
-        info, audio_info, has_codec = (kernel.result(), audio.result(),
-                                       codec.result())
-    log(f"built {info['path'].name} in {info['seconds']:.2f} s")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log("  " + line.strip())
+        infos, audio_info, has_codec = ([k.result() for k in kernels],
+                                        audio.result(), codec.result())
+    for info in infos:
+        log(f"built {info['path'].name} in {info['seconds']:.2f} s")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                log("  " + line.strip())
     log(f"built {audio_info['path'].name} in {audio_info['seconds']:.2f} s "
         f"(g++); FFmpeg codec library built: {has_codec}")
 
@@ -1901,15 +1911,25 @@ AGGREGATE_ATOL = 1e-5
 
 
 def reset_lstm() -> None:
-    from pyannote_audio_tpu_torch.ops.lstm_kernel import \
-        lstm_bidirectional_recurrence
+    """Both LSTM kernels' launch counts to 0."""
+    from pyannote_audio_tpu_torch.ops.lstm_kernel import (
+        lstm_bidirectional_recurrence, lstm_recurrence_backward)
     lstm_bidirectional_recurrence.launches = 0
+    lstm_recurrence_backward.launches = 0
 
 
 def lstm_launches() -> int:
+    """The forward kernel's launches since ``reset_lstm``."""
     from pyannote_audio_tpu_torch.ops.lstm_kernel import \
         lstm_bidirectional_recurrence
     return lstm_bidirectional_recurrence.launches
+
+
+def backward_launches() -> int:
+    """The backward kernel's launches since ``reset_lstm``."""
+    from pyannote_audio_tpu_torch.ops.lstm_kernel import \
+        lstm_recurrence_backward
+    return lstm_recurrence_backward.launches
 
 
 def make_multilabel_model() -> torch.nn.Module:
@@ -3291,9 +3311,15 @@ def phase_separation(device, workdir: Path, card: str) -> dict:
 
 # -- phase 3 under autograd and phase 11 -------------------------------------
 
-# phase 3 under autograd: LSTMRecurrence (kernel forward, plain float32
-# backward) against the all-plain autograd on the card at the training
-# shape (T = 589, B = 32: batches of 32 ten-second chunks) and a ragged B.
+# phase 3 under autograd: the backward kernel against the plain backward
+# (``lstm_bidirectional_recurrence_backward_plain``, float32 TF32 off) at
+# every training shape, grad_xw and grad_w_hh each within BACKWARD_RTOL
+# relative L2 (float32 sums in another order: grad_w_hh sums T x B terms,
+# 1.0e-05 apart at (100, 3264) on an H100), finite, one counted launch
+# and no forward launch counted. Then LSTMRecurrence (kernel forward,
+# backward kernel) against the all-plain autograd on the card at the
+# training shape (T = 589, B = 32: batches of 32 ten-second chunks) and a
+# ragged B.
 # "highest": forward 1e-4 as above, gradients 1e-4 relative L2 (float32
 # sums in another order). "default": forward 1e-3 as above; the all-plain
 # autograd at "default" differentiates the bf16-rounded products while the
@@ -3316,6 +3342,7 @@ DPRNN_TRAIN_SHAPES = (("DPRNN intra", 100, 3264, 128),
                       ("DPRNN intra B=16", 100, 1632, 128),
                       ("DPRNN inter B=16", 102, 1600, 128))
 AUTOGRAD_GRAD_RTOL = {"highest": 1e-4, "default": 1e-2}
+BACKWARD_RTOL = 1e-4
 # (x) one step card against CPU on the exact path: the loss within 1e-5
 # relative (float32 sums in another order), each gradient within 1e-3
 # relative L2 against the larger of its own norm and 1e-6 of the whole
@@ -3404,18 +3431,37 @@ def lstm_backward_bound(T, B, H, D) -> dict:
             else "operations"}
 
 
-def autograd_timings(device, T, B, D_in) -> dict:
-    """One BiLSTM layer (H = 128) under autograd, CUDA events: the kernel
-    forward ("default", median of 20) and its bound, the Function's
-    backward per layer (median of 3) and its bound, the plain forward
-    ("default", median of 3), cuDNN's float32 layer forward + backward
-    (median of 10)."""
+def autograd_of_plain(xw, w_hh, grad):
+    """The Function's backward before the backward kernel: the plain
+    recurrence recomputed at "highest" under autograd, and its VJP."""
     from pyannote_audio_tpu_torch.ops.lstm import \
         lstm_bidirectional_recurrence_plain
+    from pyannote_audio_tpu_torch.utils.runtime import exact_float32
+    a = xw.detach().requires_grad_()
+    b = w_hh.detach().requires_grad_()
+    with torch.enable_grad(), exact_float32():
+        out = lstm_bidirectional_recurrence_plain(a, b, "highest")
+        return torch.autograd.grad(out, (a, b), grad)
+
+
+def autograd_timings(device, T, B, D_in, old_backward: bool = True) -> dict:
+    """One BiLSTM layer (H = 128) under autograd, CUDA events: the kernel
+    forward ("default", median of 20) and its bound; the Function's
+    backward per layer, the backward kernel (median of 10), with its
+    bound and the bytes it allocates at its peak (the workspace, the
+    recomputed h and the gradients); the plain backward and, where
+    ``old_backward``, the plain recurrence's autograd (the backward
+    before the kernel, kept for the record, else None), medians of 3;
+    the plain forward ("default", median of 3); cuDNN's float32 layer
+    backward and forward + backward (medians of 10); the row's wall."""
+    from pyannote_audio_tpu_torch.ops.lstm import (
+        lstm_bidirectional_recurrence_backward_plain,
+        lstm_bidirectional_recurrence_plain)
     from pyannote_audio_tpu_torch.ops.lstm_kernel import (
         LSTMRecurrence, lstm_bidirectional_recurrence,
         prepare_recurrent_weights)
     from pyannote_audio_tpu_torch.utils.runtime import exact_float32
+    start = time.perf_counter()
     H, D = 128, 2
     xw, w_hh, (x, w_ih, b) = layer_inputs(device, T, B, D_in, H, D)
     prepared = prepare_recurrent_weights(w_hh, "default")
@@ -3428,8 +3474,20 @@ def autograd_timings(device, T, B, D_in) -> dict:
     w = w_hh.detach().clone().requires_grad_()
     out = LSTMRecurrence.apply(a, w, "default", prepared)
     backward_ms = cuda_ms(lambda: torch.autograd.grad(
-        out, (a, w), grad, retain_graph=True), runs=3, warmup=1)
+        out, (a, w), grad, retain_graph=True), runs=10)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    torch.autograd.grad(out, (a, w), grad, retain_graph=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device) - base
     del out, a, w
+    plain_backward_ms = cuda_ms(
+        lambda: lstm_bidirectional_recurrence_backward_plain(xw, w_hh, grad),
+        runs=3, warmup=1)
+    autograd_plain_ms = cuda_ms(
+        lambda: autograd_of_plain(xw, w_hh, grad), runs=3, warmup=1) \
+        if old_backward else None
     packed = prepared.packed
     bound = lstm_bound(T, B, H, D, "default",
                        packed.numel() * packed.element_size())
@@ -3444,38 +3502,92 @@ def autograd_timings(device, T, B, D_in) -> dict:
 
     with exact_float32():
         cudnn_ms = cuda_ms(cudnn_step, runs=10)
+        y, _ = lstm(xin)
+        cudnn_backward_ms = cuda_ms(lambda: torch.autograd.grad(
+            y, [xin, *lstm.parameters()], g2, retain_graph=True), runs=10)
     return {"T": T, "B": B, "D_in": D_in, "ms": kernel_ms,
             "plain_ms": plain_ms, "backward_ms": backward_ms,
-            "library_fwd_bwd_ms": cudnn_ms, **bound,
-            **lstm_backward_bound(T, B, H, D)}
+            "backward_peak_bytes": peak,
+            "workspace_bytes": T * B * D * 5 * H * 4,
+            "plain_backward_ms": plain_backward_ms,
+            "autograd_plain_backward_ms": autograd_plain_ms,
+            "library_fwd_bwd_ms": cudnn_ms,
+            "library_bwd_ms": cudnn_backward_ms, **bound,
+            **lstm_backward_bound(T, B, H, D),
+            "wall_s": time.perf_counter() - start}
 
 
 def log_autograd_timings(name: str, row: dict) -> None:
     log(f"{name} ({row['T']}, {row['B']}, {4 * 2 * 128}) -> ({row['T']}, "
         f"{row['B']}, 256), D_in {row['D_in']}: kernel forward "
         f"{row['ms']:.3f} ms (bound {row['bound_ms']:.4f} ms, "
-        f"{row['bound_by']}), the Function's backward "
-        f"{row['backward_ms']:.1f} ms per layer (bound "
+        f"{row['bound_by']}), the Function's backward (the backward kernel) "
+        f"{row['backward_ms']:.3f} ms per layer (bound "
         f"{row['backward_bound_ms']:.4f} ms, {row['backward_bound_by']}; "
-        f"the plain float32 recurrence's autograd), plain forward "
-        f"{row['plain_ms']:.1f} ms; cuDNN torch.nn.LSTM float32 forward + "
-        f"backward {row['library_fwd_bwd_ms']:.3f} ms per layer")
+        f"peak {row['backward_peak_bytes'] / 2**20:.1f} MiB allocated, "
+        f"the workspace {row['workspace_bytes'] / 2**20:.1f} MiB), plain "
+        f"backward {row['plain_backward_ms']:.1f} ms, "
+        + (f"the plain recurrence's autograd (the backward before the "
+           f"kernel) {row['autograd_plain_backward_ms']:.1f} ms, "
+           if row["autograd_plain_backward_ms"] is not None else "")
+        + f"plain forward {row['plain_ms']:.1f} ms; cuDNN torch.nn.LSTM "
+        f"float32 backward {row['library_bwd_ms']:.3f} ms, forward + "
+        f"backward {row['library_fwd_bwd_ms']:.3f} ms per layer; "
+        f"{row['wall_s']:.1f} s of wall")
+
+
+def check_backward_kernel(name, T, B, xw, w_hh, grad) -> dict:
+    """The backward kernel against the plain backward at one shape:
+    {"xw", "w_hh": relative L2, "max_abs"}; raises past BACKWARD_RTOL,
+    on a non-finite gradient, or unless it counted one backward launch
+    and no forward one."""
+    from pyannote_audio_tpu_torch.ops.lstm import \
+        lstm_bidirectional_recurrence_backward_plain
+    from pyannote_audio_tpu_torch.ops.lstm_kernel import \
+        lstm_recurrence_backward
+    reset_lstm()
+    gx, gw = lstm_recurrence_backward(xw, w_hh, grad)
+    torch.cuda.synchronize()
+    counted = (lstm_launches(), backward_launches())
+    rx, rw = lstm_bidirectional_recurrence_backward_plain(xw, w_hh, grad)
+    # grad_w_hh is 0 where T = 1 (h_prev is 0): relative to 1e-30 then
+    errs = {"xw": grad_rel_l2(gx, rx), "w_hh": grad_rel_l2(gw, rw),
+            "max_abs": max(float((gx - rx).abs().max()),
+                           float((gw - rw).abs().max()))}
+    log(f"lstm_recurrence_backward {name} (T={T}, B={B}): relative L2 "
+        f"grad_xw {errs['xw']:.3e}, grad_w_hh {errs['w_hh']:.3e} (limit "
+        f"{BACKWARD_RTOL}), max_abs {errs['max_abs']:.3e}; launches "
+        f"(forward, backward) {counted}")
+    if not (torch.isfinite(gx).all() and torch.isfinite(gw).all()
+            and errs["xw"] <= BACKWARD_RTOL and errs["w_hh"] <= BACKWARD_RTOL
+            and counted == (0, 1)):
+        raise AssertionError(f"the backward kernel disagrees with the plain "
+                             f"backward at {name}: {errs}, {counted}")
+    return errs
 
 
 def check_kernel_autograd(device: torch.device) -> dict:
-    """LSTMRecurrence against the all-plain autograd on the card at the
-    segmentation training shapes and the DPRNN's, with the times of the
-    training shape and of each DPRNN shape (``autograd_timings``)."""
+    """The backward kernel against the plain backward, and LSTMRecurrence
+    against the all-plain autograd, on the card at the segmentation
+    training shapes and the DPRNN's, with the times of the training
+    shape, a DDP rank's and each DPRNN shape (``autograd_timings``).
+    Returns the training shape's row, with the backward kernel's record
+    under "backward_kernel"."""
     from pyannote_audio_tpu_torch.ops.lstm import \
         lstm_bidirectional_recurrence_plain
     from pyannote_audio_tpu_torch.ops.lstm_kernel import LSTMRecurrence
     H, D = 128, 2
     worst = {p: {"forward": 0.0, "xw": 0.0, "w_hh": 0.0}
              for p in AUTOGRAD_GRAD_RTOL}
+    worst_backward = {"xw": 0.0, "w_hh": 0.0, "max_abs": 0.0}
+    start = time.perf_counter()
     for name, T, B, D_in in TRAIN_SHAPES + DPRNN_TRAIN_SHAPES:
         xw, w_hh, _ = layer_inputs(device, T, B, D_in, H, D, seed=B)
         grad = torch.randn(T, B, D * H, device=device,
                            generator=torch.Generator(device).manual_seed(B))
+        errs = check_backward_kernel(name, T, B, xw, w_hh, grad)
+        for key, value in errs.items():
+            worst_backward[key] = max(worst_backward[key], value)
         for precision, limit in AUTOGRAD_GRAD_RTOL.items():
             runs = []
             for fn in (lambda a, b: LSTMRecurrence.apply(a, b, precision),
@@ -3506,6 +3618,9 @@ def check_kernel_autograd(device: torch.device) -> dict:
             del runs, out, gx, gw, ref, rx, rw
         del xw, w_hh, grad
         torch.cuda.empty_cache()
+    log(f"the checks under autograd at {len(TRAIN_SHAPES)} + "
+        f"{len(DPRNN_TRAIN_SHAPES)} shapes took "
+        f"{time.perf_counter() - start:.1f} s")
 
     row = autograd_timings(device, 589, TRAIN_BATCH, 256)
     log_autograd_timings("training shape", row)
@@ -3514,13 +3629,39 @@ def check_kernel_autograd(device: torch.device) -> dict:
     log_autograd_timings("DDP rank shape", rank_row)
     dprnn = {}
     for name, T, B, D_in in DPRNN_TRAIN_SHAPES:
-        dprnn[name] = autograd_timings(device, T, B, D_in)
+        # the backward before the kernel, for the record, at the intra
+        # shapes only (the inter and tail shapes time within 5 % of them)
+        dprnn[name] = autograd_timings(device, T, B, D_in,
+                                       old_backward="intra" in name
+                                       and "tail" not in name)
         log_autograd_timings(name, dprnn[name])
         torch.cuda.empty_cache()
+    backward = {
+        "name": "lstm_recurrence_backward", "route": "cuda",
+        "source": "pyannote_audio_tpu_torch/csrc/lstm_recurrence_backward.cu",
+        "replaces": "pyannote_audio_tpu/ops/pallas_lstm.py:225",
+        "launches": None, "max_abs_err": worst_backward["max_abs"],
+        "grad_rel_l2": max(worst_backward["xw"], worst_backward["w_hh"]),
+        "ms": row["backward_ms"], "plain_ms": row["plain_backward_ms"],
+        "bound_ms": row["backward_bound_ms"],
+        "bound_by": row["backward_bound_by"],
+        "library_ms": row["library_bwd_ms"], "shape": [589, TRAIN_BATCH,
+                                                      H, D],
+        "autograd_plain_ms": row["autograd_plain_backward_ms"],
+        "library_fwd_bwd_ms": row["library_fwd_bwd_ms"],
+        "peak_bytes": row["backward_peak_bytes"],
+        "ddp_rank": {k: rank_row[k] for k in (
+            "backward_ms", "plain_backward_ms", "autograd_plain_backward_ms",
+            "backward_bound_ms", "library_bwd_ms", "backward_peak_bytes")},
+        "dprnn": {n: {k: r[k] for k in (
+            "backward_ms", "plain_backward_ms", "autograd_plain_backward_ms",
+            "backward_bound_ms", "library_bwd_ms", "backward_peak_bytes")}
+            for n, r in dprnn.items()}}
     return {**row, "dprnn": dprnn, "ddp_rank": rank_row,
             "max_abs_err": {p: v["forward"] for p, v in worst.items()},
             "grad_rel_l2": {p: max(v["xw"], v["w_hh"])
-                            for p, v in worst.items()}}
+                            for p, v in worst.items()},
+            "backward_kernel": backward}
 
 
 def synth_conversation(minutes: float, seed: int, speakers: int):
@@ -3673,7 +3814,9 @@ def check_training_step(device, protocol) -> None:
                                                batches[0])
         torch.cuda.synchronize()
         card_s = time.perf_counter() - t0
-        assert lstm_launches() == 2, lstm_launches()
+        # one forward and one backward launch per BiLSTM layer
+        assert (lstm_launches(), backward_launches()) == (2, 2), \
+            (lstm_launches(), backward_launches())
         t0 = time.perf_counter()
         cpu_loss, cpu_grads = one_step_grads(cpu_model, task, cpu, batches[0])
         cpu_s = time.perf_counter() - t0
@@ -3820,7 +3963,7 @@ def check_training_run(device, protocol, workdir: Path) -> dict:
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(device)
-    launches = lstm_launches()
+    launches, fit_backward = lstm_launches(), backward_launches()
     val_chunks = len(task.prepare_validation())
     val_batches = -(-val_chunks // 32)
     expected = TRAIN_EPOCHS * (TRAIN_STEPS * 2 + val_batches * 2)
@@ -3829,7 +3972,7 @@ def check_training_run(device, protocol, workdir: Path) -> dict:
     record = trainer.validate(model, task)
     torch.cuda.synchronize()
     val_s = time.perf_counter() - t0
-    val_launches = lstm_launches()
+    val_launches, val_backward = lstm_launches(), backward_launches()
     # the fit's launches less its validations', over its steps
     per_step = (launches - TRAIN_EPOCHS * val_launches) \
         / (TRAIN_EPOCHS * TRAIN_STEPS)
@@ -3856,13 +3999,20 @@ def check_training_run(device, protocol, workdir: Path) -> dict:
         f"loss {split['forward']:.1f} ms, backward {split['backward']:.1f} "
         f"ms ({100 * split['backward'] / total:.1f} %), optimizer "
         f"{split['optimizer']:.1f} ms")
+    backward_per_step = fit_backward / (TRAIN_EPOCHS * TRAIN_STEPS)
     log(f"(x) LSTM kernel launches: {launches} in the fit (expected "
         f"{expected}: 2 per step and 2 per validation batch of "
         f"{val_batches}), {val_launches} in one validation, so {per_step} "
-        f"per step")
+        f"per step; backward kernel launches: {fit_backward} in the fit "
+        f"(expected {2 * TRAIN_EPOCHS * TRAIN_STEPS}: 2 per step), "
+        f"{val_backward} in one validation, so {backward_per_step} per "
+        f"step")
     if launches != expected or val_launches != 2 * val_batches \
             or per_step != 2:
         raise AssertionError("(x) LSTM launches are not 2 per forward")
+    if fit_backward != 2 * TRAIN_EPOCHS * TRAIN_STEPS or val_backward:
+        raise AssertionError("(x) backward kernel launches are not 2 per "
+                             "step")
     if not all(np.isfinite(losses)) or not np.isfinite(record["der/val"]):
         raise AssertionError(f"(x) non-finite training loss: {losses}")
 
@@ -3899,7 +4049,8 @@ def check_training_run(device, protocol, workdir: Path) -> dict:
             "batch_ms": batch_s * 1e3, "peak_bytes": peak,
             "launches_per_step": per_step,
             "launches_per_validation": val_launches,
-            "launches": launches}
+            "launches": launches, "backward_launches": fit_backward,
+            "backward_launches_per_step": backward_per_step}
 
 
 def format_worst(worst: dict) -> str:
@@ -4252,14 +4403,15 @@ def check_arcface_run(device, protocol, workdir: Path) -> dict:
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(device)
-    launches = lstm_launches()
+    launches = lstm_launches() + backward_launches()
     losses = [h["loss"] for h in trainer.history]
     moved = [n for n, b in running_stats(model).items()
              if not torch.equal(b, stats[n])]
     log(f"(y) Trainer.fit: {ARC_EPOCHS} epochs x {ARC_STEPS} steps of "
         f"{task.batch_size} x 2-5 s in {fit_s:.1f} s; peak "
-        f"{peak / 2**30:.3f} GiB; loss per epoch {losses}; LSTM launches "
-        f"{launches} (expected 0); running statistics moved: {len(moved)}")
+        f"{peak / 2**30:.3f} GiB; loss per epoch {losses}; LSTM launches, "
+        f"forward and backward, {launches} (expected 0); running statistics "
+        f"moved: {len(moved)}")
     warm = warm_step_report("(y)", trainer, ARC_EPOCHS, task.batch_size,
                             (task.min_duration + task.duration) / 2)
     # the fit's batches drawn again (same seeds): card ms of each step by
@@ -4368,7 +4520,7 @@ def check_pixit_step(device, protocol) -> None:
                                       trainer.to_device(batch))
             if where == "card":
                 torch.cuda.synchronize()
-                card_launches = lstm_launches()
+                card_launches = (lstm_launches(), backward_launches())
             seconds[where] = time.perf_counter() - t0
         per_step = 2 * lstm_launches_per_forward(card_model)
         hold_gradients(f"(z) one PixIT step (WavLM-large at "
@@ -4376,11 +4528,11 @@ def check_pixit_step(device, protocol) -> None:
                        f"highest",
                        results["card"], results["cpu"],
                        f"; forward + backward card {seconds['card']:.2f} s "
-                       f"({card_launches} LSTM launches), CPU "
-                       f"{seconds['cpu']:.2f} s")
-        if card_launches != per_step:
+                       f"({card_launches} LSTM forward and backward "
+                       f"launches), CPU {seconds['cpu']:.2f} s")
+        if card_launches != (per_step, per_step):
             raise AssertionError(f"(z) {card_launches} LSTM launches in a "
-                                 f"step, not {per_step}")
+                                 f"step, not {per_step} of each")
         with plain_lstm():
             plain = grads_of(card_model, task,
                              list(card_model.named_parameters()),
@@ -4451,15 +4603,16 @@ def check_pixit_run(device, protocol) -> dict:
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(device)
-    launches = lstm_launches()
+    launches, fit_backward = lstm_launches(), backward_launches()
     reset_lstm()
     t0 = time.perf_counter()
     record = trainer.validate(model, task)
     torch.cuda.synchronize()
     val_s = time.perf_counter() - t0
-    val_launches = lstm_launches()
+    val_launches, val_backward = lstm_launches(), backward_launches()
     measured = (launches - PIXIT_EPOCHS * val_launches) \
         / (PIXIT_EPOCHS * PIXIT_STEPS)
+    backward_per_step = fit_backward / (PIXIT_EPOCHS * PIXIT_STEPS)
     losses = [h["loss"] for h in trainer.history]
     log(f"(z) Trainer.fit: {PIXIT_EPOCHS} epochs x {PIXIT_STEPS} steps of "
         f"{PIXIT_BATCH} x 5 s in {fit_s:.1f} s; peak {peak / 2**30:.3f} GiB; "
@@ -4468,16 +4621,19 @@ def check_pixit_run(device, protocol) -> dict:
         f"{[h.get('loss/val') for h in trainer.history]}; validation "
         f"{val_s:.2f} s; LSTM launches {launches} in the fit (expected "
         f"{expected}), {val_launches} in one validation, so {measured} per "
-        f"step")
+        f"step; backward kernel launches {fit_backward} in the fit "
+        f"(expected {per_step * PIXIT_EPOCHS * PIXIT_STEPS}), {val_backward} "
+        f"in one validation, so {backward_per_step} per step")
     warm = warm_step_report("(z)", trainer, PIXIT_EPOCHS, PIXIT_BATCH,
                             task.duration)
     split = step_split_ms(model, task, trainer,
                           next(task.train_batches(epoch=0)), runs=2)
     log_split("(z)", split)
     if launches != expected or val_launches != per_validation \
-            or measured != per_step:
-        raise AssertionError(f"(z) LSTM launches are not {per_step} per "
-                             f"step")
+            or measured != per_step or backward_per_step != per_step \
+            or val_backward:
+        raise AssertionError(f"(z) LSTM launches are not {per_step} of "
+                             f"each kernel per step")
     if not (all(np.isfinite(losses))
             and np.isfinite(record["der/val/optimal"])
             and np.isfinite(record["loss/val"])):
@@ -4486,6 +4642,8 @@ def check_pixit_run(device, protocol) -> dict:
     return {"fit_s": fit_s, "peak_bytes": peak, "split_ms": split,
             "launches": launches, "launches_per_step": measured,
             "launches_per_validation": val_launches, "mom_share": shares,
+            "backward_launches": fit_backward,
+            "backward_launches_per_step": backward_per_step,
             **warm}
 
 
@@ -5146,6 +5304,7 @@ def ddp_fit(device, protocol, workdir: Path, mesh=None) -> dict:
     return {"losses": trainer.step_losses, "history": trainer.history,
             "writes": writes,
             "launches": lstm_launches(),
+            "backward_launches": backward_launches(),
             "wall_s": time.perf_counter() - start, "cache": task.cache,
             "params": {n: p.detach().cpu().clone()
                        for n, p in model.named_parameters()}}
@@ -5184,9 +5343,12 @@ def hold_fit(label: str, ours: dict, theirs: dict, rtol: float) -> float:
     for key in ("loss", "der/val", "der/val/optimal", "loss/val"):
         pairs.append((ours["history"][0][key], theirs["history"][0][key]))
     worst = max(abs(a - b) / max(abs(b), 1e-12) for a, b in pairs)
+    keys = ("loss", "der/val", "der/val/optimal", "loss/val")
     log(f"{label}: per-step losses {ours['losses']} vs {theirs['losses']}; "
-        f"epoch loss, der/val, der/val/optimal, loss/val relative "
-        f"difference at most {worst:.3e} (limit {rtol})")
+        f"epoch loss, der/val, der/val/optimal, loss/val "
+        f"{[ours['history'][0][k] for k in keys]} vs "
+        f"{[theirs['history'][0][k] for k in keys]}, relative difference at "
+        f"most {worst:.3e} (limit {rtol})")
     if len(ours["losses"]) != DDP_STEPS or not worst <= rtol:
         raise AssertionError(f"{label}: the fit differs from the "
                              f"single-process fit")
@@ -5218,7 +5380,8 @@ def check_ddp(device, protocol, workdir: Path, card: str) -> dict:
     finally:
         torch.backends.cudnn.deterministic = saved
     record = {"single_wall_s": single["wall_s"],
-              "single_launches": single["launches"]}
+              "single_launches": single["launches"],
+              "single_backward_launches": single["backward_launches"]}
     for label, tol in (("(H)", DDP_LOSS_RTOL), ("(H1)", NCCL_LOSS_RTOL)):
         ranks, root = out[label]["ranks"], out[label]["root"]
         world = len(ranks)
@@ -5239,6 +5402,8 @@ def check_ddp(device, protocol, workdir: Path, card: str) -> dict:
         # batch size, so every rank's share holds chunks)
         launches = [r["launches"] for r in ranks]
         expected = single["launches"]
+        backward = [r["backward_launches"] for r in ranks]
+        expected_backward = 2 * DDP_STEPS
         log(f"{label} {ranks[0]['mesh']}: ranks agree on losses, record and "
             f"weights: {same}; cache path on every rank {caches} (rank 0's: "
             f"{str(root / 'cache_rank0')}), broadcast_from_host0 "
@@ -5246,16 +5411,22 @@ def check_ddp(device, protocol, workdir: Path, card: str) -> dict:
             f"process {single['writes']}), the epoch checkpoint reloads rank "
             f"0's weights: {reloads}; lstm_recurrence "
             f"launches per rank {launches} (expected {expected}; single "
-            f"process {single['launches']}); {out[label]['wall_s']:.1f} s "
+            f"process {single['launches']}), lstm_recurrence_backward "
+            f"launches per rank {backward} (expected {expected_backward}: 2 "
+            f"per step; single process {single['backward_launches']}); "
+            f"{out[label]['wall_s']:.1f} s "
             f"wall with start-up (the fit {ranks[0]['wall_s']:.1f} s, one "
             f"process {single['wall_s']:.1f} s) on {card}")
         if not (same and caches == {str(root / "cache_rank0")}
                 and broadcasts == {"rank 0's value"}
                 and writes[0] == single["writes"] and not any(writes[1:])
-                and reloads and all(n == expected for n in launches)):
+                and reloads and all(n == expected for n in launches)
+                and single["backward_launches"] == expected_backward
+                and all(n == expected_backward for n in backward)):
             raise AssertionError(f"{label}: the ranks do not agree, or "
                                  f"wrote more than once")
         record[label] = {"max_rel_diff": worst, "launches": launches,
+                         "backward_launches": backward,
                          "wall_s": out[label]["wall_s"],
                          "fit_s": ranks[0]["wall_s"]}
     return record
@@ -5362,7 +5533,9 @@ def phase_parallel_and_hub(device, workdir: Path, card: str, protocol,
     return {"mesh (G)": mesh["launches"],
             "mesh across devices (G2)": mesh["(G2)"]["launches"],
             "DDP (H) per rank": ddp["(H)"]["launches"],
+            "DDP (H) per rank, backward": ddp["(H)"]["backward_launches"],
             "DDP (H1)": ddp["(H1)"]["launches"],
+            "DDP (H1), backward": ddp["(H1)"]["backward_launches"],
             "phase 14": {"mesh": mesh, "ddp": ddp}}
 
 
@@ -5390,6 +5563,7 @@ def main() -> int:
     record = timed("3 kernels", phase_kernels, device)
     record["training_shape"] = timed("3 kernels under autograd",
                                      check_kernel_autograd, device)
+    backward = record["training_shape"].pop("backward_kernel")
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         work = Path(tmp)
@@ -5414,7 +5588,9 @@ def main() -> int:
         launches["training (x)"] = {
             "per step": training["launches_per_step"],
             "per validation": training["launches_per_validation"],
-            "fit": training["launches"]}
+            "fit": training["launches"],
+            "backward per step": training["backward_launches_per_step"],
+            "backward fit": training["backward_launches"]}
         record["training"] = training
         more = timed("12 training (y), (z)", phase_training_more, device,
                      work, card, protocol)
@@ -5422,7 +5598,9 @@ def main() -> int:
         launches["pixit (z)"] = {
             "per step": more["pixit"]["launches_per_step"],
             "per validation": more["pixit"]["launches_per_validation"],
-            "fit": more["pixit"]["launches"]}
+            "fit": more["pixit"]["launches"],
+            "backward per step": more["pixit"]["backward_launches_per_step"],
+            "backward fit": more["pixit"]["backward_launches"]}
         record["training_embedding"] = more["arcface"]
         record["training_pixit"] = more["pixit"]
         launches.update(timed("13 entry points", phase_entry_points, device,
@@ -5431,13 +5609,16 @@ def main() -> int:
                          work, card, protocol, config)
         record["phase14"] = parallel.pop("phase 14")
         launches.update(parallel)
-    log(f"lstm_recurrence launches per path: {launches}")
+    log(f"LSTM kernel launches per path (lstm_recurrence; "
+        f"lstm_recurrence_backward where named): {launches}")
     log(f"wall per phase, s ({card}): {walls}; total "
         f"{sum(walls.values()):.1f}")
     record["launches"] = launches["accelerator"]
     record["launches_per_path"] = launches
     record["phase_walls_s"] = walls
-    print(json.dumps({"kernels": [record]}))
+    # the backward kernel's main path is training: (x)'s fit
+    backward["launches"] = launches["training (x)"]["backward fit"]
+    print(json.dumps({"kernels": [record, backward]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -90,6 +90,64 @@ def lstm_bidirectional_recurrence_plain(xw: torch.Tensor,
         for d in range(D)], dim=-1)
 
 
+def lstm_bidirectional_recurrence_backward_plain(xw: torch.Tensor,
+                                                 w_hh: torch.Tensor,
+                                                 grad_out: torch.Tensor):
+    """(grad_xw, grad_w_hh): the vector-Jacobian product of
+    ``lstm_bidirectional_recurrence_plain(xw, w_hh, "highest")`` for the
+    output's gradient ``grad_out`` (T, B, D*H).
+
+    The plain version of ``ops.lstm_kernel.lstm_recurrence_backward``:
+    explicit backpropagation through time, without autograd. Each
+    direction's recurrence is recomputed at "highest" keeping every
+    step's gate activations and cell state, then walked from its last
+    step to its first; grad_w_hh[d] = sum over steps of dgates^T h_prev.
+    The counterpart of ``jax.vjp`` of the JAX package's ``lstm_cell_scan``
+    per direction. In xw's dtype, with TF32 off.
+    """
+    D, H4, H = w_hh.shape
+    T, B, _ = xw.shape
+    grad_xw = torch.empty_like(xw)
+    grad_w_hh = torch.empty_like(w_hh)
+    with exact_float32():
+        for d in range(D):
+            order = range(T - 1, -1, -1) if d == 1 else range(T)
+            w = w_hh[d]
+            w_t = w.t()
+            h = xw.new_zeros((B, H))
+            c = xw.new_zeros((B, H))
+            h_prev = xw.new_empty((T, B, H))
+            saved = []                    # per step: i, f, g, o, c_prev, c
+            for t in order:
+                gates = xw[t, :, d * H4:(d + 1) * H4] + h @ w_t
+                i, f, g, o = gates.chunk(4, dim=-1)
+                i, f, o = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)
+                g = torch.tanh(g)
+                h_prev[t] = h
+                c_prev, c = c, f * c + i * g
+                h = o * torch.tanh(c)
+                saved.append((i, f, g, o, c_prev, c))
+            dgates = xw.new_empty((T, B, H4))
+            dh_rec = xw.new_zeros((B, H))
+            dc_next = xw.new_zeros((B, H))
+            for t, (i, f, g, o, c_prev, c) in zip(reversed(order),
+                                                  reversed(saved)):
+                dh = grad_out[t, :, d * H:(d + 1) * H] + dh_rec
+                tc = torch.tanh(c)
+                dc = dc_next + dh * o * (1 - tc * tc)
+                dg = torch.cat([dc * g * i * (1 - i),
+                                dc * c_prev * f * (1 - f),
+                                dc * i * (1 - g * g),
+                                dh * tc * o * (1 - o)], dim=-1)
+                dgates[t] = dg
+                dc_next = dc * f
+                dh_rec = dg @ w
+            grad_xw[..., d * H4:(d + 1) * H4] = dgates
+            grad_w_hh[d] = dgates.reshape(T * B, H4).t() \
+                @ h_prev.reshape(T * B, H)
+    return grad_xw, grad_w_hh
+
+
 def lstm_single_direction(x: torch.Tensor, w_ih: torch.Tensor,
                           w_hh: torch.Tensor, b_ih: torch.Tensor,
                           b_hh: torch.Tensor,

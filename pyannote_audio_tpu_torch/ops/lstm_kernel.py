@@ -14,9 +14,14 @@ modes ordered as ``mma.sync`` A fragments.
 
 ``LSTMRecurrence`` makes the recurrence trainable as the JAX package's
 ``custom_vjp`` wrappers do (``pallas_lstm.py:212-257``): its forward is
-the kernel (the plain version on the CPU), its backward the gradient of
-the plain float32 recurrence recomputed from the saved inputs. There is
-no backward kernel, as there is no backward Pallas kernel.
+the kernel, its backward ``lstm_recurrence_backward``, the float32
+vector-Jacobian product that the JAX package takes of its scan. On a
+CUDA device that is a second hand-written kernel,
+``csrc/lstm_recurrence_backward.cu``: the forward kernel recomputes the
+layer at "highest" into a workspace of gate activations and cell
+states, the backward kernel walks it in reverse for the gradient of xw,
+and one float32 product gives W_hh's. On the CPU both are their plain
+versions (``ops.lstm``).
 """
 
 from __future__ import annotations
@@ -29,7 +34,8 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.runtime import LSTM_PRECISIONS, exact_float32, lstm_precision
-from .lstm import lstm_bidirectional_recurrence_plain, split_bf16
+from .lstm import (lstm_bidirectional_recurrence_backward_plain,
+                   lstm_bidirectional_recurrence_plain, split_bf16)
 
 MAX_HIDDEN = 256          # the csrc kernel's kMaxHidden
 SHARED_BYTES = 227 * 1024  # shared memory a Hopper block can use
@@ -39,26 +45,38 @@ MAX_UNITS = 64            # hidden units per CTA (kMaxUnits): 4 warps
 MODES = {"default": 0, "high": 1, "highest": 2}
 
 
-def kernel_geometry(hidden: int, precision: str) -> dict:
-    """Cluster size and padded hidden size the kernel runs ``hidden`` at.
-
-    Each CTA of a cluster owns ``padded // cluster`` hidden units (a
-    multiple of 16, a warp per 16, at most MAX_UNITS) and keeps their 4
-    gate rows of W_hh in shared memory beside the xw ring and the
-    double-buffered h. The smallest cluster
-    (2 from H = 17 on, to spread the product over more SMs) whose units
-    and bytes fit is taken, up to 8. Raises ``ValueError`` above
-    MAX_HIDDEN.
-    """
-    if precision not in MODES:
-        raise ValueError(f"unknown LSTM precision {precision!r}: expected "
-                         f"one of {LSTM_PRECISIONS}")
+def _smallest_cluster(hidden: int, shared_bytes) -> dict:
+    """The smallest cluster (1, 2, 4 or 8 CTAs; from 2 at H = 17 on, to
+    spread the product over more SMs) whose CTAs each own ``padded //
+    cluster`` hidden units (a multiple of 16, at most MAX_UNITS) in
+    ``shared_bytes(units, padded)`` bytes of shared memory, at most
+    SHARED_BYTES: {"cluster", "padded", "shared_bytes"}. Raises
+    ``ValueError`` above MAX_HIDDEN."""
     if not 1 <= hidden <= MAX_HIDDEN:
         raise ValueError(f"hidden size {hidden} is outside what the LSTM "
                          f"kernel keeps on chip (1 to {MAX_HIDDEN})")
     for cluster in ((1, 2, 4, 8) if hidden <= 16 else (2, 4, 8)):
         padded = -(-hidden // (16 * cluster)) * 16 * cluster
         units = padded // cluster
+        shared = shared_bytes(units, padded)
+        if units <= MAX_UNITS and shared <= SHARED_BYTES:
+            return {"cluster": cluster, "padded": padded,
+                    "shared_bytes": shared}
+    raise AssertionError("unreachable: H <= MAX_HIDDEN fits a cluster of 8")
+
+
+def kernel_geometry(hidden: int, precision: str) -> dict:
+    """Cluster size and padded hidden size the kernel runs ``hidden`` at.
+
+    Each CTA keeps the 4 gate rows of W_hh of its units (a warp per 16)
+    in shared memory beside the xw ring and the double-buffered h
+    (``_smallest_cluster``). Raises ``ValueError`` above MAX_HIDDEN.
+    """
+    if precision not in MODES:
+        raise ValueError(f"unknown LSTM precision {precision!r}: expected "
+                         f"one of {LSTM_PRECISIONS}")
+
+    def shared_bytes(units, padded):
         if precision == "highest":
             w_bytes = 4 * units * padded * 4
             h_bytes = 2 * padded * ROWS * 4
@@ -67,11 +85,23 @@ def kernel_geometry(hidden: int, precision: str) -> dict:
             w_bytes = parts * 4 * units * padded * 2
             h_bytes = parts * 2 * ROWS * (padded + 8) * 2
         ring_bytes = STAGES * ROWS * (4 * units + 4) * 4
-        shared = w_bytes + h_bytes + ring_bytes + 16  # + 2 mbarriers
-        if units <= MAX_UNITS and shared <= SHARED_BYTES:
-            return {"cluster": cluster, "padded": padded,
-                    "shared_bytes": shared}
-    raise AssertionError("unreachable: H <= MAX_HIDDEN fits a cluster of 8")
+        return w_bytes + h_bytes + ring_bytes + 16  # + 2 mbarriers
+
+    return _smallest_cluster(hidden, shared_bytes)
+
+
+def backward_geometry(hidden: int) -> dict:
+    """Cluster size and padded hidden size the backward kernel runs
+    ``hidden`` at.
+
+    Each CTA keeps the 4 * padded W_hh columns of its units in float32
+    beside two buffers of every unit's gate gradients for ROWS batch rows
+    and 2 mbarriers (``_smallest_cluster``). Raises ``ValueError`` above
+    MAX_HIDDEN.
+    """
+    return _smallest_cluster(
+        hidden, lambda units, padded:
+        4 * padded * units * 4 + 2 * 4 * padded * ROWS * 4 + 16)
 
 
 @dataclass(frozen=True)
@@ -122,17 +152,42 @@ def prepare_recurrent_weights(w_hh: torch.Tensor,
     return RecurrentWeights(packed.contiguous(), precision, H, C, Hp)
 
 
-def _library() -> ctypes.CDLL:
+def pack_backward_weights(w_hh: torch.Tensor) -> tuple:
+    """(D, 4H, H) W_hh -> (packed, cluster) for the backward kernel.
+
+    Hidden units are padded to ``padded`` with zero rows and columns;
+    ``packed`` is (D, cluster, 4 * padded, padded // cluster) float32:
+    for each CTA the columns of W_hh of its units, gate row by gate row
+    (row ``q * padded + u`` is gate q of unit u).
+    """
+    D, H4, H = w_hh.shape
+    geometry = backward_geometry(H)
+    C, Hp = geometry["cluster"], geometry["padded"]
+    w = F.pad(w_hh.float().reshape(D, 4, H, H), (0, Hp - H, 0, Hp - H))
+    packed = w.reshape(D, 4 * Hp, C, Hp // C).permute(0, 2, 1, 3)
+    return packed.contiguous(), C
+
+
+def _bind(name: str, pointers: int, ints: int) -> ctypes.CDLL:
+    """``csrc/<name>.cu``'s library; its entry ``name`` takes
+    ``pointers`` pointers, ``ints`` ints and the stream, and returns an
+    int."""
     from ..utils.build import load
-    lib = load("lstm_recurrence")
-    fn = lib.lstm_recurrence
+    lib = load(name)
+    fn = getattr(lib, name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints \
+            + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
+
+
+def _library() -> ctypes.CDLL:
+    return _bind("lstm_recurrence", 4, 6)
+
+
+def _backward_library() -> ctypes.CDLL:
+    return _bind("lstm_recurrence_backward", 4, 5)
 
 
 def lstm_bidirectional_recurrence(
@@ -153,6 +208,28 @@ def lstm_bidirectional_recurrence(
         precision = lstm_precision(xw.device)
     if xw.device.type == "cpu" and w_hh.device.type == "cpu":
         return lstm_bidirectional_recurrence_plain(xw, w_hh, precision)
+    _check_layer(xw, w_hh)
+    D, H4, H = w_hh.shape
+    if prepared is None:
+        prepared = prepare_recurrent_weights(w_hh, precision)
+    if (prepared.precision, prepared.hidden, prepared.packed.shape[0],
+            prepared.packed.device) != (precision, H, D, xw.device):
+        raise ValueError(f"prepared weights are for H={prepared.hidden}, "
+                         f"D={prepared.packed.shape[0]}, "
+                         f"{prepared.precision!r} on "
+                         f"{prepared.packed.device}, not H={H}, D={D}, "
+                         f"{precision!r} on {xw.device}")
+    out = _launch_forward(xw, prepared, None)
+    lstm_bidirectional_recurrence.launches += 1
+    return out
+
+
+lstm_bidirectional_recurrence.launches = 0
+
+
+def _check_layer(xw: torch.Tensor, w_hh: torch.Tensor) -> None:
+    """Raise unless xw (T, B, D*4H) and w_hh (D, 4H, H) are one float32
+    LSTM layer on one CUDA device, xw contiguous."""
     if xw.device.type != "cuda" or w_hh.device != xw.device:
         raise ValueError(f"xw and w_hh must share one CUDA device, got "
                          f"{xw.device} and {w_hh.device}")
@@ -169,31 +246,84 @@ def lstm_bidirectional_recurrence(
                          f"{tuple(w_hh.shape)} do not form an LSTM layer")
     if not xw.is_contiguous():
         raise ValueError("xw must be contiguous")
-    if prepared is None:
-        prepared = prepare_recurrent_weights(w_hh, precision)
-    if (prepared.precision, prepared.hidden, prepared.packed.shape[0],
-            prepared.packed.device) != (precision, H, D, xw.device):
-        raise ValueError(f"prepared weights are for H={prepared.hidden}, "
-                         f"D={prepared.packed.shape[0]}, "
-                         f"{prepared.precision!r} on "
-                         f"{prepared.packed.device}, not H={H}, D={D}, "
-                         f"{precision!r} on {xw.device}")
-    lib = _library()
+
+
+def _launch_forward(xw: torch.Tensor, prepared: RecurrentWeights,
+                    workspace: Optional[torch.Tensor]) -> torch.Tensor:
+    """One launch of the forward kernel; also fills ``workspace`` (T, B,
+    D, 5H) with each step's i, f, g, o and c where it is given
+    ("highest" only). Counts nothing."""
+    T, B, _ = xw.shape
+    D, H = prepared.packed.shape[0], prepared.hidden
     out = torch.empty((T, B, D * H), device=xw.device, dtype=torch.float32)
     # the C entry launches on the current device
     with torch.cuda.device(xw.device):
-        err = lib.lstm_recurrence(
+        err = _library().lstm_recurrence(
             xw.data_ptr(), prepared.packed.data_ptr(), out.data_ptr(),
-            T, B, H, D, MODES[precision], prepared.cluster,
+            None if workspace is None else workspace.data_ptr(),
+            T, B, H, D, MODES[prepared.precision], prepared.cluster,
             torch.cuda.current_stream(xw.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lstm_recurrence launch failed with CUDA error "
                            f"{err}")
-    lstm_bidirectional_recurrence.launches += 1
     return out
 
 
-lstm_bidirectional_recurrence.launches = 0
+def lstm_recurrence_backward(xw: torch.Tensor, w_hh: torch.Tensor,
+                             grad_out: torch.Tensor) -> tuple:
+    """(grad_xw, grad_w_hh) of ``lstm_bidirectional_recurrence`` at
+    "highest" for the output's gradient ``grad_out`` (T, B, D*H).
+
+    On the CPU this is ``lstm_bidirectional_recurrence_backward_plain``.
+    On a CUDA device: the forward kernel recomputes the layer at
+    "highest" into a (T, B, D, 5H) float32 workspace of gate activations
+    and cell states (freed on return), the backward kernel walks it in
+    reverse into grad_xw (one launch for every direction, counted in
+    ``.launches``), and grad_w_hh[d] = sum over steps of dgates^T h_prev
+    is one float32 product over (T * B), h_prev the recomputed h shifted
+    in the direction's own order. A failed build or launch raises.
+    """
+    if all(t.device.type == "cpu" for t in (xw, w_hh, grad_out)):
+        return lstm_bidirectional_recurrence_backward_plain(xw, w_hh,
+                                                            grad_out)
+    _check_layer(xw, w_hh)
+    D, H4, H = w_hh.shape
+    T, B, _ = xw.shape
+    if (grad_out.shape != (T, B, D * H) or grad_out.device != xw.device
+            or grad_out.dtype != torch.float32
+            or not grad_out.is_contiguous()):
+        raise ValueError(f"grad_out must be contiguous float32 "
+                         f"{(T, B, D * H)} on {xw.device}, got "
+                         f"{grad_out.dtype} {tuple(grad_out.shape)} on "
+                         f"{grad_out.device}")
+    prepared = prepare_recurrent_weights(w_hh, "highest")
+    packed, cluster = pack_backward_weights(w_hh)
+    workspace = torch.empty((T, B, D, 5 * H), device=xw.device,
+                            dtype=torch.float32)
+    h = _launch_forward(xw, prepared, workspace)
+    grad_xw = torch.empty_like(xw)
+    with torch.cuda.device(xw.device):
+        err = _backward_library().lstm_recurrence_backward(
+            workspace.data_ptr(), grad_out.data_ptr(), packed.data_ptr(),
+            grad_xw.data_ptr(), T, B, H, D, cluster,
+            torch.cuda.current_stream(xw.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"lstm_recurrence_backward launch failed with "
+                           f"CUDA error {err}")
+    lstm_recurrence_backward.launches += 1
+    del workspace
+    h_prev = h.new_zeros((D, T, B, H))
+    h_prev[0, 1:] = h[:-1, :, :H]
+    if D == 2:
+        h_prev[1, :-1] = h[1:, :, H:]
+    with exact_float32():
+        grad_w_hh = torch.matmul(
+            grad_xw.view(T * B, D, H4).permute(1, 2, 0),
+            h_prev.view(D, T * B, H))
+    return grad_xw, grad_w_hh
+
+
+lstm_recurrence_backward.launches = 0
 
 
 class LSTMRecurrence(torch.autograd.Function):
@@ -203,10 +333,11 @@ class LSTMRecurrence(torch.autograd.Function):
     is ``lstm_bidirectional_recurrence`` (one counted kernel launch on a
     CUDA device, the plain version on the CPU) at ``precision``; xw must
     be contiguous and is saved for the backward as it is, with w_hh. The
-    backward recomputes ``lstm_bidirectional_recurrence_plain(xw, w_hh,
-    "highest")`` under autograd and returns its vector-Jacobian product,
-    with TF32 off, whatever the forward's precision: the JAX package's
-    scan VJP at ``Precision.HIGHEST``. It launches no kernel of its own.
+    backward is ``lstm_recurrence_backward`` (the backward kernel on a
+    CUDA device, counted in its own ``.launches``; the plain version on
+    the CPU): the float32 vector-Jacobian product of the "highest"
+    recurrence, whatever the forward's precision, as the JAX package's
+    scan VJP at ``Precision.HIGHEST``.
     """
 
     @staticmethod
@@ -218,12 +349,6 @@ class LSTMRecurrence(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad_out):
         xw, w_hh = ctx.saved_tensors
-        wanted = ctx.needs_input_grad[:2]
-        inputs = [t.detach().requires_grad_(need)
-                  for t, need in zip((xw, w_hh), wanted)]
-        with torch.enable_grad(), exact_float32():
-            out = lstm_bidirectional_recurrence_plain(*inputs, "highest")
-            grads = iter(torch.autograd.grad(
-                out, [t for t in inputs if t.requires_grad], grad_out))
-        return tuple(next(grads) if need else None
-                     for need in wanted) + (None, None)
+        grads = lstm_recurrence_backward(xw, w_hh, grad_out.contiguous())
+        return tuple(g if need else None for g, need in
+                     zip(grads, ctx.needs_input_grad[:2])) + (None, None)

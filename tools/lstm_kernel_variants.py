@@ -113,12 +113,12 @@ def main() -> int:
         for _ in range(2):
             for name, path in libs.items():
                 fn = ctypes.CDLL(str(path)).lstm_recurrence
-                fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 \
+                fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
                     + [ctypes.c_void_p]
 
                 def launch():
                     err = fn(xw.data_ptr(), prepared.packed.data_ptr(),
-                             out.data_ptr(), T, B, H, D,
+                             out.data_ptr(), None, T, B, H, D,
                              lstm_kernel.MODES[precision], prepared.cluster,
                              torch.cuda.current_stream().cuda_stream)
                     if err:

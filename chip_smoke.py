@@ -14,12 +14,16 @@ Phases, each fatal on failure:
      "highest"), with kernel and plain times, the bound of each mode, and
      cuDNN's torch.nn.LSTM over the same layer beside the port's
      projection + kernel (a yardstick only), phase 10's shapes each
-     timed on its own; the backward kernel (recompute at "highest" into a
-     workspace, reverse walk, one product for W_hh) against the plain
-     backward at every training shape (589 x 32 / 7 / 16, the DPRNN's of
-     (w) and (z) and their tails), and LSTMRecurrence (the kernel forward
-     and the backward kernel) against the all-plain autograd there, with
-     the forward, the backward per layer (its bound, the workspace's peak
+     timed on its own; the backward kernel (one launch: the recompute at
+     "highest" into a workspace, then the reverse walk; one product per
+     direction for W_hh) against the plain backward at every training
+     shape (589 x 32 / 7 / 16, the DPRNN's of (w) and (z) and their
+     tails) and at the edges of its geometry, and LSTMRecurrence (the
+     kernel forward and the backward kernel) against the all-plain
+     autograd there, with the backward's parts (recompute, walk, W_hh
+     product) timed apart beside cuDNN's layer backward at every training
+     shape, and the forward, the backward per layer (its bounds on the
+     tensor cores' and the CUDA cores' route, the workspace's peak
      bytes), the plain backward, the plain recurrence's autograd (the
      backward before the kernel) and cuDNN's layer backward and forward +
      backward timed at 589 x 32 / 16 and the DPRNN's shapes;
@@ -3341,6 +3345,21 @@ DPRNN_TRAIN_SHAPES = (("DPRNN intra", 100, 3264, 128),
                       ("DPRNN inter tail", 102, 3100, 128),
                       ("DPRNN intra B=16", 100, 1632, 128),
                       ("DPRNN inter B=16", 102, 1600, 128))
+# the edges of the backward kernel's geometry (``backward_geometry``), held
+# like the training shapes: B on each side of each step of its rows per
+# cluster at H = 128 (8 -> 16 -> 32 -> 64 at B = 64 / 65, 128 / 129,
+# 256 / 257), B = 1, T = 1 and 2, H = 8 (one CTA), 17 (two), 100 (eight,
+# padded), 200 and 256 (32 units a CTA, A in shared memory), one direction
+BACKWARD_EDGE_SHAPES = (("B=64", 50, 64, 128, 2), ("B=65", 50, 65, 128, 2),
+                        ("B=128", 50, 128, 128, 2),
+                        ("B=129", 50, 129, 128, 2),
+                        ("B=256", 50, 256, 128, 2),
+                        ("B=257", 50, 257, 128, 2),
+                        ("B=1 T=1", 1, 1, 128, 2), ("T=2", 2, 3, 128, 2),
+                        ("B=1 H=17", 40, 1, 17, 2), ("H=8", 30, 5, 8, 2),
+                        ("H=100", 40, 6, 100, 2), ("H=200", 40, 6, 200, 2),
+                        ("H=256 one direction", 20, 70, 256, 1),
+                        ("one direction", 30, 7, 128, 1))
 AUTOGRAD_GRAD_RTOL = {"highest": 1e-4, "default": 1e-2}
 BACKWARD_RTOL = 1e-4
 # (x) one step card against CPU on the exact path: the loss within 1e-5
@@ -3416,19 +3435,64 @@ def update_errors(ours: dict, theirs: dict, start: dict) -> dict:
 
 
 def lstm_backward_bound(T, B, H, D) -> dict:
-    """Least time of ``LSTMRecurrence``'s backward on an H100 SXM at 700 W:
-    the float32 recurrence recomputed (its recurrent product,
-    2*T*B*D*4H*H) and its vector-Jacobian product (the products for the
-    hidden state's and W_hh's gradients, twice that) at 67 TFLOP/s
-    float32 outside the tensor cores (TF32 off), against bytes (xw and the
-    output's gradient read, xw's gradient written, W_hh read and its
-    gradient written, once each) over 3.35 TB/s."""
+    """Least time of ``LSTMRecurrence``'s backward on an H100 SXM at 700 W,
+    operations against bytes (xw and the output's gradient read, xw's
+    gradient written, W_hh read and its gradient written, once each, over
+    3.35 TB/s). The work is the float32 recurrence recomputed (its
+    recurrent product, 2*T*B*D*4H*H), the walk's product for the hidden
+    state's gradient (as many) and W_hh's gradient (as many).
+    ``backward_bound_ms`` is the route the kernel takes: its two products
+    as three TF32 passes at 495 TFLOP/s dense on the tensor cores, W_hh's
+    gradient at 67 TFLOP/s float32 (TF32 off); ``backward_bound_f32_ms``
+    all three at 67 TFLOP/s, as float32 FMA on the CUDA cores."""
     moved = 4 * (2 * T * B * D * 4 * H + T * B * D * H + 2 * D * 4 * H * H)
-    flops = 3 * 2 * T * B * D * 4 * H * H
-    bytes_ms, ops_ms = moved / 3.35e12 * 1e3, flops / 67e12 * 1e3
+    product = 2 * T * B * D * 4 * H * H
+    bytes_ms = moved / 3.35e12 * 1e3
+    ops_ms = (2 * 3 * product / 495e12 + product / 67e12) * 1e3
+    f32_ms = 3 * product / 67e12 * 1e3
     return {"backward_bound_ms": max(bytes_ms, ops_ms),
             "backward_bound_by": "bytes" if bytes_ms >= ops_ms
-            else "operations"}
+            else "operations",
+            "backward_bound_f32_ms": max(bytes_ms, f32_ms)}
+
+
+def backward_parts(device, T, B, D_in) -> dict:
+    """The backward's parts at one BiLSTM layer (H = 128), CUDA events,
+    medians of 10: the kernel's recompute alone (phases 1) and its walk
+    alone (phases 2), the W_hh product as ``lstm_recurrence_backward``
+    takes it, the whole call, and cuDNN's float32 layer backward on the
+    same shape; ms each. The parts' launches are not counted."""
+    from pyannote_audio_tpu_torch.ops import lstm_kernel
+    from pyannote_audio_tpu_torch.utils.runtime import exact_float32
+    H, D = 128, 2
+    xw, w_hh, (x, _, _) = layer_inputs(device, T, B, D_in, H, D, seed=B)
+    grad = torch.randn(T, B, D * H, device=device)
+    geometry = lstm_kernel.backward_geometry(H, B, D)
+    packed = lstm_kernel.pack_backward_weights(w_hh, geometry)
+    ws = torch.empty((T, B, D, 5 * H), device=device)
+    h_prev = torch.empty((D, T, B, H), device=device)
+    grad_xw = torch.empty_like(xw)
+
+    def part(phases):
+        return lambda: lstm_kernel._launch_backward(
+            xw, grad, packed, geometry, ws, h_prev, grad_xw, phases)
+
+    row = {"recompute_ms": cuda_ms(part(1), runs=10),
+           "walk_ms": cuda_ms(part(2), runs=10),
+           "product_ms": cuda_ms(lambda: lstm_kernel.grad_w_hh_product(
+               grad_xw, h_prev), runs=10),
+           "whole_ms": cuda_ms(lambda: lstm_kernel.lstm_recurrence_backward(
+               xw, w_hh, grad), runs=10),
+           "rows": geometry["rows"], "cluster": geometry["cluster"]}
+    del ws, h_prev, grad_xw
+    lstm = torch.nn.LSTM(D_in, H, bidirectional=True).to(device)
+    lstm.flatten_parameters()
+    xin = x.detach().clone().requires_grad_()
+    with exact_float32():
+        y, _ = lstm(xin)
+        row["library_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            y, [xin, *lstm.parameters()], grad, retain_graph=True), runs=10)
+    return row
 
 
 def autograd_of_plain(xw, w_hh, grad):
@@ -3523,7 +3587,9 @@ def log_autograd_timings(name: str, row: dict) -> None:
         f"{row['ms']:.3f} ms (bound {row['bound_ms']:.4f} ms, "
         f"{row['bound_by']}), the Function's backward (the backward kernel) "
         f"{row['backward_ms']:.3f} ms per layer (bound "
-        f"{row['backward_bound_ms']:.4f} ms, {row['backward_bound_by']}; "
+        f"{row['backward_bound_ms']:.4f} ms on its route, "
+        f"{row['backward_bound_by']}, {row['backward_bound_f32_ms']:.4f} ms "
+        f"all float32 on the CUDA cores; "
         f"peak {row['backward_peak_bytes'] / 2**20:.1f} MiB allocated, "
         f"the workspace {row['workspace_bytes'] / 2**20:.1f} MiB), plain "
         f"backward {row['plain_backward_ms']:.1f} ms, "
@@ -3569,8 +3635,10 @@ def check_backward_kernel(name, T, B, xw, w_hh, grad) -> dict:
 def check_kernel_autograd(device: torch.device) -> dict:
     """The backward kernel against the plain backward, and LSTMRecurrence
     against the all-plain autograd, on the card at the segmentation
-    training shapes and the DPRNN's, with the times of the training
-    shape, a DDP rank's and each DPRNN shape (``autograd_timings``).
+    training shapes, the DPRNN's and the edges of the backward kernel's
+    geometry; the backward's parts at every training shape
+    (``backward_parts``); the times of the training shape, a DDP rank's
+    and each DPRNN shape (``autograd_timings``).
     Returns the training shape's row, with the backward kernel's record
     under "backward_kernel"."""
     from pyannote_audio_tpu_torch.ops.lstm import \
@@ -3581,7 +3649,11 @@ def check_kernel_autograd(device: torch.device) -> dict:
              for p in AUTOGRAD_GRAD_RTOL}
     worst_backward = {"xw": 0.0, "w_hh": 0.0, "max_abs": 0.0}
     start = time.perf_counter()
-    for name, T, B, D_in in TRAIN_SHAPES + DPRNN_TRAIN_SHAPES:
+    shapes = [(name, T, B, D_in, H, D) for name, T, B, D_in in
+              TRAIN_SHAPES + DPRNN_TRAIN_SHAPES]
+    shapes += [(name, T, B, 64, h, d)
+               for name, T, B, h, d in BACKWARD_EDGE_SHAPES]
+    for name, T, B, D_in, H, D in shapes:
         xw, w_hh, _ = layer_inputs(device, T, B, D_in, H, D, seed=B)
         grad = torch.randn(T, B, D * H, device=device,
                            generator=torch.Generator(device).manual_seed(B))
@@ -3619,8 +3691,22 @@ def check_kernel_autograd(device: torch.device) -> dict:
         del xw, w_hh, grad
         torch.cuda.empty_cache()
     log(f"the checks under autograd at {len(TRAIN_SHAPES)} + "
-        f"{len(DPRNN_TRAIN_SHAPES)} shapes took "
-        f"{time.perf_counter() - start:.1f} s")
+        f"{len(DPRNN_TRAIN_SHAPES)} + {len(BACKWARD_EDGE_SHAPES)} shapes "
+        f"took {time.perf_counter() - start:.1f} s")
+    H, D = 128, 2
+
+    # the backward's parts at every training shape, beside cuDNN's
+    parts = {}
+    for name, T, B, D_in in TRAIN_SHAPES + DPRNN_TRAIN_SHAPES:
+        parts[name] = backward_parts(device, T, B, D_in)
+        row = parts[name]
+        log(f"backward parts {name} (T={T}, B={B}; rows per cluster "
+            f"{row['rows']}, cluster {row['cluster']}): recompute "
+            f"{row['recompute_ms']:.3f} ms, walk {row['walk_ms']:.3f} ms, "
+            f"W_hh product {row['product_ms']:.3f} ms, the whole "
+            f"backward {row['whole_ms']:.3f} ms; cuDNN float32 layer "
+            f"backward {row['library_bwd_ms']:.3f} ms")
+        torch.cuda.empty_cache()
 
     row = autograd_timings(device, 589, TRAIN_BATCH, 256)
     log_autograd_timings("training shape", row)
@@ -3645,6 +3731,8 @@ def check_kernel_autograd(device: torch.device) -> dict:
         "ms": row["backward_ms"], "plain_ms": row["plain_backward_ms"],
         "bound_ms": row["backward_bound_ms"],
         "bound_by": row["backward_bound_by"],
+        "bound_f32_ms": row["backward_bound_f32_ms"],
+        "parts": parts,
         "library_ms": row["library_bwd_ms"], "shape": [589, TRAIN_BATCH,
                                                       H, D],
         "autograd_plain_ms": row["autograd_plain_backward_ms"],
@@ -3652,10 +3740,12 @@ def check_kernel_autograd(device: torch.device) -> dict:
         "peak_bytes": row["backward_peak_bytes"],
         "ddp_rank": {k: rank_row[k] for k in (
             "backward_ms", "plain_backward_ms", "autograd_plain_backward_ms",
-            "backward_bound_ms", "library_bwd_ms", "backward_peak_bytes")},
+            "backward_bound_ms", "backward_bound_f32_ms", "library_bwd_ms",
+            "backward_peak_bytes")},
         "dprnn": {n: {k: r[k] for k in (
             "backward_ms", "plain_backward_ms", "autograd_plain_backward_ms",
-            "backward_bound_ms", "library_bwd_ms", "backward_peak_bytes")}
+            "backward_bound_ms", "backward_bound_f32_ms", "library_bwd_ms",
+            "backward_peak_bytes")}
             for n, r in dprnn.items()}}
     return {**row, "dprnn": dprnn, "ddp_rank": rank_row,
             "max_abs_err": {p: v["forward"] for p, v in worst.items()},

@@ -66,12 +66,6 @@
 //   - 1), within about 1e-7 of torch's, far inside every mode's bound
 //   against the plain version (chip_smoke.py prints each mode's error at
 //   every shape).
-// - Workspace (the backward's recompute, "highest" only): with a non-null
-//   `ws` (T, B, D, 5H) f32 the kernel also writes each step's gate
-//   activations i, f, g, o and its cell state c there, beside out, for
-//   `lstm_recurrence_backward.cu`'s reverse walk. It is a second
-//   instantiation of the kernel (SAVE): with a null `ws` the code that
-//   runs is the one without it.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -99,7 +93,6 @@ struct Params {
   const float* xw;
   const void* w;
   float* out;
-  float* ws;    // (T, B, D, 5H) i, f, g, o, c of each step, or null
   int T, B, H, D;
   int padded;   // Hp: H rounded up to 16 * cluster
   int units;    // Hp / cluster: hidden units per CTA
@@ -238,7 +231,7 @@ __device__ __forceinline__ void cluster_sync() {
           : "memory");
 }
 
-template <int MODE, bool SAVE>
+template <int MODE>
 __global__ void __launch_bounds__(kMaxThreads)
 lstm_recurrence_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -472,7 +465,6 @@ lstm_recurrence_kernel(const Params p) {
         x[q][e] = stage[(2 * tq + (e & 1)) * ring_row + q * Hc + warp * 16 +
                         g + 8 * (e >> 1)];
     float h[4];
-    float act[4][4];  // [gate][e], kept for the workspace (SAVE)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float i_g = sigmoid(x[0][e] + acc[0][e]);
@@ -481,12 +473,6 @@ lstm_recurrence_kernel(const Params p) {
       const float o_g = sigmoid(x[3][e] + acc[3][e]);
       c_state[e] = f_g * c_state[e] + i_g * g_g;
       h[e] = o_g * tanh_fast(c_state[e]);
-      if constexpr (SAVE) {
-        act[0][e] = i_g;
-        act[1][e] = f_g;
-        act[2][e] = g_g;
-        act[3][e] = o_g;
-      }
     }
 
     const size_t h_next = (parity ^ 1) * hp_bytes;  // the other parity
@@ -530,25 +516,18 @@ lstm_recurrence_kernel(const Params p) {
     for (int e = 0; e < 4; ++e) {
       const int b = row0 + 2 * tq + (e & 1);
       const int u = unit0 + warp * 16 + g + 8 * (e >> 1);
-      if (b < B && u < H) {
+      if (b < B && u < H)
         p.out[(t_idx * B + b) * out_row + d * H + u] = h[e];
-        if constexpr (SAVE) {
-          float* w = p.ws + ((t_idx * B + b) * p.D + d) * 5 * H + u;
-#pragma unroll
-          for (int q = 0; q < 4; ++q) w[q * H] = act[q][e];
-          w[4 * H] = c_state[e];
-        }
-      }
     }
   }
   // no CTA leaves while a peer may still write into its shared memory
   cluster_sync();
 }
 
-template <int MODE, bool SAVE = false>
+template <int MODE>
 cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
-      lstm_recurrence_kernel<MODE, SAVE>,
+      lstm_recurrence_kernel<MODE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int groups = (p.B + kRows - 1) / kRows;
@@ -565,7 +544,7 @@ cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
   config.attrs = attr;
   config.numAttrs = 1;
   const cudaError_t launched =
-      cudaLaunchKernelEx(&config, lstm_recurrence_kernel<MODE, SAVE>, p);
+      cudaLaunchKernelEx(&config, lstm_recurrence_kernel<MODE>, p);
   if (launched != cudaSuccess) return launched;
   return cudaGetLastError();
 }
@@ -574,22 +553,20 @@ cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
 
 // Plain C entry point, bound with ctypes. `w` is the packed W_hh of
 // `prepare_recurrent_weights` for this (H, mode, cluster); mode is 0
-// (default), 1 (high) or 2 (highest). `ws` is null, or (T, B, D, 5H) f32
-// for the backward's recompute, which runs "highest" only. Returns a
-// cudaError_t code: 0 on a successful launch. The launch is asynchronous
-// on `stream`, on the current device.
+// (default), 1 (high) or 2 (highest). Returns a cudaError_t code: 0 on a
+// successful launch. The launch is asynchronous on `stream`, on the
+// current device.
 extern "C" int lstm_recurrence(const void* xw, const void* w, void* out,
-                               void* ws, int T, int B, int H, int D,
-                               int mode, int cluster, void* stream) {
+                               int T, int B, int H, int D, int mode,
+                               int cluster, void* stream) {
   if (T < 1 || B < 1 || H < 1 || H > kMaxHidden || D < 1 || D > 2 ||
-      mode < kDefault || mode > kHighest || (ws && mode != kHighest) ||
+      mode < kDefault || mode > kHighest ||
       (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8))
     return cudaErrorInvalidValue;
   Params p;
   p.xw = static_cast<const float*>(xw);
   p.w = w;
   p.out = static_cast<float*>(out);
-  p.ws = static_cast<float*>(ws);
   p.T = T;
   p.B = B;
   p.H = H;
@@ -602,7 +579,6 @@ extern "C" int lstm_recurrence(const void* xw, const void* w, void* out,
   const size_t smem = shared_bytes(mode, p.units, p.padded);
   if (smem > kMaxSharedBytes) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ws) return launch<kHighest, true>(p, smem, s);
   switch (mode) {
     case kDefault:
       return launch<kDefault>(p, smem, s);

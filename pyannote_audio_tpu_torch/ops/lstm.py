@@ -28,6 +28,22 @@ def split_bf16(a: torch.Tensor):
     return hi, (a - hi).to(torch.bfloat16).float()
 
 
+def split_tf32(a: torch.Tensor):
+    """float32 a -> (a_hi, a_lo), both TF32 values held in float32: a_hi =
+    tf32(a) and a_lo = tf32(a - a_hi), each rounded to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds. a = a_hi + a_lo to
+    within 2^-22 |a|, so hi.hi + hi.lo + lo.hi carries a float32 product
+    to within about 2^-21 of it: the backward kernel's products
+    (``csrc/lstm_recurrence_backward.cu``)."""
+
+    def tf32(x: torch.Tensor) -> torch.Tensor:
+        bits = x.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = tf32(a.float())
+    return hi, tf32(a.float() - hi)
+
+
 def recurrent_product(h: torch.Tensor, w_hh_t: torch.Tensor,
                       precision: str = "highest") -> torch.Tensor:
     """h (B, H) @ w_hh_t (H, 4H) in one of the JAX package's precisions.

@@ -17,11 +17,13 @@ modes ordered as ``mma.sync`` A fragments.
 the kernel, its backward ``lstm_recurrence_backward``, the float32
 vector-Jacobian product that the JAX package takes of its scan. On a
 CUDA device that is a second hand-written kernel,
-``csrc/lstm_recurrence_backward.cu``: the forward kernel recomputes the
-layer at "highest" into a workspace of gate activations and cell
-states, the backward kernel walks it in reverse for the gradient of xw,
-and one float32 product gives W_hh's. On the CPU both are their plain
-versions (``ops.lstm``).
+``csrc/lstm_recurrence_backward.cu``: in one launch it recomputes the
+layer at "highest" into a workspace of gate activations and cell states,
+then walks it in reverse for the gradient of xw, both products on tensor
+cores in three TF32 passes; one float32 product gives W_hh's gradient.
+Its weights are packed by ``pack_backward_weights`` for the geometry
+that ``backward_geometry`` chooses from H and B. On the CPU both are
+their plain versions (``ops.lstm``).
 """
 
 from __future__ import annotations
@@ -43,6 +45,9 @@ ROWS = 8                  # batch rows per cluster: the mma's n
 STAGES = 6                # xw ring depth in the csrc kernel (kStages)
 MAX_UNITS = 64            # hidden units per CTA (kMaxUnits): 4 warps
 MODES = {"default": 0, "high": 1, "highest": 2}
+SMS = 132                 # streaming multiprocessors of an H100 SXM
+BACKWARD_ROWS = (8, 16, 32, 64)  # batch rows per cluster of the backward
+BACKWARD_SLOTS = 8        # partial dh_rec sums a backward CTA receives
 
 
 def _smallest_cluster(hidden: int, shared_bytes) -> dict:
@@ -90,18 +95,46 @@ def kernel_geometry(hidden: int, precision: str) -> dict:
     return _smallest_cluster(hidden, shared_bytes)
 
 
-def backward_geometry(hidden: int) -> dict:
-    """Cluster size and padded hidden size the backward kernel runs
-    ``hidden`` at.
+def backward_geometry(hidden: int, batch: int = 1,
+                      directions: int = 2) -> dict:
+    """The backward kernel's geometry for ``hidden`` units, ``batch`` rows
+    and ``directions`` (``csrc/lstm_recurrence_backward.cu``).
 
-    Each CTA keeps the 4 * padded W_hh columns of its units in float32
-    beside two buffers of every unit's gate gradients for ROWS batch rows
-    and 2 mbarriers (``_smallest_cluster``). Raises ``ValueError`` above
+    Each CTA owns ``units`` hidden units: 16 up to H = 128, in a cluster
+    of the smallest power of two that covers H, with 8 warps; 32 above
+    (a cluster of 8, 16 warps). A warp keeps ``frags`` = padded / 16 mma A
+    fragments of W_hh, split into TF32 hi and lo: in ``a_registers``
+    registers a thread at 16 units, in shared memory at 32. ``rows``, the
+    batch rows per cluster, is the smallest of BACKWARD_ROWS whose grid of
+    one CTA per SM fits the card's SMS at once (latency sets the time),
+    else the largest (fewer waves); 8 at 32 units. ``shared_bytes`` is
+    the kernel's dynamic shared memory, the larger phase's buffers plus A
+    in shared memory and 4 mbarriers. Raises ``ValueError`` above
     MAX_HIDDEN.
     """
-    return _smallest_cluster(
-        hidden, lambda units, padded:
-        4 * padded * units * 4 + 2 * 4 * padded * ROWS * 4 + 16)
+    if not 1 <= hidden <= MAX_HIDDEN:
+        raise ValueError(f"hidden size {hidden} is outside what the LSTM "
+                         f"backward kernel keeps on chip (1 to "
+                         f"{MAX_HIDDEN})")
+    if hidden <= 128:
+        units = 16
+        cluster = 1 << max(0, (-(-hidden // 16) - 1).bit_length())
+        rows = next((r for r in BACKWARD_ROWS
+                     if directions * -(-batch // r) * cluster <= SMS),
+                    BACKWARD_ROWS[-1])
+    else:
+        units, cluster, rows = 32, 8, 8
+    padded = units * cluster
+    warps = units // 2
+    frags = padded // 16
+    gate_row = 4 * units + 4
+    buffers = max(2 * rows * (padded + 4) + 2 * rows * gate_row,
+                  2 * BACKWARD_SLOTS * units * (rows + 2) + rows * gate_row)
+    a_shared = 0 if units == 16 else warps * frags * 32 * 16
+    return {"cluster": cluster, "padded": padded, "units": units,
+            "rows": rows, "warps": warps, "threads": 32 * warps,
+            "frags": frags, "a_registers": 8 * frags if units == 16 else 0,
+            "shared_bytes": a_shared + 4 * buffers + 4 * 8}
 
 
 @dataclass(frozen=True)
@@ -152,20 +185,46 @@ def prepare_recurrent_weights(w_hh: torch.Tensor,
     return RecurrentWeights(packed.contiguous(), precision, H, C, Hp)
 
 
-def pack_backward_weights(w_hh: torch.Tensor) -> tuple:
-    """(D, 4H, H) W_hh -> (packed, cluster) for the backward kernel.
+def pack_backward_weights(w_hh: torch.Tensor,
+                          geometry: dict) -> torch.Tensor:
+    """(D, 4H, H) W_hh -> (D, cluster, 2, warps, frags, 32, 4) float32,
+    the backward kernel's mma A fragments for ``geometry``
+    (``backward_geometry``; the packing depends on H only).
 
-    Hidden units are padded to ``padded`` with zero rows and columns;
-    ``packed`` is (D, cluster, 4 * padded, padded // cluster) float32:
-    for each CTA the columns of W_hh of its units, gate row by gate row
-    (row ``q * padded + u`` is gate q of unit u).
+    Hidden units are padded with zero rows and columns. CTA c of the
+    cluster owns units [c * units, (c + 1) * units) and their 4 gate
+    rows, A = rows ``q * units + ul`` (gate q of unit ``c * units + ul``)
+    of W_hh by its ``padded`` columns: phase 0 (the recompute) multiplies
+    by A, phase 1 (the walk) by A's transpose. A matrix of M x K is cut
+    into 16 x 8 tiles; warp ``kp * (M / 16) + mt`` holds tile row mt and
+    k-steps ``kp * frags`` to ``(kp + 1) * frags - 1``; a lane (g = lane
+    / 4, t = lane % 4) holds (A[g, t], A[g + 8, t], A[g, t + 4], A[g + 8,
+    t + 4]) of each tile, mma.sync m16n8k8's A fragment. The kernel
+    splits each value into TF32 hi and lo (``ops.lstm.split_tf32``).
     """
     D, H4, H = w_hh.shape
-    geometry = backward_geometry(H)
-    C, Hp = geometry["cluster"], geometry["padded"]
+    C, Hp, units = geometry["cluster"], geometry["padded"], geometry["units"]
+    warps, frags = geometry["warps"], geometry["frags"]
     w = F.pad(w_hh.float().reshape(D, 4, H, H), (0, Hp - H, 0, Hp - H))
-    packed = w.reshape(D, 4 * Hp, C, Hp // C).permute(0, 2, 1, 3)
-    return packed.contiguous(), C
+    # (D, gate, C, ul, k) -> (D, C, gate * units + ul, k)
+    a = w.reshape(D, 4, C, units, Hp).permute(0, 2, 1, 3, 4) \
+        .reshape(D, C, 4 * units, Hp)
+
+    def fragments(m: torch.Tensor) -> torch.Tensor:
+        M, K = m.shape[2:]
+        tiles, steps = M // 16, K // 8
+        # (mt, row half, g, k-step, col half, t) -> (mt, k-step, g, t,
+        # col half, row half): a lane's 4 values in fragment order
+        x = m.reshape(D, C, tiles, 2, 8, steps, 2, 4) \
+            .permute(0, 1, 2, 5, 4, 7, 6, 3).reshape(D, C, tiles, steps,
+                                                     32, 4)
+        # k-step kp * frags + i of tile mt -> warp kp * tiles + mt, frag i
+        x = x.reshape(D, C, tiles, steps // frags, frags, 32, 4) \
+            .permute(0, 1, 3, 2, 4, 5, 6)
+        return x.reshape(D, C, warps, frags, 32, 4)
+
+    return torch.stack([fragments(a), fragments(a.transpose(2, 3))],
+                       dim=2).contiguous()
 
 
 def _bind(name: str, pointers: int, ints: int) -> ctypes.CDLL:
@@ -183,11 +242,11 @@ def _bind(name: str, pointers: int, ints: int) -> ctypes.CDLL:
 
 
 def _library() -> ctypes.CDLL:
-    return _bind("lstm_recurrence", 4, 6)
+    return _bind("lstm_recurrence", 3, 6)
 
 
 def _backward_library() -> ctypes.CDLL:
-    return _bind("lstm_recurrence_backward", 4, 5)
+    return _bind("lstm_recurrence_backward", 6, 7)
 
 
 def lstm_bidirectional_recurrence(
@@ -219,7 +278,7 @@ def lstm_bidirectional_recurrence(
                          f"{prepared.precision!r} on "
                          f"{prepared.packed.device}, not H={H}, D={D}, "
                          f"{precision!r} on {xw.device}")
-    out = _launch_forward(xw, prepared, None)
+    out = _launch_forward(xw, prepared)
     lstm_bidirectional_recurrence.launches += 1
     return out
 
@@ -248,11 +307,9 @@ def _check_layer(xw: torch.Tensor, w_hh: torch.Tensor) -> None:
         raise ValueError("xw must be contiguous")
 
 
-def _launch_forward(xw: torch.Tensor, prepared: RecurrentWeights,
-                    workspace: Optional[torch.Tensor]) -> torch.Tensor:
-    """One launch of the forward kernel; also fills ``workspace`` (T, B,
-    D, 5H) with each step's i, f, g, o and c where it is given
-    ("highest" only). Counts nothing."""
+def _launch_forward(xw: torch.Tensor,
+                    prepared: RecurrentWeights) -> torch.Tensor:
+    """One launch of the forward kernel. Counts nothing."""
     T, B, _ = xw.shape
     D, H = prepared.packed.shape[0], prepared.hidden
     out = torch.empty((T, B, D * H), device=xw.device, dtype=torch.float32)
@@ -260,7 +317,6 @@ def _launch_forward(xw: torch.Tensor, prepared: RecurrentWeights,
     with torch.cuda.device(xw.device):
         err = _library().lstm_recurrence(
             xw.data_ptr(), prepared.packed.data_ptr(), out.data_ptr(),
-            None if workspace is None else workspace.data_ptr(),
             T, B, H, D, MODES[prepared.precision], prepared.cluster,
             torch.cuda.current_stream(xw.device).cuda_stream)
     if err != 0:
@@ -269,19 +325,39 @@ def _launch_forward(xw: torch.Tensor, prepared: RecurrentWeights,
     return out
 
 
+def _launch_backward(xw: torch.Tensor, grad_out: torch.Tensor,
+                     packed: torch.Tensor, geometry: dict,
+                     workspace: torch.Tensor, h_prev: torch.Tensor,
+                     grad_xw: torch.Tensor, phases: int = 3) -> None:
+    """One launch of the backward kernel: ``phases`` 1 recomputes the
+    layer into ``workspace`` (T, B, D, 5H) and ``h_prev`` (D, T, B, H),
+    2 walks them into ``grad_xw``, 3 does both. Counts nothing."""
+    T, B, _ = xw.shape
+    D, H = h_prev.shape[0], h_prev.shape[3]
+    with torch.cuda.device(xw.device):
+        err = _backward_library().lstm_recurrence_backward(
+            xw.data_ptr(), grad_out.data_ptr(), packed.data_ptr(),
+            workspace.data_ptr(), h_prev.data_ptr(), grad_xw.data_ptr(),
+            T, B, H, D, geometry["cluster"], geometry["rows"], phases,
+            torch.cuda.current_stream(xw.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"lstm_recurrence_backward launch failed with "
+                           f"CUDA error {err}")
+
+
 def lstm_recurrence_backward(xw: torch.Tensor, w_hh: torch.Tensor,
                              grad_out: torch.Tensor) -> tuple:
     """(grad_xw, grad_w_hh) of ``lstm_bidirectional_recurrence`` at
     "highest" for the output's gradient ``grad_out`` (T, B, D*H).
 
     On the CPU this is ``lstm_bidirectional_recurrence_backward_plain``.
-    On a CUDA device: the forward kernel recomputes the layer at
-    "highest" into a (T, B, D, 5H) float32 workspace of gate activations
-    and cell states (freed on return), the backward kernel walks it in
-    reverse into grad_xw (one launch for every direction, counted in
-    ``.launches``), and grad_w_hh[d] = sum over steps of dgates^T h_prev
-    is one float32 product over (T * B), h_prev the recomputed h shifted
-    in the direction's own order. A failed build or launch raises.
+    On a CUDA device one launch of the backward kernel (counted in
+    ``.launches``) recomputes the layer at "highest" into a (T, B, D, 5H)
+    float32 workspace of gate activations and cell states and h_prev (D,
+    T, B, H), the recomputed h shifted in each direction's own order
+    (both freed on return), then walks them in reverse into grad_xw, for
+    every direction; grad_w_hh is ``grad_w_hh_product``. A failed build
+    or launch raises.
     """
     if all(t.device.type == "cpu" for t in (xw, w_hh, grad_out)):
         return lstm_bidirectional_recurrence_backward_plain(xw, w_hh,
@@ -296,34 +372,37 @@ def lstm_recurrence_backward(xw: torch.Tensor, w_hh: torch.Tensor,
                          f"{(T, B, D * H)} on {xw.device}, got "
                          f"{grad_out.dtype} {tuple(grad_out.shape)} on "
                          f"{grad_out.device}")
-    prepared = prepare_recurrent_weights(w_hh, "highest")
-    packed, cluster = pack_backward_weights(w_hh)
+    geometry = backward_geometry(H, B, D)
+    packed = pack_backward_weights(w_hh, geometry)
     workspace = torch.empty((T, B, D, 5 * H), device=xw.device,
                             dtype=torch.float32)
-    h = _launch_forward(xw, prepared, workspace)
+    h_prev = torch.empty((D, T, B, H), device=xw.device, dtype=torch.float32)
     grad_xw = torch.empty_like(xw)
-    with torch.cuda.device(xw.device):
-        err = _backward_library().lstm_recurrence_backward(
-            workspace.data_ptr(), grad_out.data_ptr(), packed.data_ptr(),
-            grad_xw.data_ptr(), T, B, H, D, cluster,
-            torch.cuda.current_stream(xw.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"lstm_recurrence_backward launch failed with "
-                           f"CUDA error {err}")
+    _launch_backward(xw, grad_out, packed, geometry, workspace, h_prev,
+                     grad_xw)
     lstm_recurrence_backward.launches += 1
     del workspace
-    h_prev = h.new_zeros((D, T, B, H))
-    h_prev[0, 1:] = h[:-1, :, :H]
-    if D == 2:
-        h_prev[1, :-1] = h[1:, :, H:]
-    with exact_float32():
-        grad_w_hh = torch.matmul(
-            grad_xw.view(T * B, D, H4).permute(1, 2, 0),
-            h_prev.view(D, T * B, H))
-    return grad_xw, grad_w_hh
+    return grad_xw, grad_w_hh_product(grad_xw, h_prev)
 
 
 lstm_recurrence_backward.launches = 0
+
+
+def grad_w_hh_product(grad_xw: torch.Tensor,
+                      h_prev: torch.Tensor) -> torch.Tensor:
+    """grad_W_hh (D, 4H, H) = sum over steps and rows of dgates^T h_prev,
+    from grad_xw (T, B, D*4H) and h_prev (D, T, B, H): one float32 2-D
+    product over T * B per direction (cuBLAS splits the long sum; 6x
+    faster than one batched product over a permuted view at DPRNN's B,
+    measured on an H100)."""
+    D, T, B, H = h_prev.shape
+    rows = grad_xw.view(T * B, D * 4 * H)
+    out = grad_xw.new_empty((D, 4 * H, H))
+    with exact_float32():
+        for d in range(D):
+            torch.mm(rows[:, d * 4 * H:(d + 1) * 4 * H].t(),
+                     h_prev[d].view(T * B, H), out=out[d])
+    return out
 
 
 class LSTMRecurrence(torch.autograd.Function):

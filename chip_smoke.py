@@ -20,20 +20,31 @@ Phases, each fatal on failure:
      shape (589 x 32 / 7 / 16, the DPRNN's of (w) and (z) and their
      tails) and at the edges of its geometry, and LSTMRecurrence (the
      kernel forward and the backward kernel) against the all-plain
-     autograd there, with the backward's parts (recompute, walk, W_hh
-     product) timed apart beside cuDNN's layer backward at every training
-     shape, and the forward, the backward per layer (its bounds on the
-     tensor cores' and the CUDA cores' route, the workspace's peak
-     bytes), the plain backward, the plain recurrence's autograd (the
-     backward before the kernel) and cuDNN's layer backward and forward +
-     backward timed at 589 x 32 / 16 and the DPRNN's shapes;
+     autograd at the training shapes, with the backward's parts
+     (recompute, walk, W_hh product) timed apart beside cuDNN's layer
+     backward at every training shape, and the forward, the backward per
+     layer (its bounds on the tensor cores' and the CUDA cores' route,
+     the workspace's peak bytes), the plain backward, the plain
+     recurrence's autograd (the backward before the kernel) and cuDNN's
+     layer backward and forward + backward timed at 589 x 32 / 16 and
+     the DPRNN's intra-chunk shapes; both
+     kernels' streamed route above H = 256 (W_hh read from device memory
+     every step): the forward against its plain version at 589 x 32 and
+     589 x 256 for H = 257, 384 and 512 in each precision and at 589 x 8,
+     H = 1024 in "default", the backward against the plain backward at
+     589 x 32 for H = 384 and 512 and LSTMRecurrence against the all-plain
+     autograd at H = 512, each timed beside its bound, its plain version
+     and cuDNN's float32 layer;
   4. the exact path (the accelerator gates PYANNOTE_TPU_SEG_BF16,
      _SHARED_SINC and _SHARED_TRUNK forced to "0", a float32 trunk,
      PYANNOTE_TPU_LSTM_PRECISION=highest):
      SpeakerDiarization with full-width PyanNet and WeSpeaker ResNet34
      (seeded random weights) at bench.py's settings, held against the
      same pipeline on the CPU on a 30 s file, then timed with its stages
-     on a synthetic PCM16 WAV file of 3 minutes;
+     on a synthetic PCM16 WAV file of 3 minutes; then the same with a
+     PyanNet whose BiLSTM has H = 512 (the kernels' streamed route, its
+     head calibrated to mark speech), held against the CPU on the
+     3-minute file, its forward launches counted;
   5. the accelerator path at its defaults on the card (bf16 SincNet and
      trunk, the shared whole-file sinc front-end, fbank and trunk, the
      conv-fbank, the LSTM's bf16 products): each shared module held
@@ -117,7 +128,12 @@ Phases, each fatal on failure:
      split, peak
      memory, losses, der/val, the best checkpoint reloaded through
      Model.from_pretrained and resume_from epoch 0 (parameters, their
-     epoch-1 updates, Adam's step counts and moments, the epoch-1 loss).
+     epoch-1 updates, Adam's step counts and moments, the epoch-1 loss);
+     one step of a PyanNet with a BiLSTM of H = 512 at 32 x 10 s (one
+     forward and one backward kernel launch a layer, no plain recurrence
+     on the card, its time split); the segmentation ``evaluate``
+     (frame-level DER) of full-width PyanNet on the development file,
+     card against CPU, with its forward launches.
  12. training speaker embeddings and separation: (y) ArcFace at its
      defaults (8 speakers x 4 chunks of 2-5 s) with full-width WeSpeaker
      ResNet34 on (x)'s speakers: one step card against CPU on the exact
@@ -397,17 +413,17 @@ def lstm_bound(T, B, H, D, precision, packed_bytes) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
-def library_lstm_ms(device, T, B, D_in, H) -> dict:
+def library_lstm_ms(device, T, B, D_in, H,
+                    dtypes=("float32", "float16", "bfloat16")) -> dict:
     """torch.nn.LSTM (cuDNN) over the same layer, whole: float32 with TF32
-    off, then fp16 and bf16 where cuDNN takes them (None where not).
-    The yardstick only: the port never calls cuDNN's LSTM."""
+    off, then fp16 and bf16 where cuDNN takes them (None where not), of
+    ``dtypes``. The yardstick only: the port never calls cuDNN's LSTM."""
     lstm = torch.nn.LSTM(D_in, H, bidirectional=True).to(device)
     x = torch.randn(T, B, D_in, device=device)
     times = {}
     with torch.inference_mode():
-        for name, dtype in (("float32", torch.float32),
-                            ("float16", torch.float16),
-                            ("bfloat16", torch.bfloat16)):
+        for name in dtypes:
+            dtype = getattr(torch, name)
             layer, xd = lstm.to(dtype), x.to(dtype)
             layer.flatten_parameters()  # one cuDNN weight buffer
             try:
@@ -429,14 +445,14 @@ def phase_kernels(device: torch.device) -> dict:
     # PyanNet on 10 s chunks: T = 589 frames, B = every batch size of the
     # whole files the main paths segment (256 and each file's tail: phases
     # 4-5, phase 6's serving list, phase 13's files and (x)'s two files
-    # of (C) and (D)), H = 128; layer 0 reads SincNet's 60 features,
-    # layer 1 the 256 of layer 0
+    # of (C) and (D)), H = 128; layer 1, reading the 256 of layer 0 (a
+    # layer's D_in does not reach the kernel, whose input is the projected
+    # xw)
     main_batches = set(segmentation_batches()) | set(segmentation_batches(
         SERVING_MINUTES)) | set(segmentation_batches(ENTRY_MINUTES)) | set(
         segmentation_batches((TRAIN_FILE_MINUTES,) * 2))
-    shapes = [(f"main B={B} layer {layer}", 589, B, D_in, 128, 2)
-              for B in sorted(main_batches, reverse=True)
-              for layer, D_in in enumerate((60, 256))]
+    shapes = [(f"main B={B} layer 1", 589, B, 256, 128, 2)
+              for B in sorted(main_batches, reverse=True)]
     # phase 14's shards, once each (a layer's D_in does not reach the
     # kernel, whose input is the projected xw)
     shapes += [(name, T, B, D_in, 128, 2)
@@ -631,10 +647,11 @@ def traced_run(pipeline, file: dict):
 
 
 def card_vs_cpu(pipeline, cpu_pipeline, device, wav: np.ndarray,
-                label: str, check: bool = True):
+                label: str, check: bool = True,
+                logp_atol: float = REFERENCE_LOGP_ATOL):
     """PyanNet's log-probabilities on every chunk of ``wav`` and the
     embeddings of 8 chunks, on the card and on the CPU; printed, and held
-    to REFERENCE_LOGP_ATOL / REFERENCE_EMBEDDING_RTOL when ``check``.
+    to ``logp_atol`` / REFERENCE_EMBEDDING_RTOL when ``check``.
     Returns (logp, logp_ref, logp_err, emb_err)."""
     from pyannote_audio_tpu_torch.core.inference import chunk_views
     chunks = chunk_views(torch.from_numpy(wav), 10 * SAMPLE_RATE,
@@ -655,14 +672,14 @@ def card_vs_cpu(pipeline, cpu_pipeline, device, wav: np.ndarray,
     logp_err = (logp - logp_ref).abs().max().item()
     emb_err = ((emb - emb_ref).abs().max() / emb_ref.abs().max()).item()
     log(f"{label}: PyanNet log-prob max_abs_err {logp_err:.3e} on "
-        f"{len(chunks)} chunks (limit {REFERENCE_LOGP_ATOL}), embedding "
+        f"{len(chunks)} chunks (limit {logp_atol:.3e}), embedding "
         f"max relative err {emb_err:.3e} on 8 chunks (limit "
         f"{REFERENCE_EMBEDDING_RTOL})")
     if not check:
         return logp, logp_ref, logp_err, emb_err
     if not (logp.shape == (len(chunks), 589, 7)
             and torch.isfinite(logp).all()
-            and logp_err <= REFERENCE_LOGP_ATOL):
+            and logp_err <= logp_atol):
         raise AssertionError(f"{label}: PyanNet on the card disagrees with "
                              f"the CPU")
     if not (emb.shape == (8, 3, 256) and torch.isfinite(emb).all()
@@ -672,8 +689,12 @@ def card_vs_cpu(pipeline, cpu_pipeline, device, wav: np.ndarray,
     return logp, logp_ref, logp_err, emb_err
 
 
-def check_against_cpu(pipeline, cpu_pipeline, device) -> None:
-    """The card's pipeline against the same weights on the CPU, on 30 s.
+def check_against_cpu(pipeline, cpu_pipeline, device, minutes=0.5,
+                      label="card vs CPU",
+                      logp_atol: float = REFERENCE_LOGP_ATOL) -> None:
+    """The card's pipeline against the same weights on the CPU, on a file
+    of ``minutes`` (30 s by default), the log-probabilities within
+    ``logp_atol``.
 
     PyanNet's log-probabilities are held on every chunk of the file, the
     embeddings on 8 chunks. Float32 sums in another order can flip the
@@ -683,9 +704,10 @@ def check_against_cpu(pipeline, cpu_pipeline, device) -> None:
     that a flip feeds. Without a flip, both Annotations must have the same
     tracks with boundaries within one frame.
     """
-    wav = synth(0.5, seed=7)[None]
+    wav = synth(minutes, seed=7)[None]
     logp, logp_ref, logp_err, _ = card_vs_cpu(pipeline, cpu_pipeline,
-                                              device, wav, "card vs CPU")
+                                              device, wav, label,
+                                              logp_atol=logp_atol)
 
     file = {"waveform": wav, "sample_rate": SAMPLE_RATE, "uri": "short"}
     out, ours = traced_run(pipeline, file)
@@ -695,7 +717,7 @@ def check_against_cpu(pipeline, cpu_pipeline, device) -> None:
     top_cpu = logp_ref.argmax(-1)
     margins = [(logp_ref[c, f, top_cpu[c, f]]
                 - logp_ref[c, f, top_gpu[c, f]]).item() for c, f in flips]
-    log(f"card vs CPU pipeline on 30 s: {len(flips)} of "
+    log(f"{label} pipeline on {minutes:g} min: {len(flips)} of "
         f"{top_cpu.numel()} chunk frames flip their powerset class, CPU "
         f"margins {['%.3e' % m for m in margins]}")
     if max(margins, default=0.0) > 2 * logp_err:
@@ -722,13 +744,13 @@ def check_against_cpu(pipeline, cpu_pipeline, device) -> None:
         f"{out.speaker_diarization.labels()} vs "
         f"{ref.speaker_diarization.labels()}")
     if not a:
-        raise AssertionError("empty diarization of the short file")
+        raise AssertionError(f"{label}: empty diarization")
     if not len(flips) and not (len(a) == len(b) and all(
             la == lb and abs(sa.start - sb.start) <= frames.step
             and abs(sa.end - sb.end) <= frames.step
             for (sa, _, la), (sb, _, lb) in zip(a, b))):
-        raise AssertionError("the pipeline on the card disagrees with the "
-                             "CPU on the short file")
+        raise AssertionError(f"{label}: the pipeline on the card disagrees "
+                             f"with the CPU")
 
 
 def make_models(compute_dtype: torch.dtype):
@@ -927,6 +949,79 @@ def run_exact(device: torch.device, workdir: Path) -> None:
                              f"expected: {counts} != {expected}")
     timed_passes(pipeline, files, sum(EXACT_MINUTES), "exact path")
     return counts["lstm_launches"]
+
+
+WIDE_PIPELINE_HIDDEN = 512
+
+
+def phase_wide_lstm(device: torch.device, workdir: Path) -> int:
+    """SpeakerDiarization whose PyanNet has a BiLSTM of H = 512 (the
+    kernels' streamed route; its other widths published, its head
+    calibrated on 8 chunks so that it marks speech) on the exact path,
+    held against the same pipeline on the CPU on the 3-minute file by the
+    near-tie rule of ``check_against_cpu``, then through ``apply`` on the
+    card with its forward launches counted and timed. Returns the
+    launches. The random head's logits barely move with the audio (a
+    spread of about 1e-3), and the calibration multiplies them, and with
+    them the card's and the CPU's float32 rounding differences, by its
+    gain: so the uncalibrated model's log-probabilities are held to phase
+    4's REFERENCE_LOGP_ATOL on the 30 s file's chunks, and the calibrated
+    pipeline's to that limit times the gain."""
+    from pyannote_audio_tpu_torch.models.embedding.wespeaker import \
+        WeSpeakerResNet34
+    from pyannote_audio_tpu_torch.models.segmentation.pyannet import PyanNet
+    with exact_path():
+        segmentation = PyanNet(lstm_hidden=WIDE_PIPELINE_HIDDEN,
+                               generator=torch.Generator().manual_seed(1))
+        from pyannote_audio_tpu_torch.core.inference import chunk_views
+        chunks = chunk_views(torch.from_numpy(synth(0.5, seed=7)[None]),
+                             10 * SAMPLE_RATE, SAMPLE_RATE).contiguous()
+        card_raw = copy.deepcopy(segmentation).to(device)
+        with torch.inference_mode():
+            raw_err = float((card_raw(chunks.to(device)).cpu()
+                             - segmentation(chunks)).abs().max())
+        del card_raw
+        log(f"H = {WIDE_PIPELINE_HIDDEN}, the uncalibrated model: log-prob "
+            f"max_abs_err card vs CPU {raw_err:.3e} on {len(chunks)} chunks "
+            f"(limit {REFERENCE_LOGP_ATOL})")
+        if not raw_err <= REFERENCE_LOGP_ATOL:
+            raise AssertionError(f"H = {WIDE_PIPELINE_HIDDEN}: PyanNet on "
+                                 f"the card disagrees with the CPU")
+        gain = calibrate_powerset(segmentation, torch.from_numpy(
+            chunk_batch(1.0, 10.0, 8, seed=5)))
+        log(f"H = {WIDE_PIPELINE_HIDDEN}: the head's calibration gain is "
+            f"{gain:.3f}")
+        embedding = WeSpeakerResNet34(
+            compute_dtype=torch.float32,
+            generator=torch.Generator().manual_seed(2))
+        cpu_pipeline = build_pipeline(copy.deepcopy(segmentation),
+                                      copy.deepcopy(embedding), "cpu")
+        pipeline = build_pipeline(segmentation, embedding, device)
+        start = time.perf_counter()
+        check_against_cpu(pipeline, cpu_pipeline, device,
+                          minutes=EXACT_MINUTES[0],
+                          label=f"H = {WIDE_PIPELINE_HIDDEN} card vs CPU",
+                          logp_atol=REFERENCE_LOGP_ATOL * max(gain, 1.0))
+        log(f"H = {WIDE_PIPELINE_HIDDEN}: the hold against the CPU took "
+            f"{time.perf_counter() - start:.1f} s")
+        del cpu_pipeline
+        files = write_files(workdir, EXACT_MINUTES)
+        batches = len(segmentation_batches(EXACT_MINUTES))
+        reset_counts(pipeline)
+        outputs = pipeline([dict(f) for f in files], max_speakers=4)
+        torch.cuda.synchronize()
+        launches = read_counts(pipeline)["lstm_launches"]
+        check_outputs(files, outputs)
+        log(f"H = {WIDE_PIPELINE_HIDDEN} exact path: {launches} forward "
+            f"kernel launches on {EXACT_MINUTES[0]:g} min (expected "
+            f"{2 * batches}: 2 layers x {batches} batches)")
+        if launches != 2 * batches:
+            raise AssertionError(f"H = {WIDE_PIPELINE_HIDDEN}: {launches} "
+                                 f"launches, expected {2 * batches}")
+        wall = wall_seconds(lambda: run_batch(pipeline, files))
+        log(f"H = {WIDE_PIPELINE_HIDDEN} exact path: {wall:.3f} s for "
+            f"{EXACT_MINUTES[0]:g} min of audio through apply_batch (warm)")
+    return launches
 
 
 def check_shared_sinc(pipeline, waveform: torch.Tensor) -> None:
@@ -1415,16 +1510,15 @@ def check_batch(pipeline, device, workdir: Path) -> dict:
     modes = (("file by file", False, run_one_by_one),
              ("apply_batch, one stream", False, run_batch),
              ("apply_batch, reconstruction stream", True, run_batch))
-    for _ in range(2):
-        for label, side, run in modes:
-            def call(label=label, run=run):
-                results[label] = run(pipeline, files)
-            with reconstruction_stream(pipeline, side):
-                reset_counts(pipeline)
-                peak, wall = peak_and_wall(device, call)
-            counts[label] = read_counts(pipeline)
-            walls.setdefault(label, []).append(wall)
-            peaks[label] = peak
+    for label, side, run in modes:
+        def call(label=label, run=run):
+            results[label] = run(pipeline, files)
+        with reconstruction_stream(pipeline, side):
+            reset_counts(pipeline)
+            peak, wall = peak_and_wall(device, call)
+        counts[label] = read_counts(pipeline)
+        walls.setdefault(label, []).append(wall)
+        peaks[label] = peak
     for label, _, _ in modes:
         log(f"(i) {label}: {minutes:g} min in "
             f"{' / '.join('%.3f' % w for w in walls[label])} s = "
@@ -2499,7 +2593,7 @@ def phase_vad_multilabel_audio(device, workdir: Path, pipeline,
 # -- phase 9 ------------------------------------------------------------------
 
 # (r): one batch of 32 five-second chunks per embedder, card against the
-# CPU on the whole batch (EMBED_CPU_ROWS of it for ResNet293), unmasked
+# CPU on the whole batch (EMBED_CPU_ROWS of it where set), unmasked
 # and masked; float32 models at cosine > 0.9999 and relative L2 <= 1e-3 per finite
 # row; the bf16 WeSpeaker trunks by the bound of
 # tests/test_torch_port_models.py (card against CPU within 2e-2 of the
@@ -2512,9 +2606,13 @@ EMBED_REL_L2 = 1e-3
 EMBED_BF16_MAX, EMBED_BF16_MEAN = 2e-2, 2e-3
 EMBED_RUNS = 20
 # rows of the batch held card against CPU, where the CPU's passes are long
-# (ResNet293's four: bf16 and its float32 reference, unmasked and masked);
-# the first 4 rows hold every mask pattern once
-EMBED_CPU_ROWS = {"WeSpeakerResNet293 (.onnx)": 4}
+# (ResNet293's four: bf16 and its float32 reference, unmasked and masked;
+# ResNet34's, ECAPA's and TitaNet's eight, 0.3-0.6 s a row); the first 4
+# rows hold every mask pattern once
+EMBED_CPU_ROWS = {"WeSpeakerResNet293 (.onnx)": 4,
+                  "WeSpeakerResNet34 (.onnx)": 8,
+                  "ECAPA_TDNN (SpeechBrain snapshot)": 8,
+                  "TitaNet-large (NeMo state dict)": 8}
 # (s): three 1-minute files; the Inference's default batch of 32 chunks
 SPEAKER_EMBEDDING_MINUTES = (1.0, 1.0, 1.0)
 INFERENCE_BATCH = 32
@@ -2881,7 +2979,7 @@ SSL_DEFAULT_LOGP_ATOL = 0.5
 SEP_BATCH = 32
 SEP_CHUNK_SECONDS = 5.0
 SEP_MINUTES = 3.0
-SEP_CPU_CHUNKS = 8
+SEP_CPU_CHUNKS = 4  # the CPU's pass takes about 2 s a chunk
 SEP_SHORT_SECONDS = 15.0
 SEP_DIAR_ATOL = 1e-4
 SEP_SOURCES_REL_L2 = 1e-4
@@ -2945,11 +3043,13 @@ def chunk_batch(minutes: float, seconds: float, batch: int, seed: int):
                      for i in range(batch)])[:, None]
 
 
-def calibrate_powerset(model, x: torch.Tensor) -> None:
+def calibrate_powerset(model, x: torch.Tensor) -> float:
     """Centre each logit of a random powerset head on its median over
     ``x`` and scale it to SEP_LOGIT_SPREAD (float32 throughout), so that
     the argmax moves with the audio: a random head settles on one class
-    everywhere (the seeded model's 10-minute file had no speech)."""
+    everywhere (the seeded model's 10-minute file had no speech). Returns
+    the largest gain: a difference in the head's input is that many times
+    larger in the logits after it."""
     logits = []
     hook = model.classifier.register_forward_hook(
         lambda module, args, out: logits.append(out))
@@ -2964,6 +3064,7 @@ def calibrate_powerset(model, x: torch.Tensor) -> None:
         head = model.classifier
         head.weight.mul_(gain[:, None].float())
         head.bias.sub_(logit.median(0).values.float()).mul_(gain.float())
+    return float(gain.max())
 
 
 def check_sseriouss(device, workdir: Path, card: str) -> int:
@@ -3508,8 +3609,10 @@ def autograd_of_plain(xw, w_hh, grad):
         return torch.autograd.grad(out, (a, b), grad)
 
 
-def autograd_timings(device, T, B, D_in, old_backward: bool = True) -> dict:
-    """One BiLSTM layer (H = 128) under autograd, CUDA events: the kernel
+def autograd_timings(device, T, B, D_in, old_backward: bool = True,
+                     H: int = 128) -> dict:
+    """One BiLSTM layer (H = 128 unless given) under autograd, CUDA events:
+    the kernel
     forward ("default", median of 20) and its bound; the Function's
     backward per layer, the backward kernel (median of 10), with its
     bound and the bytes it allocates at its peak (the workspace, the
@@ -3526,7 +3629,7 @@ def autograd_timings(device, T, B, D_in, old_backward: bool = True) -> dict:
         prepare_recurrent_weights)
     from pyannote_audio_tpu_torch.utils.runtime import exact_float32
     start = time.perf_counter()
-    H, D = 128, 2
+    D = 2
     xw, w_hh, (x, w_ih, b) = layer_inputs(device, T, B, D_in, H, D)
     prepared = prepare_recurrent_weights(w_hh, "default")
     grad = torch.randn(T, B, D * H, device=device)
@@ -3569,7 +3672,7 @@ def autograd_timings(device, T, B, D_in, old_backward: bool = True) -> dict:
         y, _ = lstm(xin)
         cudnn_backward_ms = cuda_ms(lambda: torch.autograd.grad(
             y, [xin, *lstm.parameters()], g2, retain_graph=True), runs=10)
-    return {"T": T, "B": B, "D_in": D_in, "ms": kernel_ms,
+    return {"T": T, "B": B, "D_in": D_in, "H": H, "ms": kernel_ms,
             "plain_ms": plain_ms, "backward_ms": backward_ms,
             "backward_peak_bytes": peak,
             "workspace_bytes": T * B * D * 5 * H * 4,
@@ -3582,8 +3685,9 @@ def autograd_timings(device, T, B, D_in, old_backward: bool = True) -> dict:
 
 
 def log_autograd_timings(name: str, row: dict) -> None:
-    log(f"{name} ({row['T']}, {row['B']}, {4 * 2 * 128}) -> ({row['T']}, "
-        f"{row['B']}, 256), D_in {row['D_in']}: kernel forward "
+    log(f"{name} ({row['T']}, {row['B']}, {4 * 2 * row['H']}) -> "
+        f"({row['T']}, {row['B']}, {2 * row['H']}), D_in {row['D_in']}: "
+        f"kernel forward "
         f"{row['ms']:.3f} ms (bound {row['bound_ms']:.4f} ms, "
         f"{row['bound_by']}), the Function's backward (the backward kernel) "
         f"{row['backward_ms']:.3f} ms per layer (bound "
@@ -3632,6 +3736,44 @@ def check_backward_kernel(name, T, B, xw, w_hh, grad) -> dict:
     return errs
 
 
+def hold_recurrence_autograd(name, T, B, xw, w_hh, grad, worst) -> None:
+    """LSTMRecurrence (the kernel forward, the backward kernel) against the
+    all-plain autograd at one shape in "highest" and "default": the
+    forward within KERNEL_ATOL, the gradients within AUTOGRAD_GRAD_RTOL;
+    ``worst[precision]`` keeps the largest errors. Raises past a limit."""
+    from pyannote_audio_tpu_torch.ops.lstm import \
+        lstm_bidirectional_recurrence_plain
+    from pyannote_audio_tpu_torch.ops.lstm_kernel import LSTMRecurrence
+    for precision, limit in AUTOGRAD_GRAD_RTOL.items():
+        runs = []
+        for fn in (lambda a, b: LSTMRecurrence.apply(a, b, precision),
+                   lambda a, b: lstm_bidirectional_recurrence_plain(
+                       a, b, precision)):
+            a = xw.detach().clone().requires_grad_()
+            b = w_hh.detach().clone().requires_grad_()
+            out = fn(a, b)
+            out.backward(grad)
+            runs.append((out.detach(), a.grad, b.grad))
+            del out
+        torch.cuda.synchronize()
+        (out, gx, gw), (ref, rx, rw) = runs
+        errs = {"forward": (out - ref).abs().max().item(),
+                "xw": grad_rel_l2(gx, rx), "w_hh": grad_rel_l2(gw, rw)}
+        for key, value in errs.items():
+            worst[precision][key] = max(worst[precision][key], value)
+        log(f"LSTMRecurrence {precision:8s} {name} (T={T}, B={B}): "
+            f"forward max_abs_err {errs['forward']:.3e} (limit "
+            f"{KERNEL_ATOL[precision]}), gradient relative L2 xw "
+            f"{errs['xw']:.3e}, w_hh {errs['w_hh']:.3e} (limit {limit})")
+        if not (torch.isfinite(gx).all() and torch.isfinite(gw).all()
+                and errs["forward"] <= KERNEL_ATOL[precision]
+                and errs["xw"] <= limit and errs["w_hh"] <= limit):
+            raise AssertionError(
+                f"LSTMRecurrence ({precision}) disagrees with the plain "
+                f"autograd at {name}: {errs}")
+        del runs, out, gx, gw, ref, rx, rw
+
+
 def check_kernel_autograd(device: torch.device) -> dict:
     """The backward kernel against the plain backward, and LSTMRecurrence
     against the all-plain autograd, on the card at the segmentation
@@ -3641,9 +3783,6 @@ def check_kernel_autograd(device: torch.device) -> dict:
     and each DPRNN shape (``autograd_timings``).
     Returns the training shape's row, with the backward kernel's record
     under "backward_kernel"."""
-    from pyannote_audio_tpu_torch.ops.lstm import \
-        lstm_bidirectional_recurrence_plain
-    from pyannote_audio_tpu_torch.ops.lstm_kernel import LSTMRecurrence
     H, D = 128, 2
     worst = {p: {"forward": 0.0, "xw": 0.0, "w_hh": 0.0}
              for p in AUTOGRAD_GRAD_RTOL}
@@ -3653,42 +3792,24 @@ def check_kernel_autograd(device: torch.device) -> dict:
               TRAIN_SHAPES + DPRNN_TRAIN_SHAPES]
     shapes += [(name, T, B, 64, h, d)
                for name, T, B, h, d in BACKWARD_EDGE_SHAPES]
+    # LSTMRecurrence where a training step runs it: (x)'s and (H)'s shapes
+    # and (z)'s DPRNN at its batch of 16; the DPRNN's batch of 32 and its
+    # tails (validation and serving run no backward) and the geometry's
+    # edges hold the backward kernel alone
+    trained = {name for name, *_ in TRAIN_SHAPES} | {
+        name for name, *_ in DPRNN_TRAIN_SHAPES if "B=16" in name}
     for name, T, B, D_in, H, D in shapes:
+        shape_start = time.perf_counter()
         xw, w_hh, _ = layer_inputs(device, T, B, D_in, H, D, seed=B)
         grad = torch.randn(T, B, D * H, device=device,
                            generator=torch.Generator(device).manual_seed(B))
         errs = check_backward_kernel(name, T, B, xw, w_hh, grad)
         for key, value in errs.items():
             worst_backward[key] = max(worst_backward[key], value)
-        for precision, limit in AUTOGRAD_GRAD_RTOL.items():
-            runs = []
-            for fn in (lambda a, b: LSTMRecurrence.apply(a, b, precision),
-                       lambda a, b: lstm_bidirectional_recurrence_plain(
-                           a, b, precision)):
-                a = xw.detach().clone().requires_grad_()
-                b = w_hh.detach().clone().requires_grad_()
-                out = fn(a, b)
-                out.backward(grad)
-                runs.append((out.detach(), a.grad, b.grad))
-                del out
-            torch.cuda.synchronize()
-            (out, gx, gw), (ref, rx, rw) = runs
-            errs = {"forward": (out - ref).abs().max().item(),
-                    "xw": grad_rel_l2(gx, rx), "w_hh": grad_rel_l2(gw, rw)}
-            for key, value in errs.items():
-                worst[precision][key] = max(worst[precision][key], value)
-            log(f"LSTMRecurrence {precision:8s} {name} (T={T}, B={B}): "
-                f"forward max_abs_err {errs['forward']:.3e} (limit "
-                f"{KERNEL_ATOL[precision]}), gradient relative L2 xw "
-                f"{errs['xw']:.3e}, w_hh {errs['w_hh']:.3e} (limit {limit})")
-            if not (torch.isfinite(gx).all() and torch.isfinite(gw).all()
-                    and errs["forward"] <= KERNEL_ATOL[precision]
-                    and errs["xw"] <= limit and errs["w_hh"] <= limit):
-                raise AssertionError(
-                    f"LSTMRecurrence ({precision}) disagrees with the plain "
-                    f"autograd at {name}: {errs}")
-            del runs, out, gx, gw, ref, rx, rw
+        if name in trained:
+            hold_recurrence_autograd(name, T, B, xw, w_hh, grad, worst)
         del xw, w_hh, grad
+        log(f"  {name}: {time.perf_counter() - shape_start:.1f} s")
         torch.cuda.empty_cache()
     log(f"the checks under autograd at {len(TRAIN_SHAPES)} + "
         f"{len(DPRNN_TRAIN_SHAPES)} + {len(BACKWARD_EDGE_SHAPES)} shapes "
@@ -3715,11 +3836,11 @@ def check_kernel_autograd(device: torch.device) -> dict:
     log_autograd_timings("DDP rank shape", rank_row)
     dprnn = {}
     for name, T, B, D_in in DPRNN_TRAIN_SHAPES:
-        # the backward before the kernel, for the record, at the intra
-        # shapes only (the inter and tail shapes time within 5 % of them)
-        dprnn[name] = autograd_timings(device, T, B, D_in,
-                                       old_backward="intra" in name
-                                       and "tail" not in name)
+        # the intra shapes only: the inter and tail shapes time within 5 %
+        # of them (their parts are timed above)
+        if "intra" not in name or "tail" in name:
+            continue
+        dprnn[name] = autograd_timings(device, T, B, D_in)
         log_autograd_timings(name, dprnn[name])
         torch.cuda.empty_cache()
     backward = {
@@ -3752,6 +3873,109 @@ def check_kernel_autograd(device: torch.device) -> dict:
             "grad_rel_l2": {p: max(v["xw"], v["w_hh"])
                             for p, v in worst.items()},
             "backward_kernel": backward}
+
+
+# the kernels' streamed route, above H = 256 (W_hh read from device memory
+# every step): the forward at T = 589 (10 s chunks), B = 32 (a training
+# batch) and 256 (a serving batch), in every precision, and at H = 1024
+# with B = 8 in "default"; the backward (and LSTMRecurrence under autograd
+# at 512) at (x)'s training batch of 32. Layer 0 of a PyanNet reads SincNet's
+# 60 features (cuDNN's whole layer is timed over those)
+WIDE_HIDDEN = (257, 384, 512)
+WIDE_BATCHES = (32, 256)
+WIDE_LARGEST = (589, 8, 1024)
+WIDE_BACKWARD = ((589, 32, 384), (589, 32, 512))
+WIDE_D_IN = 60
+
+
+def check_wide_kernels(device: torch.device) -> dict:
+    """Both kernels' streamed route against their plain versions, timed
+    beside their bounds, the plain versions and cuDNN's float32 layer:
+    {"forward": rows, "backward": rows, "forward_max_abs_err",
+    "backward_grad_rel_l2", "backward_max_abs_err", "autograd"}. Raises
+    past a limit, or unless each call launched its kernel once."""
+    from pyannote_audio_tpu_torch.ops.lstm import \
+        lstm_bidirectional_recurrence_plain
+    from pyannote_audio_tpu_torch.ops.lstm_kernel import (
+        kernel_geometry, lstm_bidirectional_recurrence,
+        prepare_recurrent_weights)
+    start = time.perf_counter()
+    shapes = [(589, B, H, tuple(KERNEL_ATOL)) for H in WIDE_HIDDEN
+              for B in WIDE_BATCHES] + [WIDE_LARGEST + (("default",),)]
+    worst = dict.fromkeys(KERNEL_ATOL, 0.0)
+    forward = {}
+    for T, B, H, modes in shapes:
+        xw, w_hh, _ = layer_inputs(device, T, B, WIDE_D_IN, H, 2, seed=H)
+        row = {"T": T, "B": B, "H": H}
+        for precision in modes:
+            geometry = kernel_geometry(H, precision)
+            prepared = prepare_recurrent_weights(w_hh, precision)
+            reset_lstm()
+            out = lstm_bidirectional_recurrence(xw, w_hh, precision,
+                                                prepared)
+            torch.cuda.synchronize()
+            launched = lstm_launches()
+            ref = lstm_bidirectional_recurrence_plain(xw, w_hh, precision)
+            err = (out - ref).abs().max().item()
+            del out, ref
+            worst[precision] = max(worst[precision], err)
+            limit = KERNEL_ATOL[precision]
+            ms = cuda_ms(lambda: lstm_bidirectional_recurrence(
+                xw, w_hh, precision, prepared), runs=5, warmup=1)
+            plain_ms = cuda_ms(lambda: lstm_bidirectional_recurrence_plain(
+                xw, w_hh, precision), runs=1, warmup=0)
+            bound = lstm_bound(T, B, H, 2, precision,
+                               prepared.packed.numel()
+                               * prepared.packed.element_size())
+            row[precision] = dict(ms=ms, plain_ms=plain_ms,
+                                  max_abs_err=err, **bound)
+            log(f"lstm_recurrence {precision:8s} streamed, H={H} "
+                f"(cluster {geometry['cluster']}, padded "
+                f"{geometry['padded']}) at (T={T}, B={B}): max_abs_err "
+                f"{err:.3e} (limit {limit}), launches {launched}; kernel "
+                f"{ms:.3f} ms (median of 5), bound {bound['bound_ms']:.4f} "
+                f"ms ({bound['bound_by']}), plain {plain_ms:.1f} ms")
+            if not (geometry["stream"] and err <= limit and launched == 1):
+                raise AssertionError(
+                    f"the streamed forward kernel ({precision}) disagrees "
+                    f"with its plain version at H={H}, B={B}: {err} > "
+                    f"{limit}, or launched {launched} times")
+        row["library"] = library_lstm_ms(device, T, B, WIDE_D_IN, H,
+                                         dtypes=("float32",))
+        log(f"  cuDNN torch.nn.LSTM float32 layer (D_in {WIDE_D_IN}) at "
+            f"H={H}, B={B}: {row['library']['float32']:.3f} ms")
+        forward[f"H={H} B={B}"] = row
+        del xw, w_hh
+        torch.cuda.empty_cache()
+
+    backward, worst_backward = {}, {"xw": 0.0, "w_hh": 0.0, "max_abs": 0.0}
+    autograd = {p: {"forward": 0.0, "xw": 0.0, "w_hh": 0.0}
+                for p in AUTOGRAD_GRAD_RTOL}
+    for T, B, H in WIDE_BACKWARD:
+        name = f"streamed H={H}"
+        xw, w_hh, _ = layer_inputs(device, T, B, WIDE_D_IN, H, 2, seed=B + H)
+        grad = torch.randn(T, B, 2 * H, device=device,
+                           generator=torch.Generator(device).manual_seed(H))
+        errs = check_backward_kernel(name, T, B, xw, w_hh, grad)
+        for key, value in errs.items():
+            worst_backward[key] = max(worst_backward[key], value)
+        if H == 512:
+            hold_recurrence_autograd(name, T, B, xw, w_hh, grad, autograd)
+        del xw, w_hh, grad
+        torch.cuda.empty_cache()
+        row = autograd_timings(device, T, B, WIDE_D_IN, old_backward=False,
+                               H=H)
+        log_autograd_timings(name, row)
+        backward[f"H={H} B={B}"] = dict(row, **errs)
+        torch.cuda.empty_cache()
+    log(f"the streamed route's checks took {time.perf_counter() - start:.1f}"
+        f" s")
+    return {"forward": forward, "forward_max_abs_err": worst,
+            "backward": backward,
+            "backward_grad_rel_l2": max(worst_backward["xw"],
+                                        worst_backward["w_hh"]),
+            "backward_max_abs_err": worst_backward["max_abs"],
+            "autograd": autograd}
 
 
 def synth_conversation(minutes: float, seed: int, speakers: int):
@@ -4190,11 +4414,171 @@ def hold_resume(model, resumed_model, losses, history, start, state,
                              "run")
 
 
+@contextlib.contextmanager
+def plain_on_card():
+    """Count the plain recurrence's forward and backward calls on CUDA
+    tensors (yields the count, a list of one int): the kernels' wrappers
+    and the LSTM module reach the plain versions only through these
+    names."""
+    from pyannote_audio_tpu_torch.ops import lstm, lstm_kernel
+    names = ("lstm_bidirectional_recurrence_plain",
+             "lstm_bidirectional_recurrence_backward_plain")
+    calls = [0]
+    saved = {(m, n): getattr(m, n) for m in (lstm, lstm_kernel)
+             for n in names}
+
+    def counted(fn):
+        def wrapper(xw, *args, **kwargs):
+            calls[0] += xw.device.type == "cuda"
+            return fn(xw, *args, **kwargs)
+        return wrapper
+
+    for (module, name), fn in saved.items():
+        setattr(module, name, counted(fn))
+    try:
+        yield calls
+    finally:
+        for (module, name), fn in saved.items():
+            setattr(module, name, fn)
+
+
+def check_wide_training_step(device, protocol) -> dict:
+    """One training step of a PyanNet with a BiLSTM of H = 512 (the
+    streamed route; other widths published) at 32 x 10 s on the card, the
+    exact path: one forward and one backward kernel launch per layer, no
+    plain recurrence on a CUDA tensor, a finite loss and gradients that
+    reach both LSTM layers; then the step's time split (median of 3)."""
+    from pyannote_audio_tpu_torch.core.model import attach_specifications
+    from pyannote_audio_tpu_torch.models.segmentation.pyannet import PyanNet
+    from pyannote_audio_tpu_torch.train import Trainer
+    with exact_path():
+        task = training_task(protocol, num_workers=0)
+        model = PyanNet(lstm_hidden=WIDE_PIPELINE_HIDDEN,
+                        generator=torch.Generator().manual_seed(1))
+        task.setup(model)
+        attach_specifications(model, task.specifications)
+        model.to(device)
+        trainer = Trainer(device=device)
+        batch = next(iter(task.train_batches(epoch=0)))
+        with plain_on_card() as plain:
+            reset_lstm()
+            loss, grads = one_step_grads(model, task, trainer, batch)
+            torch.cuda.synchronize()
+            launches = (lstm_launches(), backward_launches())
+        split = step_split_ms(model, task, trainer, batch)
+        reach = {n: float(grads[n].norm()) for n in (
+            "lstm.weight_hh_l0", "lstm.weight_hh_l1_reverse",
+            "lstm.weight_ih_l0")}
+        log(f"(x) at H = {WIDE_PIPELINE_HIDDEN}, one step of "
+            f"{len(batch.X)} x 10 s: loss {loss:.6f}, launches (forward, "
+            f"backward) {launches}, plain recurrence calls on the card "
+            f"{plain[0]}, |grad| {reach}; step split forward + loss "
+            f"{split['forward']:.1f} ms, backward {split['backward']:.1f} "
+            f"ms, optimizer {split['optimizer']:.1f} ms")
+        if not (launches == (2, 2) and plain[0] == 0 and np.isfinite(loss)
+                and all(torch.isfinite(g).all() for g in grads.values())
+                and all(v > 0 for v in reach.values())):
+            raise AssertionError(f"(x) at H = {WIDE_PIPELINE_HIDDEN}: "
+                                 f"launches {launches}, plain calls "
+                                 f"{plain[0]}, loss {loss}, {reach}")
+    return {"launches": launches[0], "backward_launches": launches[1],
+            "loss": loss, "split_ms": split}
+
+
+# the segmentation evaluate on (x)'s development file: the card's aggregate
+# DER within EVALUATE_DER_ATOL of the CPU's where both binarize every frame
+# alike, else every frame binarized otherwise a near tie (within
+# NEAR_THRESHOLD of the onset on the CPU, the rule of (m))
+EVALUATE_DER_ATOL = 1e-6
+
+
+def check_evaluate(device, protocol) -> dict:
+    """``tasks.segmentation.evaluate`` (frame-level DER with
+    ``DiscreteDiarizationErrorRate``) of full-width PyanNet trained for
+    voice activity detection (its head calibrated on 8 chunks of the
+    development file so that its scores move with the audio; a random one
+    sits at 0.5, a tie everywhere) on the development subset of (x)'s
+    protocol, card against CPU on the exact path, with the forward kernel's
+    launches counted. Like the JAX package's, ``evaluate`` binarizes
+    aggregated frame scores, which a permutation-invariant (diarization)
+    model does not give."""
+    from pyannote_audio_tpu_torch.core import inference as inference_module
+    from pyannote_audio_tpu_torch.core.model import attach_specifications
+    from pyannote_audio_tpu_torch.tasks import VoiceActivityDetection
+    from pyannote_audio_tpu_torch.tasks.segmentation import evaluate
+    with exact_path():
+        task = VoiceActivityDetection(protocol, duration=10.0,
+                                      batch_size=TRAIN_BATCH, num_workers=0)
+        cpu_model = published_pyannet(seed=1)
+        task.setup(cpu_model)
+        attach_specifications(cpu_model, task.specifications)
+        # the development file's audio, as write_training_protocol made it
+        wav, _ = synth_conversation(DEV_MINUTES, 100, 3)
+        chunks = torch.from_numpy(np.stack([
+            wav[:, i * SAMPLE_RATE:(i + 10) * SAMPLE_RATE]
+            for i in range(0, 80, 10)]).astype(np.float32))
+        with torch.inference_mode():
+            logit = torch.logit(cpu_model(chunks).double().flatten())
+        gain = SEP_LOGIT_SPREAD / logit.std()
+        with torch.no_grad():
+            head = cpu_model.classifier
+            head.weight.mul_(gain.float())
+            head.bias.sub_(logit.median().float()).mul_(gain.float())
+        card_model = copy.deepcopy(cpu_model)
+        ders, scores, launches, seconds = {}, {}, {}, {}
+        call = inference_module.Inference.__call__
+        for key, model, device_ in (("card", card_model, device),
+                                    ("cpu", cpu_model, "cpu")):
+            seen = []
+
+            def recorded(self, *args, seen=seen, **kwargs):
+                out = call(self, *args, **kwargs)
+                seen.append(np.asarray(out.data.cpu() if isinstance(
+                    out.data, torch.Tensor) else out.data))
+                return out
+
+            inference_module.Inference.__call__ = recorded
+            try:
+                reset_lstm()
+                start = time.perf_counter()
+                ders[key] = evaluate(protocol, subset="development",
+                                     model=model, display=False,
+                                     device=device_)
+                seconds[key] = time.perf_counter() - start
+            finally:
+                inference_module.Inference.__call__ = call
+            launches[key] = lstm_launches()
+            scores[key] = np.concatenate(seen)
+    chunk_count = len(segmentation_batches((DEV_MINUTES,), batch=1))
+    expected = 2 * -(-chunk_count // 32)
+    differ = binarized_frames("evaluate card vs CPU", scores["card"],
+                              scores["cpu"], 0.5)
+    gap = abs(ders["card"] - ders["cpu"])
+    log(f"evaluate on {DEV_MINUTES:g} min (head gain {float(gain):.3f}): "
+        f"DER card {ders['card']:.9f} ({seconds['card']:.2f} s), CPU "
+        f"{ders['cpu']:.9f} ({seconds['cpu']:.2f} s), {gap:.3e} apart "
+        f"(limit {EVALUATE_DER_ATOL} where no frame binarizes otherwise: "
+        f"{int(differ.sum())} do); forward kernel launches on the card "
+        f"{launches['card']} (expected {expected}: 2 layers x batches of 32 "
+        f"over {chunk_count} chunks), on the CPU {launches['cpu']}")
+    if not (np.isfinite(ders["card"]) and 0.0 < ders["cpu"]
+            and launches["card"] == expected and launches["cpu"] == 0
+            and (differ.any() or gap <= EVALUATE_DER_ATOL)):
+        raise AssertionError(f"evaluate: the card's DER {ders['card']} and "
+                             f"the CPU's {ders['cpu']} part, or launches "
+                             f"{launches}")
+    return {"der": ders["card"], "der_cpu": ders["cpu"],
+            "launches": launches["card"], "frames_differ": int(differ.sum())}
+
+
 def phase_training(device, workdir: Path, card: str, protocol) -> dict:
     """Phase 11: training (x) on the card."""
     log(f"phase 11, training, on {card}")
     check_training_step(device, protocol)
-    return check_training_run(device, protocol, workdir)
+    record = check_training_run(device, protocol, workdir)
+    record["wide_step"] = check_wide_training_step(device, protocol)
+    record["evaluate"] = check_evaluate(device, protocol)
+    return record
 
 
 # -- phase 12: training speaker embeddings (y) and PixIT (z) ----------------
@@ -5654,11 +6038,21 @@ def main() -> int:
     record["training_shape"] = timed("3 kernels under autograd",
                                      check_kernel_autograd, device)
     backward = record["training_shape"].pop("backward_kernel")
+    wide = timed("3 kernels streamed (H > 256)", check_wide_kernels, device)
+    record["streamed"] = {"shapes": wide["forward"],
+                          "max_abs_err": wide["forward_max_abs_err"]}
+    backward["streamed"] = {"shapes": wide["backward"],
+                            "grad_rel_l2": wide["backward_grad_rel_l2"],
+                            "max_abs_err": wide["backward_max_abs_err"],
+                            "autograd": wide["autograd"]}
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         work = Path(tmp)
         os.environ["PYANNOTE_TPU_CACHE"] = str(work / "hub_cache")
         launches["exact"] = timed("4 exact path", phase_exact, device, work)
+        launches[f"exact, H = {WIDE_PIPELINE_HIDDEN}"] = timed(
+            f"4 exact path H = {WIDE_PIPELINE_HIDDEN}", phase_wide_lstm,
+            device, work)
         pipeline, launches["accelerator"] = timed(
             "5 accelerator path", phase_accelerator, device, work)
         timed("6 serving", phase_serving, pipeline, device, work)
@@ -5681,6 +6075,10 @@ def main() -> int:
             "fit": training["launches"],
             "backward per step": training["backward_launches_per_step"],
             "backward fit": training["backward_launches"]}
+        launches[f"training (x) step, H = {WIDE_PIPELINE_HIDDEN}"] = {
+            "forward": training["wide_step"]["launches"],
+            "backward": training["wide_step"]["backward_launches"]}
+        launches["evaluate (x)"] = training["evaluate"]["launches"]
         record["training"] = training
         more = timed("12 training (y), (z)", phase_training_more, device,
                      work, card, protocol)

@@ -5,7 +5,8 @@ pipelines, the oracles, the metrics and RTTM input and output use: tracks
 (set, read, deleted), labels, ``rename_labels``, ``support``, ``crop``,
 ``extrude``, ``subset``, ``update``, ``get_overlap``, ``get_timeline`` and
 ``write_rttm``, and a Timeline with ``gaps``, ``crop``, ``union``,
-``covers`` and ``to_annotation``. Host-side, plain Python.
+``covers`` and ``to_annotation``; ``one_hot_decode`` turns binary frames
+back into an Annotation. Host-side, plain Python.
 """
 
 from __future__ import annotations
@@ -15,7 +16,9 @@ import itertools
 from typing import (Dict, Hashable, Iterator, List, Optional, Set, TextIO,
                     Tuple, Union)
 
-from .segment import Segment
+import numpy as np
+
+from .segment import Segment, SlidingWindow
 
 Label = Hashable
 TrackName = Union[str, int]
@@ -368,3 +371,26 @@ class Annotation:
     def __repr__(self) -> str:
         return (f"<Annotation uri={self.uri} segments={len(self)} "
                 f"labels={self.labels()}>")
+
+
+def one_hot_decode(data: np.ndarray, window: SlidingWindow,
+                   labels: Optional[List[Label]] = None,
+                   uri: Optional[str] = None) -> Annotation:
+    """(frames, classes) binary ``data`` at ``window``'s frames -> an
+    Annotation: each run of frames above 0.5 of class k is one segment of
+    ``labels[k]`` ("class_k" without labels), from its first frame's start
+    to its last frame's end, on track k."""
+    data = np.asarray(data)
+    num_frames, num_labels = data.shape
+    if labels is None:
+        labels = [f"class_{k}" for k in range(num_labels)]
+    annotation = Annotation(uri=uri)
+    for k in range(num_labels):
+        padded = np.concatenate([[False], data[:, k] > 0.5, [False]])
+        starts = np.nonzero(~padded[:-1] & padded[1:])[0]
+        ends = np.nonzero(padded[:-1] & ~padded[1:])[0]
+        for i0, i1 in zip(starts, ends):
+            start = window.start + i0 * window.step
+            end = window.start + (i1 - 1) * window.step + window.duration
+            annotation[Segment(start, end), k] = labels[k]
+    return annotation

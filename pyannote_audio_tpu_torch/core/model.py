@@ -48,6 +48,11 @@ class Resolution(Enum):
     CHUNK = 2
 
 
+class UnknownSpecificationsError(Exception):
+    """Raised where specifications are read before anything set them (a
+    task's before ``setup``), as the JAX package raises it."""
+
+
 @dataclass(frozen=True)
 class Specifications:
     """A segmentation model's task: chunk duration and (powerset) classes.

@@ -26,7 +26,7 @@ import numpy as np
 from ..utils.database import Protocol
 from .io import Audio
 from .model import (Problem, Resolution,  # noqa: F401 re-export
-                    Specifications)
+                    Specifications, UnknownSpecificationsError)
 from .segment import Segment
 
 
@@ -45,6 +45,16 @@ def create_rng_for_worker(seed: int, epoch: int = 0, worker_id: int = 0,
     seeded with the adler32 of the identity tuple."""
     identity = f"{seed}|{worker_id}|{rank}|{epoch}".encode()
     return np.random.default_rng(zlib.adler32(identity))
+
+
+def get_dtype(value: int) -> str:
+    """The smallest signed numpy dtype string ("b", "i2", "i" or "i8")
+    that stores ``value``, as the JAX package sizes its compact
+    prepared-data arrays."""
+    for bound, dtype in ((127, "b"), (32_768, "i2"), (2_147_483_648, "i")):
+        if bound > abs(value):
+            return dtype
+    return "i8"
 
 
 @dataclass
@@ -370,7 +380,7 @@ class Task:
     def specifications(self) -> Union[Specifications,
                                       Tuple[Specifications, ...]]:
         if self._specifications is None:
-            raise RuntimeError(
+            raise UnknownSpecificationsError(
                 "Task has no specifications yet: call task.setup() first")
         return self._specifications
 

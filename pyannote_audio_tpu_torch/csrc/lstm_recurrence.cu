@@ -66,6 +66,20 @@
 //   - 1), within about 1e-7 of torch's, far inside every mode's bound
 //   against the plain version (chip_smoke.py prints each mode's error at
 //   every shape).
+//
+// Above H = 256 W_hh does not fit on chip (4H^2 values a direction: 2 MiB
+// of bf16 at H = 512 against a cluster's 8 x 227 KiB), and the kernel takes
+// its streamed route (template STREAM): a cluster of 8 CTAs, each owning
+// Hc = Hp / 8 units (Hp = H rounded up to 128), and every step each warp
+// reads its gate rows of W_hh, in the same packing, from device memory,
+// where they stay resident in the 50 MB L2 (both directions' float32 W_hh
+// take 32 MiB at H = 1024). Everything else is the on-chip route's: the
+// ownership of units, the products and precisions, the exchange of h and
+// the xw ring. Only h and the ring are on chip, about 96 Hp + 32 Hp (bf16
+// h) or + 64 Hp (hi/lo or f32 h) bytes a CTA: up to Hp = 1792 ("default")
+// or 1408 ("high", "highest"). The route re-reads W_hh from L2 every step,
+// once per cluster: slower per step than the on-chip route, but any H up
+// to those sizes runs on the card.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -77,12 +91,15 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxHidden = 256;
+constexpr int kMaxHidden = 256;  // on chip; above, the streamed route
 constexpr int kRows = 8;     // batch rows per cluster: the mma's n
 constexpr int kStages = 6;   // xw ring depth
 constexpr int kAhead = kStages - 2;  // steps prefetched ahead
 constexpr int kMaxUnits = 64;        // hidden units per CTA
 constexpr int kMaxThreads = 32 * kMaxUnits / 16;  // a warp per 16 units
+constexpr int kStreamCluster = 8;  // CTAs of a streamed cluster
+constexpr int kMaxStreamUnits = 256;  // units per CTA of the streamed route
+constexpr int kMaxStreamThreads = 32 * kMaxStreamUnits / 16;
 constexpr int kRegSteps = 8;  // k-steps of A fragments kept in registers
 constexpr long long kWaitCycles = 1LL << 34;  // ~9 s at 1.98 GHz
 constexpr int kMaxSharedBytes = 227 * 1024;
@@ -118,10 +135,22 @@ __host__ __device__ size_t h_parity_bytes(int mode, int padded) {
                    (padded + 8) * 2;
 }
 
-// + an mbarrier per h parity
-__host__ __device__ size_t shared_bytes(int mode, int units, int padded) {
-  return weight_bytes(mode, units, padded) + ring_floats(units) * 4 +
-         2 * h_parity_bytes(mode, padded) + 2 * sizeof(uint64_t);
+// + an mbarrier per h parity; the streamed route keeps W in device memory
+__host__ __device__ size_t shared_bytes(int mode, int units, int padded,
+                                        bool stream) {
+  return (stream ? 0 : weight_bytes(mode, units, padded)) +
+         ring_floats(units) * 4 + 2 * h_parity_bytes(mode, padded) +
+         2 * sizeof(uint64_t);
+}
+
+// W's values: through the read-only path from device memory (streamed
+// route) or from shared memory
+template <bool STREAM, typename V>
+__device__ __forceinline__ V load_w(const V* p) {
+  if constexpr (STREAM)
+    return __ldg(p);
+  else
+    return *p;
 }
 
 __device__ __forceinline__ float sigmoid(float x) {
@@ -231,8 +260,8 @@ __device__ __forceinline__ void cluster_sync() {
           : "memory");
 }
 
-template <int MODE>
-__global__ void __launch_bounds__(kMaxThreads)
+template <int MODE, bool STREAM>
+__global__ void __launch_bounds__(STREAM ? kMaxStreamThreads : kMaxThreads)
 lstm_recurrence_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -248,10 +277,14 @@ lstm_recurrence_kernel(const Params p) {
 
   const size_t w_bytes = weight_bytes(MODE, Hc, Hp);
   const size_t hp_bytes = h_parity_bytes(MODE, Hp);
-  unsigned char* w_s = smem;
+  // this (direction, rank)'s W block: in device memory (streamed route),
+  // else copied into shared memory below and kept for all T
+  const unsigned char* w_g = static_cast<const unsigned char*>(p.w) +
+                             (static_cast<size_t>(d) * C + rank) * w_bytes;
+  const unsigned char* w_s = STREAM ? w_g : smem;
   const int ring_row = 4 * Hc + 4;  // +4 floats: rows 2tq fall on other banks
   const int stage_floats = kRows * ring_row;
-  float* ring = reinterpret_cast<float*>(smem + w_bytes);
+  float* ring = reinterpret_cast<float*>(smem + (STREAM ? 0 : w_bytes));
   unsigned char* h_s =
       reinterpret_cast<unsigned char*>(ring + kStages * stage_floats);
   const int hb_row = Hp + 8;  // bf16 h row, padded: B-fragment reads are
@@ -266,12 +299,12 @@ lstm_recurrence_kernel(const Params p) {
 
   // W_hh's block for this (direction, rank): loaded once, kept for all T
   {
-    const uint4* src = reinterpret_cast<const uint4*>(
-        static_cast<const unsigned char*>(p.w) +
-        (static_cast<size_t>(d) * C + rank) * w_bytes);
-    uint4* dst = reinterpret_cast<uint4*>(w_s);
-    for (size_t i = threadIdx.x; i < w_bytes / 16; i += blockDim.x)
-      dst[i] = src[i];
+    if constexpr (!STREAM) {
+      const uint4* src = reinterpret_cast<const uint4*>(w_g);
+      uint4* dst = reinterpret_cast<uint4*>(smem);
+      for (size_t i = threadIdx.x; i < w_bytes / 16; i += blockDim.x)
+        dst[i] = src[i];
+    }
     uint4* h16 = reinterpret_cast<uint4*>(h_s);
     for (size_t i = threadIdx.x; i < 2 * hp_bytes / 16; i += blockDim.x)
       h16[i] = make_uint4(0, 0, 0, 0);
@@ -349,9 +382,9 @@ lstm_recurrence_kernel(const Params p) {
   // "default" up to H = 128 (S <= kRegSteps k-steps) keeps its A fragments
   // in registers (128 a thread), off the shared-memory path of every step
   const int S = Hp / 16;
-  const bool a_in_regs = MODE == kDefault && S <= kRegSteps;
+  const bool a_in_regs = MODE == kDefault && !STREAM && S <= kRegSteps;
   uint4 a_reg[4][kRegSteps];
-  if constexpr (MODE == kDefault) {
+  if constexpr (MODE == kDefault && !STREAM) {
     if (a_in_regs) {
       const uint4* wa = reinterpret_cast<const uint4*>(w_s);
 #pragma unroll
@@ -396,8 +429,8 @@ lstm_recurrence_kernel(const Params p) {
         for (int q = 0; q < 4; ++q)
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
-            const float4 wv =
-                wr[(((warp * 4 + q) * K4 + k4) * 2 + half) * 8 + g];
+            const float4 wv = load_w<STREAM>(
+                wr + (((warp * 4 + q) * K4 + k4) * 2 + half) * 8 + g);
             float* a = acc[q] + half * 2;
             a[0] = fmaf(wv.x, hv[0].x, a[0]);
             a[1] = fmaf(wv.x, hv[0].y, a[1]);
@@ -442,13 +475,15 @@ lstm_recurrence_kernel(const Params p) {
         }
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          const uint4 a = wa[((warp * 4 + q) * S + s) * 32 + lane];
+          const uint4 a =
+              load_w<STREAM>(wa + ((warp * 4 + q) * S + s) * 32 + lane);
           mma_bf16(acc[q], a, b0, b1);
           if constexpr (MODE == kHigh) {  // + hi.lo + lo.hi
             mma_bf16(acc[q], a, l0, l1);
             mma_bf16(acc[q],
-                     wa[(((warps + warp) * 4 + q) * S + s) * 32 + lane], b0,
-                     b1);
+                     load_w<STREAM>(
+                         wa + (((warps + warp) * 4 + q) * S + s) * 32 + lane),
+                     b0, b1);
           }
         }
       }
@@ -524,10 +559,10 @@ lstm_recurrence_kernel(const Params p) {
   cluster_sync();
 }
 
-template <int MODE>
+template <int MODE, bool STREAM>
 cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
-      lstm_recurrence_kernel<MODE>,
+      lstm_recurrence_kernel<MODE, STREAM>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int groups = (p.B + kRows - 1) / kRows;
@@ -544,24 +579,40 @@ cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
   config.attrs = attr;
   config.numAttrs = 1;
   const cudaError_t launched =
-      cudaLaunchKernelEx(&config, lstm_recurrence_kernel<MODE>, p);
+      cudaLaunchKernelEx(&config, lstm_recurrence_kernel<MODE, STREAM>, p);
   if (launched != cudaSuccess) return launched;
   return cudaGetLastError();
+}
+
+template <bool STREAM>
+cudaError_t launch_mode(const Params& p, int mode, size_t smem,
+                        cudaStream_t s) {
+  switch (mode) {
+    case kDefault:
+      return launch<kDefault, STREAM>(p, smem, s);
+    case kHigh:
+      return launch<kHigh, STREAM>(p, smem, s);
+    default:
+      return launch<kHighest, STREAM>(p, smem, s);
+  }
 }
 
 }  // namespace
 
 // Plain C entry point, bound with ctypes. `w` is the packed W_hh of
 // `prepare_recurrent_weights` for this (H, mode, cluster); mode is 0
-// (default), 1 (high) or 2 (highest). Returns a cudaError_t code: 0 on a
+// (default), 1 (high) or 2 (highest). H above 256 takes the streamed
+// route, with a cluster of 8. Returns a cudaError_t code: 0 on a
 // successful launch. The launch is asynchronous on `stream`, on the
 // current device.
 extern "C" int lstm_recurrence(const void* xw, const void* w, void* out,
                                int T, int B, int H, int D, int mode,
                                int cluster, void* stream) {
-  if (T < 1 || B < 1 || H < 1 || H > kMaxHidden || D < 1 || D > 2 ||
-      mode < kDefault || mode > kHighest ||
-      (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8))
+  const bool streamed = H > kMaxHidden;
+  if (T < 1 || B < 1 || H < 1 || D < 1 || D > 2 || mode < kDefault ||
+      mode > kHighest ||
+      (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) ||
+      (streamed && cluster != kStreamCluster))
     return cudaErrorInvalidValue;
   Params p;
   p.xw = static_cast<const float*>(xw);
@@ -575,16 +626,11 @@ extern "C" int lstm_recurrence(const void* xw, const void* w, void* out,
   p.units = p.padded / cluster;
   p.cluster = cluster;
   p.vec = H % 4 == 0 && reinterpret_cast<uintptr_t>(xw) % 16 == 0;
-  if (p.units > kMaxUnits) return cudaErrorInvalidValue;
-  const size_t smem = shared_bytes(mode, p.units, p.padded);
+  if (p.units > (streamed ? kMaxStreamUnits : kMaxUnits))
+    return cudaErrorInvalidValue;
+  const size_t smem = shared_bytes(mode, p.units, p.padded, streamed);
   if (smem > kMaxSharedBytes) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case kDefault:
-      return launch<kDefault>(p, smem, s);
-    case kHigh:
-      return launch<kHigh>(p, smem, s);
-    default:
-      return launch<kHighest>(p, smem, s);
-  }
+  return streamed ? launch_mode<true>(p, mode, smem, s)
+                  : launch_mode<false>(p, mode, smem, s);
 }

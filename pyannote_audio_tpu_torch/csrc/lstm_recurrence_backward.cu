@@ -86,6 +86,16 @@
 //   past B read zeros. Their h, c and gradients stay 0.
 // - `phases` selects phase 1, phase 2 or both (3, the wrapper's call): the
 //   parts alone are for timing (chip_smoke.py phase 3).
+// - Above H = 256 (template STREAM) W_hh stays in device memory, resident
+//   in L2, in the same packing: a cluster of 8 CTAs, each owning Hc = Hp / 8
+//   units (Hp = H rounded up to 128), 8 rows per cluster and 16 warps a
+//   CTA. The packing's Hc / 2 warps of fragments become virtual warps, each
+//   real warp taking every 16th, and every product reads its A fragments
+//   from device memory and splits them at each use. The ownership, both
+//   phases, the exchanges and the barriers are the on-chip route's (each
+//   real warp arrives once per step after all its virtual warps' writes).
+//   Shared memory holds the phase buffers alone, about 96 Hp bytes: up to
+//   Hc = 256, H = 2048.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -96,7 +106,11 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxHidden = 256;
+constexpr int kMaxHidden = 256;  // on chip; above, the streamed route
+constexpr int kStreamCluster = 8;
+constexpr int kStreamRows = 8;
+constexpr int kStreamWarps = 16;       // real warps of a streamed CTA
+constexpr int kMaxStreamUnits = 256;   // Hc of the streamed route
 constexpr int kSlots = 8;  // partial dh_rec sums a CTA receives per step
 constexpr long long kWaitCycles = 1LL << 34;  // ~9 s at 1.98 GHz
 constexpr int kMaxSharedBytes = 227 * 1024;
@@ -110,6 +124,7 @@ struct Params {
   float* grad_xw;         // (T, B, D*4H)
   int T, B, H, D;
   int cluster;
+  int units;   // Hc, hidden units per CTA
   int phases;  // bit 0: the recompute, bit 1: the walk
 };
 
@@ -127,18 +142,20 @@ __host__ __device__ inline size_t buffer_floats(int units, int padded,
   return fwd > bwd ? fwd : bwd;
 }
 
-// A fragments kept in shared memory (Hc = 32): warps x Hp/16 x 32 x 16 B
-__host__ __device__ inline size_t a_smem_bytes(int units, int padded) {
-  return units == 16
+// A fragments kept in shared memory (Hc = 32): warps x Hp/16 x 32 x 16 B;
+// none in registers (Hc = 16) or streamed (above H = 256)
+__host__ __device__ inline size_t a_smem_bytes(int units, int padded,
+                                               bool stream) {
+  return units == 16 || stream
              ? 0
              : static_cast<size_t>(units / 2) * (padded / 16) * 32 * 16;
 }
 
 // + 4 mbarriers (2 per phase)
 __host__ __device__ inline size_t shared_bytes(int units, int padded,
-                                               int rows) {
-  return a_smem_bytes(units, padded) + 4 * buffer_floats(units, padded, rows) +
-         4 * sizeof(uint64_t);
+                                               int rows, bool stream) {
+  return a_smem_bytes(units, padded, stream) +
+         4 * buffer_floats(units, padded, rows) + 4 * sizeof(uint64_t);
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -246,27 +263,58 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint4& a,
       : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
 }
 
+// acc[n][.] += tile n's product of one k-step, A = hi + lo and this
+// lane's B values bk[n * 8 * stride] and bk[n * 8 * stride + 4], in three
+// passes, pass by pass over the tiles: consecutive mma are independent
+template <int NT, int kAcc>
+__device__ __forceinline__ void mma3(float (&acc)[NT][kAcc][4],
+                                     const uint4& ahi, const uint4& alo,
+                                     const float* bk, int stride) {
+  uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    split(bk[n * 8 * stride], bh[n][0], bl[n][0]);
+    split(bk[n * 8 * stride + 4], bh[n][1], bl[n][1]);
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n)  // lo . hi
+    mma_tf32(acc[n][1 % kAcc], alo, bh[n][0], bh[n][1]);
+#pragma unroll
+  for (int n = 0; n < NT; ++n)  // hi . lo
+    mma_tf32(acc[n][2 % kAcc], ahi, bl[n][0], bl[n][1]);
+#pragma unroll
+  for (int n = 0; n < NT; ++n)  // hi . hi
+    mma_tf32(acc[n][0], ahi, bh[n][0], bh[n][1]);
+}
+
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-// HC hidden units per CTA (16, or 32 above H = 128), NT mma tiles of 8
+// HC_ hidden units per CTA (16, or 32 above H = 128), NT mma tiles of 8
 // batch rows per cluster. Up to 16 rows the kernel fits two CTAs' worth
 // of registers per SM without spilling (at most 128 a thread), which
 // shortened the recompute at (589, 32) by 0.1 ms on an H100 (tools/
-// lstm_backward_variants.py); above, it takes up to 255.
-template <int HC, int NT>
-__global__ void __launch_bounds__(16 * HC, NT <= 2 ? 2 : 1)
+// lstm_backward_variants.py); above, it takes up to 255. STREAM_HC > 0 is
+// the streamed route for Hc up to STREAM_HC (128 or 256; Hc is p.units),
+// one CTA per SM's registers (at most 128 a thread).
+template <int HC_, int NT, int STREAM_HC>
+__global__ void __launch_bounds__(STREAM_HC ? 32 * kStreamWarps : 16 * HC_,
+                                  STREAM_HC ? 1 : (NT <= 2 ? 2 : 1))
 lstm_recurrence_backward_kernel(const Params p) {
-  constexpr int kWarps = HC / 2;
+  constexpr bool STREAM = STREAM_HC > 0;
+  constexpr int kWarps = STREAM ? kStreamWarps : HC_ / 2;  // real warps
   constexpr int kThreads = 32 * kWarps;
   constexpr int R = 8 * NT;                 // batch rows of the cluster
-  constexpr bool kRegs = HC == 16;          // A fragments in registers
+  constexpr bool kRegs = !STREAM && HC_ == 16;  // A fragments in registers
   constexpr int kFrags = kRegs ? 8 : 16;    // bound of F, the warp's frags
-  constexpr int kCells = (HC * R + kThreads - 1) / kThreads;
+  constexpr int kMaxHC = STREAM ? STREAM_HC : HC_;
+  constexpr int kCells = (kMaxHC * R + kThreads - 1) / kThreads;
   constexpr int kAcc = NT == 1 ? 3 : (NT == 2 ? 2 : 1);  // chains per tile
-  constexpr int Sg = 4 * HC + 4;            // gate row stride
   constexpr int Sr = R + 2;                 // slot row stride
+  const int HC = STREAM ? p.units : HC_;
+  const int Sg = 4 * HC + 4;                // gate row stride
+  const int vwarps = HC / 2;                // the packing's warps
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -279,7 +327,7 @@ lstm_recurrence_backward_kernel(const Params p) {
   const int g = lane >> 2, tq = lane & 3;  // mma lane group and its thread
   const int Sh = Hp + 4;                   // h row stride
 
-  const size_t a_bytes = a_smem_bytes(HC, Hp);
+  const size_t a_bytes = a_smem_bytes(HC, Hp, STREAM);
   uint4* a_s = reinterpret_cast<uint4*>(smem);
   float* buf = reinterpret_cast<float*>(smem + a_bytes);
   uint64_t* bars = reinterpret_cast<uint64_t*>(
@@ -290,13 +338,18 @@ lstm_recurrence_backward_kernel(const Params p) {
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
 
+  // this (direction, rank)'s A fragments of `phase` in device memory
+  auto a_global = [&](int phase) {
+    return reinterpret_cast<const uint4*>(p.a) +
+           static_cast<size_t>((d * C + rank) * 2 + phase) * vwarps * F * 32;
+  };
   // this warp's A fragments of `phase`, split into hi and lo
   uint4 a_hi[kRegs ? kFrags : 1], a_lo[kRegs ? kFrags : 1];
   auto load_a = [&](int phase) {
-    const uint4* src =
-        reinterpret_cast<const uint4*>(p.a) +
-        static_cast<size_t>((d * C + rank) * 2 + phase) * kWarps * F * 32;
-    if constexpr (kRegs) {
+    const uint4* src = a_global(phase);
+    if constexpr (STREAM) {
+      // read at each use
+    } else if constexpr (kRegs) {
 #pragma unroll
       for (int i = 0; i < kFrags; ++i)
         if (i < F) split4(src[(warp * F + i) * 32 + lane], a_hi[i], a_lo[i]);
@@ -305,9 +358,10 @@ lstm_recurrence_backward_kernel(const Params p) {
     }
   };
 
-  // out[n] = this warp's 16 x 8 tile n of A . Bop, A the warp's F
-  // fragments, Bop[k][r] = src[r * stride + k0 + k] (k < 8F)
-  auto product = [&](const float* src, int stride, int k0,
+  // out[n] = the 16 x 8 tile n of A . Bop, A the F fragments of virtual
+  // warp vw (this warp on chip) of `phase`, Bop[k][r] = src[r * stride + k0
+  // + k] (k < 8F)
+  auto product = [&](const float* src, int stride, int k0, int vw, int phase,
                      float (&out)[NT][4]) {
     float acc[NT][kAcc][4];
 #pragma unroll
@@ -316,33 +370,28 @@ lstm_recurrence_backward_kernel(const Params p) {
       for (int k = 0; k < kAcc; ++k)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[n][k][e] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < kFrags; ++i) {
-      if (i < F) {
+    const float* bk = src + g * stride + k0 + tq;
+    if constexpr (STREAM) {
+      const uint4* a_vw = a_global(phase) + vw * F * 32;
+#pragma unroll 4
+      for (int i = 0; i < F; ++i) {
         uint4 ahi, alo;
-        if constexpr (kRegs) {
-          ahi = a_hi[i];
-          alo = a_lo[i];
-        } else {
-          split4(a_s[(warp * F + i) * 32 + lane], ahi, alo);
+        split4(__ldg(a_vw + i * 32 + lane), ahi, alo);
+        mma3<NT, kAcc>(acc, ahi, alo, bk + 8 * i, stride);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kFrags; ++i) {
+        if (i < F) {
+          uint4 ahi, alo;
+          if constexpr (kRegs) {
+            ahi = a_hi[i];
+            alo = a_lo[i];
+          } else {
+            split4(a_s[(warp * F + i) * 32 + lane], ahi, alo);
+          }
+          mma3<NT, kAcc>(acc, ahi, alo, bk + 8 * i, stride);
         }
-        const float* bk = src + g * stride + k0 + 8 * i + tq;
-        uint32_t bh[NT][2], bl[NT][2];
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          split(bk[n * 8 * stride], bh[n][0], bl[n][0]);
-          split(bk[n * 8 * stride + 4], bh[n][1], bl[n][1]);
-        }
-        // pass by pass over the tiles: consecutive mma are independent
-#pragma unroll
-        for (int n = 0; n < NT; ++n)  // lo . hi
-          mma_tf32(acc[n][1 % kAcc], alo, bh[n][0], bh[n][1]);
-#pragma unroll
-        for (int n = 0; n < NT; ++n)  // hi . lo
-          mma_tf32(acc[n][2 % kAcc], ahi, bl[n][0], bl[n][1]);
-#pragma unroll
-        for (int n = 0; n < NT; ++n)  // hi . hi
-          mma_tf32(acc[n][0], ahi, bh[n][0], bh[n][1]);
       }
     }
 #pragma unroll
@@ -370,7 +419,6 @@ lstm_recurrence_backward_kernel(const Params p) {
     float* hbuf = buf;                   // [2][R][Sh]
     float* part = buf + 2 * R * Sh;      // [2][R][Sg]
     const int tiles = HC / 4;            // 16-row tiles of 4Hc gate rows
-    const int mt = warp % tiles, kp = warp / tiles;
     const unsigned remote_bytes = (C - 1) * HC * R * 4;
     const unsigned h_addr = smem_addr(hbuf), bar_addr = smem_addr(bars);
     const int64_t xw_row = static_cast<int64_t>(D) * 4 * H;
@@ -400,16 +448,21 @@ lstm_recurrence_backward_kernel(const Params p) {
       // h(n) of the peers, arriving in this step and the next
       if (tid == 0 && n + 1 < T) mbar_expect(&bars[par ^ 1], remote_bytes);
       if (n > 0) {
-        float out[NT][4];
-        product(hbuf + par * R * Sh, Sh, kp * F * 8, out);
-        float* pp = part + kp * R * Sg + 16 * mt + g;
+        // virtual warp vw: tile mt of the gate rows, K half kp
+        for (int vw = warp; vw < vwarps; vw += kWarps) {
+          const int mt = vw % tiles, kp = vw / tiles;
+          float out[NT][4];
+          product(hbuf + par * R * Sh, Sh, kp * F * 8, vw, 0, out);
+          float* pp = part + kp * R * Sg + 16 * mt + g;
 #pragma unroll
-        for (int m = 0; m < NT; ++m) {
-          const int r = 8 * m + 2 * tq;
-          pp[r * Sg] = out[m][0];
-          pp[(r + 1) * Sg] = out[m][1];
-          pp[r * Sg + 8] = out[m][2];
-          pp[(r + 1) * Sg + 8] = out[m][3];
+          for (int m = 0; m < NT; ++m) {
+            const int r = 8 * m + 2 * tq;
+            pp[r * Sg] = out[m][0];
+            pp[(r + 1) * Sg] = out[m][1];
+            pp[r * Sg + 8] = out[m][2];
+            pp[(r + 1) * Sg + 8] = out[m][3];
+          }
+          if constexpr (!STREAM) break;
         }
       }
       // both K halves of every gate row
@@ -482,10 +535,7 @@ lstm_recurrence_backward_kernel(const Params p) {
     float* dg = buf + 2 * kSlots * HC * Sr;   // [R][Sg]
     uint64_t* bbar = bars + 2;
     const int tiles = F;                      // 16-unit tiles of Hp
-    const int parts = kWarps / tiles;         // k-parts of 4Hc
-    const int mt = warp % tiles, kp = warp / tiles;
-    const int dest = 16 * mt / HC, dest_ul = 16 * mt % HC;
-    const int slot = rank * parts + kp;
+    const int parts = vwarps / tiles;         // k-parts of 4Hc
     const unsigned remote_bytes = (C - 1) * parts * HC * R * 4;
     const unsigned bar_addr = smem_addr(bbar);
     const int64_t out_row = static_cast<int64_t>(D) * H;
@@ -560,28 +610,35 @@ lstm_recurrence_backward_kernel(const Params p) {
       // every dgate of this CTA; every read of this parity's slots done
       __syncthreads();
       if (n + 1 < T) {
-        float out[NT][4];
-        product(dg, Sg, kp * F * 8, out);
-        // tile rows are units dest_ul + g (+8), columns batch rows
-        float* mine = slots + ((par ^ 1) * kSlots + slot) * HC * Sr;
-        const int o0 = (dest_ul + g) * Sr + 2 * tq, o1 = o0 + 8 * Sr;
-        if (dest == rank) {
+        // virtual warp vw: tile mt of the units, k-part kp
+        for (int vw = warp; vw < vwarps; vw += kWarps) {
+          const int mt = vw % tiles, kp = vw / tiles;
+          const int dest = 16 * mt / HC, dest_ul = 16 * mt % HC;
+          const int slot = rank * parts + kp;
+          float out[NT][4];
+          product(dg, Sg, kp * F * 8, vw, 1, out);
+          // tile rows are units dest_ul + g (+8), columns batch rows
+          float* mine = slots + ((par ^ 1) * kSlots + slot) * HC * Sr;
+          const int o0 = (dest_ul + g) * Sr + 2 * tq, o1 = o0 + 8 * Sr;
+          if (dest == rank) {
 #pragma unroll
-          for (int m = 0; m < NT; ++m) {
-            *reinterpret_cast<float2*>(mine + o0 + 8 * m) =
-                make_float2(out[m][0], out[m][1]);
-            *reinterpret_cast<float2*>(mine + o1 + 8 * m) =
-                make_float2(out[m][2], out[m][3]);
-          }
-        } else {
-          const unsigned base = cluster_addr(smem_addr(mine), dest);
-          const unsigned bar =
-              cluster_addr(bar_addr + (par ^ 1) * sizeof(uint64_t), dest);
+            for (int m = 0; m < NT; ++m) {
+              *reinterpret_cast<float2*>(mine + o0 + 8 * m) =
+                  make_float2(out[m][0], out[m][1]);
+              *reinterpret_cast<float2*>(mine + o1 + 8 * m) =
+                  make_float2(out[m][2], out[m][3]);
+            }
+          } else {
+            const unsigned base = cluster_addr(smem_addr(mine), dest);
+            const unsigned bar =
+                cluster_addr(bar_addr + (par ^ 1) * sizeof(uint64_t), dest);
 #pragma unroll
-          for (int m = 0; m < NT; ++m) {
-            st_async8(base + (o0 + 8 * m) * 4, out[m][0], out[m][1], bar);
-            st_async8(base + (o1 + 8 * m) * 4, out[m][2], out[m][3], bar);
+            for (int m = 0; m < NT; ++m) {
+              st_async8(base + (o0 + 8 * m) * 4, out[m][0], out[m][1], bar);
+              st_async8(base + (o1 + 8 * m) * 4, out[m][2], out[m][3], bar);
+            }
           }
+          if constexpr (!STREAM) break;
         }
         // this warp's local slot written and its reads of dg done
         __syncwarp();
@@ -618,16 +675,16 @@ lstm_recurrence_backward_kernel(const Params p) {
   }
 }
 
-template <int HC, int NT>
+template <int HC, int NT, int STREAM_HC = 0>
 cudaError_t launch(const Params& p, int rows, size_t smem,
                    cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
-      lstm_recurrence_backward_kernel<HC, NT>,
+      lstm_recurrence_backward_kernel<HC, NT, STREAM_HC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3((p.B + rows - 1) / rows * p.cluster, p.D);
-  config.blockDim = dim3(16 * HC);
+  config.blockDim = dim3(STREAM_HC ? 32 * kStreamWarps : 16 * HC);
   config.dynamicSmemBytes = smem;
   config.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -638,7 +695,7 @@ cudaError_t launch(const Params& p, int rows, size_t smem,
   config.attrs = attr;
   config.numAttrs = 1;
   const cudaError_t launched = cudaLaunchKernelEx(
-      &config, lstm_recurrence_backward_kernel<HC, NT>, p);
+      &config, lstm_recurrence_backward_kernel<HC, NT, STREAM_HC>, p);
   if (launched != cudaSuccess) return launched;
   return cudaGetLastError();
 }
@@ -649,28 +706,30 @@ cudaError_t launch(const Params& p, int rows, size_t smem,
 // `pack_backward_weights` (ops/lstm_kernel.py) packs them for this (H,
 // cluster); `rows` (8, 16, 32 or 64; 8 above H = 128) the batch rows per
 // cluster; `phases` 1 (the recompute into ws and h_prev), 2 (the walk over
-// them into grad_xw) or 3 (both). Returns a cudaError_t code: 0 on a
-// successful launch. The launch is asynchronous on `stream`, on the
-// current device.
+// them into grad_xw) or 3 (both). H above 256 takes the streamed route (a
+// cluster of 8, 8 rows). Returns a cudaError_t code: 0 on a successful
+// launch. The launch is asynchronous on `stream`, on the current device.
 extern "C" int lstm_recurrence_backward(const void* xw, const void* grad_out,
                                         const void* a, void* ws, void* h_prev,
                                         void* grad_xw, int T, int B, int H,
                                         int D, int cluster, int rows,
                                         int phases, void* stream) {
-  if (T < 1 || B < 1 || H < 1 || H > kMaxHidden || D < 1 || D > 2 ||
-      phases < 1 || phases > 3)
+  if (T < 1 || B < 1 || H < 1 || D < 1 || D > 2 || phases < 1 || phases > 3)
     return cudaErrorInvalidValue;
-  const int units = H > 128 ? 32 : 16;
+  const bool streamed = H > kMaxHidden;
+  // streamed: Hp = H rounded up to 128, Hc = Hp / 8
+  const int units = streamed ? (H + 127) / 128 * 16 : (H > 128 ? 32 : 16);
   const bool cluster_ok =
       units == 16 ? (cluster == 1 || cluster == 2 || cluster == 4 ||
                      cluster == 8)
-                  : cluster == 8;
+                  : cluster == (streamed ? kStreamCluster : 8);
   const bool rows_ok = units == 16 ? (rows == 8 || rows == 16 ||
                                       rows == 32 || rows == 64)
-                                   : rows == 8;
-  if (!cluster_ok || !rows_ok || units * cluster < H)
+                                   : rows == (streamed ? kStreamRows : 8);
+  if (!cluster_ok || !rows_ok || units * cluster < H ||
+      units > kMaxStreamUnits)
     return cudaErrorInvalidValue;
-  const size_t smem = shared_bytes(units, units * cluster, rows);
+  const size_t smem = shared_bytes(units, units * cluster, rows, streamed);
   if (smem > kMaxSharedBytes) return cudaErrorInvalidValue;
   Params p;
   p.xw = static_cast<const float*>(xw);
@@ -684,8 +743,12 @@ extern "C" int lstm_recurrence_backward(const void* xw, const void* grad_out,
   p.H = H;
   p.D = D;
   p.cluster = cluster;
+  p.units = units;
   p.phases = phases;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (streamed)
+    return units <= 128 ? launch<0, 1, 128>(p, rows, smem, s)
+                        : launch<0, 1, kMaxStreamUnits>(p, rows, smem, s);
   if (units == 32) return launch<32, 1>(p, rows, smem, s);
   switch (rows) {
     case 8:

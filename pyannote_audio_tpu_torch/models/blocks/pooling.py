@@ -4,7 +4,8 @@ Counterpart of pyannote_audio_tpu/models/blocks/pooling.py: weighted mean
 + unbiased weighted standard deviation, with nearest-neighbour
 interpolation of the weights to the frame axis and an optional speaker
 axis, so a (batch, speakers, frames) weight tensor pools every speaker of
-every chunk at once.
+every chunk at once. ``StatsPool`` is the module the reference's models
+hold.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch import nn
 
 
 def interpolate_weights(weights: torch.Tensor,
@@ -53,3 +55,13 @@ def stats_pool(sequences: torch.Tensor,
         / (v1 - v2 / v1 + 1e-8)[..., None]
     out = torch.cat([mean, torch.clamp(var, min=0.0).sqrt()], dim=-1)
     return out if has_speakers else out[:, 0]
+
+
+class StatsPool(nn.Module):
+    """``stats_pool`` as a module: (batch, features, frames) and optional
+    (batch, [speakers,] frames') weights -> (batch, [speakers,]
+    2 * features)."""
+
+    def forward(self, sequences: torch.Tensor,
+                weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return stats_pool(sequences, weights=weights)

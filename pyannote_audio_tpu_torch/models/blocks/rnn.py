@@ -7,13 +7,19 @@ input projections into one matmul, then runs the recurrence through
 ``ops.lstm_kernel.LSTMRecurrence``. Its forward is
 ``lstm_bidirectional_recurrence``: one kernel launch per layer for CUDA
 tensors, the plain PyTorch recurrence for CPU tensors. Its gradient,
-where autograd records, is the plain float32 recurrence's; under
+where autograd records, is the float32 vector-Jacobian product of the
+recurrence: one launch of the backward kernel per layer for CUDA tensors
+(``lstm_recurrence_backward``), the plain version for CPU tensors; under
 ``no_grad`` / ``inference_mode`` it records nothing, so serving launches
 and computes what the bare call does. The recurrent product runs at
 ``utils.runtime.lstm_precision`` (the JAX package's
-PYANNOTE_TPU_LSTM_PRECISION on a CUDA device, float32 on the CPU). The
-kernel takes any hidden size up to 256 (the JAX module's ``H % 128`` gate
-is a TPU lane rule); the CPU path takes any.
+PYANNOTE_TPU_LSTM_PRECISION on a CUDA device, float32 on the CPU). On the
+card both kernels keep W_hh on chip up to H = 256 and stream it from
+device memory above (``ops.lstm_kernel.kernel_geometry`` and
+``backward_geometry``): the forward takes any H up to 1792 ("default")
+or 1408 ("high", "highest"), the backward up to 2048, where the JAX
+module sends every ``H % 128 == 0`` to its Pallas kernel (a TPU lane
+rule). The CPU path takes any.
 """
 
 from __future__ import annotations

@@ -7,10 +7,15 @@ product (see the source for its design). A CPU tensor takes the plain
 PyTorch version (``ops.lstm``); a CUDA tensor launches the kernel or
 raises — there is no fallback.
 
-The kernel keeps W_hh on chip for all T steps, laid out by
+Up to H = 256 the kernel keeps W_hh on chip for all T steps, laid out by
 ``prepare_recurrent_weights`` (plain torch, testable on the CPU): gate
 rows permuted and cut among the CTAs of a cluster, and for the bf16
-modes ordered as ``mma.sync`` A fragments.
+modes ordered as ``mma.sync`` A fragments. Above H = 256 W_hh does not fit
+on chip and the kernel takes its streamed route: the same packing stays
+in device memory (resident in L2) and every step reads it from there,
+with clusters of 8 CTAs of Hp / 8 units each (Hp = H rounded up to 128).
+``kernel_geometry`` says which route an H takes; the streamed route keeps
+only h and the xw ring on chip, which caps H at STREAM_MAX_HIDDEN.
 
 ``LSTMRecurrence`` makes the recurrence trainable as the JAX package's
 ``custom_vjp`` wrappers do (``pallas_lstm.py:212-257``): its forward is
@@ -22,8 +27,10 @@ layer at "highest" into a workspace of gate activations and cell states,
 then walks it in reverse for the gradient of xw, both products on tensor
 cores in three TF32 passes; one float32 product gives W_hh's gradient.
 Its weights are packed by ``pack_backward_weights`` for the geometry
-that ``backward_geometry`` chooses from H and B. On the CPU both are
-their plain versions (``ops.lstm``).
+that ``backward_geometry`` chooses from H and B; above H = 256 it takes
+the same streamed route (W_hh's fragments read from device memory at
+each use, H up to BACKWARD_STREAM_MAX_HIDDEN). On the CPU both are their
+plain versions (``ops.lstm``).
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ from ..utils.runtime import LSTM_PRECISIONS, exact_float32, lstm_precision
 from .lstm import (lstm_bidirectional_recurrence_backward_plain,
                    lstm_bidirectional_recurrence_plain, split_bf16)
 
-MAX_HIDDEN = 256          # the csrc kernel's kMaxHidden
+MAX_HIDDEN = 256          # the largest H kept on chip (kMaxHidden)
 SHARED_BYTES = 227 * 1024  # shared memory a Hopper block can use
 ROWS = 8                  # batch rows per cluster: the mma's n
 STAGES = 6                # xw ring depth in the csrc kernel (kStages)
@@ -48,6 +55,13 @@ MODES = {"default": 0, "high": 1, "highest": 2}
 SMS = 132                 # streaming multiprocessors of an H100 SXM
 BACKWARD_ROWS = (8, 16, 32, 64)  # batch rows per cluster of the backward
 BACKWARD_SLOTS = 8        # partial dh_rec sums a backward CTA receives
+STREAM_CLUSTER = 8        # CTAs of a cluster on the streamed route
+STREAM_PAD = 16 * STREAM_CLUSTER  # H is padded to a multiple of this
+# the largest H of the streamed routes: above, h of every unit and the xw
+# ring (forward) or the phase buffers (backward) exceed a CTA's shared
+# memory (``kernel_geometry``, ``backward_geometry``)
+STREAM_MAX_HIDDEN = {"default": 1792, "high": 1408, "highest": 1408}
+BACKWARD_STREAM_MAX_HIDDEN = 2048
 
 
 def _smallest_cluster(hidden: int, shared_bytes) -> dict:
@@ -71,17 +85,23 @@ def _smallest_cluster(hidden: int, shared_bytes) -> dict:
 
 
 def kernel_geometry(hidden: int, precision: str) -> dict:
-    """Cluster size and padded hidden size the kernel runs ``hidden`` at.
+    """The route, cluster size and padded hidden size the kernel runs
+    ``hidden`` at: {"cluster", "padded", "shared_bytes", "stream"}.
 
-    Each CTA keeps the 4 gate rows of W_hh of its units (a warp per 16)
-    in shared memory beside the xw ring and the double-buffered h
-    (``_smallest_cluster``). Raises ``ValueError`` above MAX_HIDDEN.
+    Up to MAX_HIDDEN each CTA keeps the 4 gate rows of W_hh of its units
+    (a warp per 16) in shared memory beside the xw ring and the
+    double-buffered h (``_smallest_cluster``; "stream" False). Above, the
+    streamed route: a cluster of 8, H padded to a multiple of 128, W_hh
+    read from device memory every step and only h and the ring in shared
+    memory ("stream" True). Raises ``ValueError`` for H < 1 and above
+    STREAM_MAX_HIDDEN[precision], where h and the ring exceed a CTA's
+    SHARED_BYTES.
     """
     if precision not in MODES:
         raise ValueError(f"unknown LSTM precision {precision!r}: expected "
                          f"one of {LSTM_PRECISIONS}")
 
-    def shared_bytes(units, padded):
+    def shared_bytes(units, padded, stream=False):
         if precision == "highest":
             w_bytes = 4 * units * padded * 4
             h_bytes = 2 * padded * ROWS * 4
@@ -90,9 +110,21 @@ def kernel_geometry(hidden: int, precision: str) -> dict:
             w_bytes = parts * 4 * units * padded * 2
             h_bytes = parts * 2 * ROWS * (padded + 8) * 2
         ring_bytes = STAGES * ROWS * (4 * units + 4) * 4
-        return w_bytes + h_bytes + ring_bytes + 16  # + 2 mbarriers
+        # + 2 mbarriers
+        return (0 if stream else w_bytes) + h_bytes + ring_bytes + 16
 
-    return _smallest_cluster(hidden, shared_bytes)
+    if hidden <= MAX_HIDDEN:
+        return {**_smallest_cluster(hidden, shared_bytes), "stream": False}
+    padded = -(-hidden // STREAM_PAD) * STREAM_PAD
+    shared = shared_bytes(padded // STREAM_CLUSTER, padded, stream=True)
+    if shared > SHARED_BYTES:
+        raise ValueError(
+            f"hidden size {hidden} is above what the LSTM kernel's streamed "
+            f"route holds at {precision!r} (up to "
+            f"{STREAM_MAX_HIDDEN[precision]}): h of every unit and the xw "
+            f"ring take {shared} bytes of a CTA's {SHARED_BYTES}")
+    return {"cluster": STREAM_CLUSTER, "padded": padded,
+            "shared_bytes": shared, "stream": True}
 
 
 def backward_geometry(hidden: int, batch: int = 1,
@@ -101,22 +133,31 @@ def backward_geometry(hidden: int, batch: int = 1,
     and ``directions`` (``csrc/lstm_recurrence_backward.cu``).
 
     Each CTA owns ``units`` hidden units: 16 up to H = 128, in a cluster
-    of the smallest power of two that covers H, with 8 warps; 32 above
-    (a cluster of 8, 16 warps). A warp keeps ``frags`` = padded / 16 mma A
-    fragments of W_hh, split into TF32 hi and lo: in ``a_registers``
-    registers a thread at 16 units, in shared memory at 32. ``rows``, the
-    batch rows per cluster, is the smallest of BACKWARD_ROWS whose grid of
-    one CTA per SM fits the card's SMS at once (latency sets the time),
-    else the largest (fewer waves); 8 at 32 units. ``shared_bytes`` is
+    of the smallest power of two that covers H, with 8 warps; 32 up to
+    MAX_HIDDEN (a cluster of 8, 16 warps). A warp keeps ``frags`` =
+    padded / 16 mma A fragments of W_hh, split into TF32 hi and lo: in
+    ``a_registers`` registers a thread at 16 units, in shared memory at
+    32. ``rows``, the batch rows per cluster, is the smallest of
+    BACKWARD_ROWS whose grid of one CTA per SM fits the card's SMS at once
+    (latency sets the time), else the largest (fewer waves); 8 at 32
+    units. Above MAX_HIDDEN the streamed route ("stream" True): a cluster
+    of 8 CTAs of padded / 8 units (H padded to a multiple of 128), 8 rows,
+    16 warps (``threads``) each taking every 16th of the packing's
+    ``warps``, A read from device memory at each use. ``shared_bytes`` is
     the kernel's dynamic shared memory, the larger phase's buffers plus A
-    in shared memory and 4 mbarriers. Raises ``ValueError`` above
-    MAX_HIDDEN.
+    in shared memory and 4 mbarriers. Raises ``ValueError`` for H < 1 and
+    above BACKWARD_STREAM_MAX_HIDDEN.
     """
-    if not 1 <= hidden <= MAX_HIDDEN:
+    if not 1 <= hidden <= BACKWARD_STREAM_MAX_HIDDEN:
         raise ValueError(f"hidden size {hidden} is outside what the LSTM "
-                         f"backward kernel keeps on chip (1 to "
-                         f"{MAX_HIDDEN})")
-    if hidden <= 128:
+                         f"backward kernel takes (1 to "
+                         f"{BACKWARD_STREAM_MAX_HIDDEN}: above, its phase "
+                         f"buffers exceed a CTA's shared memory)")
+    stream = hidden > MAX_HIDDEN
+    if stream:
+        units = -(-hidden // STREAM_PAD) * STREAM_PAD // STREAM_CLUSTER
+        cluster, rows = STREAM_CLUSTER, 8
+    elif hidden <= 128:
         units = 16
         cluster = 1 << max(0, (-(-hidden // 16) - 1).bit_length())
         rows = next((r for r in BACKWARD_ROWS
@@ -130,11 +171,13 @@ def backward_geometry(hidden: int, batch: int = 1,
     gate_row = 4 * units + 4
     buffers = max(2 * rows * (padded + 4) + 2 * rows * gate_row,
                   2 * BACKWARD_SLOTS * units * (rows + 2) + rows * gate_row)
-    a_shared = 0 if units == 16 else warps * frags * 32 * 16
+    a_shared = 0 if units == 16 or stream else warps * frags * 32 * 16
     return {"cluster": cluster, "padded": padded, "units": units,
-            "rows": rows, "warps": warps, "threads": 32 * warps,
+            "rows": rows, "warps": warps,
+            "threads": 32 * (16 if stream else warps),
             "frags": frags, "a_registers": 8 * frags if units == 16 else 0,
-            "shared_bytes": a_shared + 4 * buffers + 4 * 8}
+            "shared_bytes": a_shared + 4 * buffers + 4 * 8,
+            "stream": stream}
 
 
 @dataclass(frozen=True)

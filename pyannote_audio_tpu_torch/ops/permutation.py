@@ -9,12 +9,16 @@ assigns them. Costs are float32 means, as in the JAX package. Oracle
 clustering uses it. ``permutate_device`` is ``permutate_jax``: the same
 search over the K! permutations on device tensors, with no host sync,
 differentiable through its gather (the PIT losses use it).
+``permutate_numpy`` and ``permutate_torch`` are the reference's names
+for the host search on numpy arrays and on tensors, and
+``build_permutation_graph`` the permutations between overlapping chunks
+that stitching pipelines read.
 """
 
 from __future__ import annotations
 
 import itertools
-from functools import lru_cache
+from functools import lru_cache, partial
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -129,6 +133,53 @@ def permutate(y1: np.ndarray, y2: np.ndarray, cost_func=None,
     if return_cost:
         return permutated, perms, C
     return permutated, perms
+
+
+def permutate_numpy(y1, y2, cost_func="mse", return_cost: bool = False):
+    """``permutate`` under the reference's name for numpy arrays."""
+    return permutate(y1, y2, cost_func=cost_func, return_cost=return_cost)
+
+
+def permutate_torch(y1: torch.Tensor, y2: torch.Tensor, cost_func="mse",
+                    return_cost: bool = False):
+    """``permutate`` of two tensors, on the host: the permutated y2 (and
+    the cost) come back as CPU tensors, the permutations as tuples."""
+    out = permutate(y1.detach().cpu().numpy(), y2.detach().cpu().numpy(),
+                    cost_func=cost_func, return_cost=return_cost)
+    tensors = [torch.from_numpy(np.ascontiguousarray(out[0])), out[1]]
+    if return_cost:
+        tensors.append(torch.from_numpy(np.ascontiguousarray(out[2])))
+    return tuple(tensors)
+
+
+def build_permutation_graph(segmentations, onset: float = 0.5,
+                            cost="mae") -> List[Tuple[int, int, Tuple]]:
+    """``[(i, j, permutation)]`` for every pair of overlapping chunks i < j
+    of a (chunks, frames, K) ``SlidingWindowFeature``: ``permutate`` of
+    chunk j's overlapping frames onto chunk i's, the shift of j against i
+    rounded from (j - i) * frames * step / duration. ``cost`` is a
+    builtin name or a callable, called with ``onset=`` bound."""
+    from ..core.segment import SlidingWindowFeature
+    if not isinstance(segmentations, SlidingWindowFeature):
+        raise TypeError("build_permutation_graph takes a "
+                        "SlidingWindowFeature of (chunks, frames, K)")
+    cost_func = partial(cost, onset=onset) if callable(cost) else cost
+    data = segmentations.data
+    window = segmentations.sliding_window
+    num_chunks, num_frames, _ = data.shape
+    overlap_chunks = int(np.floor(window.duration / window.step)) - 1
+    edges = []
+    for i in range(num_chunks):
+        for j in range(i + 1, min(i + 1 + overlap_chunks, num_chunks)):
+            shift = round((j - i) * num_frames * window.step
+                          / window.duration)
+            a = data[i][shift:]
+            b = data[j][:a.shape[0]]
+            if a.shape[0] == 0:
+                continue
+            _, perms = permutate(a, b, cost_func=cost_func)
+            edges.append((i, j, perms[0]))
+    return edges
 
 
 def permutate_device(y1: torch.Tensor, y2: torch.Tensor, cost: str = "mse"

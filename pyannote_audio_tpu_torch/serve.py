@@ -42,6 +42,17 @@ from pathlib import Path
 from typing import Any, Dict, Optional
 
 
+class _HTTPServer(ThreadingHTTPServer):
+    """``ThreadingHTTPServer`` with a listen backlog that clients polling
+    every few milliseconds cannot fill. socketserver's backlog is 5: while
+    the accept loop waits for the interpreter, a burst of connections
+    overflows it, the kernel drops their SYNs, and each client retries
+    after 1, 2, 4, ... s, so one poll can outlast a client's 60 s
+    timeout."""
+
+    request_queue_size = 1024
+
+
 class DiarizationServer:
     """Serve a diarization pipeline over the pyannoteAI REST surface.
 
@@ -86,8 +97,7 @@ class DiarizationServer:
         self._purge_every = min(5.0, media_ttl / 4.0) \
             if media_ttl is not None else None
         self._last_purge = 0.0
-        self._httpd = ThreadingHTTPServer((host, port),
-                                          self._handler_class())
+        self._httpd = _HTTPServer((host, port), self._handler_class())
         self._threads: list = []
         #: batch runs, jobs they carried, single-job runs, failed batches
         #: and the jobs retried one by one after them (worker thread only)

@@ -341,15 +341,17 @@ def evaluate(protocol, subset: str = "test", model=None,
              display: bool = True, device=None) -> float:
     """Frame-level DER of a segmentation model over a protocol's subset:
     sliding inference, hysteresis binarization at ``onset``, the
-    reference discretized at the output frames, DER accumulated over the
-    files (one per file printed with ``display``). ``model`` is a module
+    reference discretized at the output frames, the frame-level DER
+    (``utils.metric.DiscreteDiarizationErrorRate``: best speaker
+    permutation per file) accumulated over the files (one per file
+    printed with ``display``). ``model`` is a module
     or a checkpoint path, ``protocol`` a protocol or a registered name
     (``registry``: a database.yml to register first); ``device`` as for
     ``Inference``."""
     from ..core.inference import Inference
     from ..core.model import Model
-    from ..metrics.streaming import DiarizationErrorRate
     from ..utils.database import get_protocol, register_database
+    from ..utils.metric import DiscreteDiarizationErrorRate
     from ..utils.signal import binarize_swf
 
     if registry:
@@ -359,16 +361,22 @@ def evaluate(protocol, subset: str = "test", model=None,
     if not isinstance(model, torch.nn.Module):
         model = Model.from_pretrained(model)
     inference = Inference(model, device=device)
-    metric = DiarizationErrorRate()
+    metric = DiscreteDiarizationErrorRate()
     rows = []
     for file in getattr(protocol, subset)():
-        hyp = binarize_swf(inference(file), onset=onset)
+        scores = inference(file)
+        if isinstance(scores.data, torch.Tensor):
+            # scores stay on the inference's device: binarize on the host
+            scores = SlidingWindowFeature(scores.data.cpu().numpy(),
+                                          scores.sliding_window,
+                                          labels=scores.labels)
+        hyp = binarize_swf(scores, onset=onset)
         window = hyp.sliding_window
         support = Segment(0.0, window[len(hyp.data) - 1].middle
                           + 0.5 * window.step)
         ref = discretize(file["annotation"], support, window)
         n = min(len(ref), len(hyp.data))
-        der = metric(np.asarray(hyp.data[:n])[None], ref[:n][None])
+        der = metric(ref[:n], np.asarray(hyp.data[:n]))
         rows.append((file.get("uri", "?"), der))
     aggregate = metric.compute()
     if display:

@@ -25,6 +25,8 @@ import jax
 import jax.numpy as jnp
 
 from pyannote_audio_tpu.ops.lstm import lstm_cell_scan
+from pyannote_audio_tpu.ops.lstm import multilayer_lstm as jax_multilayer
+from pyannote_audio_tpu_torch.models.blocks.rnn import LSTM
 from pyannote_audio_tpu_torch.ops import lstm_kernel
 from pyannote_audio_tpu_torch.ops.lstm import (
     lstm_bidirectional_recurrence_backward_plain,
@@ -165,11 +167,76 @@ def test_backward_weights_layout(H):
         assert torch.allclose(values.sum(), w_hh.sum(), atol=1e-3)
 
 
+@pytest.mark.parametrize("H,D", [(257, 2), (300, 2), (384, 2), (512, 2),
+                                 (1024, 1)])
+def test_streamed_backward_geometry_and_layout(H, D):
+    """Above H = 256 the backward kernel streams W_hh's fragments from
+    device memory: a cluster of 8 CTAs of padded / 8 units (H padded to a
+    multiple of 128), 8 rows, 16 warps taking the packing's units / 2
+    warps in turn, no A in registers or shared memory; the packing is the
+    on-chip route's, held against the fragment definition."""
+    geometry = lstm_kernel.backward_geometry(H, 32, D)
+    C, Hp, units = (geometry[k] for k in ("cluster", "padded", "units"))
+    assert geometry["stream"] and (C, geometry["rows"]) == (8, 8)
+    assert Hp == -(-H // 128) * 128 and units == Hp // 8
+    assert (geometry["warps"], geometry["threads"]) == (units // 2, 512)
+    assert geometry["frags"] == Hp // 16 and geometry["a_registers"] == 0
+    assert geometry["shared_bytes"] <= lstm_kernel.SHARED_BYTES
+    w_hh = torch.randn(D, 4 * H, H, generator=torch.Generator()
+                       .manual_seed(H))
+    packed = lstm_kernel.pack_backward_weights(w_hh, geometry)
+    assert packed.shape == (D, C, 2, units // 2, Hp // 16, 32, 4)
+    assert np.array_equal(packed.numpy(),
+                          _expected_fragments(w_hh.numpy(), geometry))
+
+
+def test_wide_bilstm_gradient_matches_jax():
+    """A 2-layer BiLSTM at H = 384 (the JAX module's Pallas route, the
+    card's streamed one): the port module's gradients of the input and of
+    every parameter, through ``LSTMRecurrence``'s plain backward on the
+    CPU, against ``jax.vjp`` of the JAX module's float32 scan, which is
+    what its Pallas route's ``custom_vjp`` rules take; relative L2 1e-5.
+    Forward: 1e-5 absolute."""
+    rng = np.random.default_rng(384)
+    x = rng.standard_normal((2, 6, 24)).astype(np.float32)
+    module = LSTM(24, hidden_size=384, num_layers=2,
+                  generator=torch.Generator().manual_seed(385))
+    upstream = rng.standard_normal((2, 6, 768)).astype(np.float32)
+    names = {}
+    layers = []
+    for i in range(2):
+        layer = {}
+        for ours_name, theirs in (("w_ih", "weight_ih"),
+                                  ("w_hh", "weight_hh"),
+                                  ("b_ih", "bias_ih"), ("b_hh", "bias_hh")):
+            for sfx, jsfx in (("", ""), ("_reverse", "_r")):
+                name = f"{theirs}_l{i}{sfx}"
+                layer[ours_name + jsfx] = jnp.asarray(
+                    getattr(module, name).detach().numpy())
+                names[name] = (i, ours_name + jsfx)
+        layers.append(layer)
+    out, vjp = jax.vjp(jax_multilayer, jnp.asarray(x), layers)
+    grad_x, grad_layers = vjp(jnp.asarray(upstream))
+    xt = torch.from_numpy(x).requires_grad_()
+    ours = module(xt)
+    ours.backward(torch.from_numpy(upstream))
+    np.testing.assert_allclose(ours.detach().numpy(), np.asarray(out),
+                               atol=1e-5)
+    assert _rel(xt.grad, grad_x) < 1e-5
+    for name, (i, key) in names.items():
+        assert _rel(getattr(module, name).grad,
+                    grad_layers[i][key]) < 1e-5, name
+
+
 def test_backward_geometry_refuses_what_does_not_fit():
-    with pytest.raises(ValueError, match="256"):
-        lstm_kernel.backward_geometry(257)
-    for H in range(1, 257):
+    """Every H from 1 to 2048 has a route (on chip up to 256, streamed
+    above) within the card's budgets; the one refusal left is an H whose
+    phase buffers exceed a CTA's shared memory, above 2048."""
+    with pytest.raises(ValueError, match="2048"):
+        lstm_kernel.backward_geometry(2049)
+    for H in range(1, 2049):
         geometry = lstm_kernel.backward_geometry(H, 3264)
+        assert geometry["stream"] == (H > lstm_kernel.MAX_HIDDEN)
         # 64 KB of registers per SM: A's registers (64 at most) leave the
         # rest of a thread's budget of one CTA per SM (255, or 128 at 512
         # threads) to the accumulators and the prefetched cells

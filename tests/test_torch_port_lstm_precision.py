@@ -183,11 +183,17 @@ def test_kernel_geometry(H, precision, cluster, padded):
 
 
 def test_kernel_geometry_refuses_beyond_the_chip():
-    with pytest.raises(ValueError, match="256"):
-        lstm_kernel.kernel_geometry(300, "default")
-    with pytest.raises(ValueError, match="256"):
-        lstm_kernel.prepare_recurrent_weights(torch.zeros(1, 4 * 257, 257),
-                                              "highest")
+    """Past the on-chip route (H = 256) the streamed one takes over; the
+    one refusal left is an H whose h and xw ring exceed a CTA's shared
+    memory: above 1792 in "default", 1408 in "high" and "highest"."""
+    assert lstm_kernel.kernel_geometry(300, "default")["stream"]
+    for precision, largest in lstm_kernel.STREAM_MAX_HIDDEN.items():
+        assert lstm_kernel.kernel_geometry(largest, precision)["stream"]
+        with pytest.raises(ValueError, match=str(largest)):
+            lstm_kernel.kernel_geometry(largest + 1, precision)
+    with pytest.raises(ValueError, match="1408"):
+        lstm_kernel.prepare_recurrent_weights(
+            torch.zeros(1, 4 * 1409, 1409), "highest")
     with pytest.raises(ValueError, match="precision"):
         lstm_kernel.kernel_geometry(128, "fp8")
 

@@ -14,6 +14,7 @@ by job, counted too, so that only the bad job fails. The HTTP surface
 speaker fields) is held on both servers.
 """
 
+import http.client
 import json
 import threading
 import time
@@ -320,3 +321,46 @@ def test_sdk_and_client_against_a_mock_api(setup, mock_api,  # noqa: F811
     monkeypatch.delenv("PYANNOTEAI_API_KEY", raising=False)
     with pytest.raises(RuntimeError, match="API key"):
         SDK(token=None).apply(files[0])
+
+
+def test_fast_pollers_always_connect():
+    """48 clients polling a job's status every 5 ms for 3 s, each poll a
+    new connection, as the pyannoteAI client polls: every connect returns
+    in well under a second. A listen backlog that such polling fills
+    drops SYNs, and the kernel retries a dropped SYN only after 1, 2, 4,
+    ... s (socketserver's backlog of 5 gave connects of 1-5 s here); the
+    pollers run in threads joined within 60 s, so a hang fails the test
+    instead of stalling the suite."""
+    server = DiarizationServer(object(), token="tok").start()
+    host, port = server._httpd.server_address[:2]
+    stop = time.monotonic() + 3.0
+    connects, failures = [], []
+
+    def poll():
+        try:
+            while time.monotonic() < stop:
+                conn = http.client.HTTPConnection(host, port, timeout=30)
+                start = time.monotonic()
+                conn.connect()
+                connects.append(time.monotonic() - start)
+                conn.request("GET", "/v1/jobs/none",
+                             headers={"Authorization": "Bearer tok"})
+                conn.getresponse().read()
+                conn.close()
+                time.sleep(0.005)
+        except OSError as error:
+            failures.append(error)
+
+    try:
+        pollers = [threading.Thread(target=poll, daemon=True)
+                   for _ in range(48)]
+        for thread in pollers:
+            thread.start()
+        for thread in pollers:
+            thread.join(timeout=60)
+        assert not any(thread.is_alive() for thread in pollers)
+    finally:
+        server.shutdown()
+    assert server._httpd.request_queue_size >= 128
+    assert not failures and len(connects) >= 48
+    assert max(connects) < 1.0, sorted(connects)[-5:]

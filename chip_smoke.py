@@ -28,13 +28,17 @@ Phases, each fatal on failure:
      recurrence's autograd (the backward before the kernel) and cuDNN's
      layer backward and forward + backward timed at 589 x 32 / 16 and
      the DPRNN's intra-chunk shapes; both
-     kernels' streamed route above H = 256 (W_hh read from device memory
-     every step): the forward against its plain version at 589 x 32 and
-     589 x 256 for H = 257, 384 and 512 in each precision and at 589 x 8,
-     H = 1024 in "default", the backward against the plain backward at
-     589 x 32 for H = 384 and 512 and LSTMRecurrence against the all-plain
-     autograd at H = 512, each timed beside its bound, its plain version
-     and cuDNN's float32 layer;
+     kernels' streamed route above H = 256 (W_hh through shared memory,
+     resident or streamed by bulk copies): the forward against its plain
+     version (within 1e-5 in "highest", its three TF32 passes) at 589 x
+     32 and 589 x 256 for H = 257, 384 and 512 and at phase 4's 589 x 171,
+     H = 512 in each precision and at 589 x 8, H = 1024 in "default", and
+     at the edges of its geometry (B astride every step of rows, cluster,
+     row tiles a warp, resident / streamed and waves, reaching every
+     instantiation), the backward against the plain backward at 589 x 32
+     for H = 384 and 512 and at its edges, and LSTMRecurrence against the
+     all-plain autograd at H = 512, each timed beside its bound, its plain
+     version and cuDNN's float32 layer (in rounds between the port's);
   4. the exact path (the accelerator gates PYANNOTE_TPU_SEG_BF16,
      _SHARED_SINC and _SHARED_TRUNK forced to "0", a float32 trunk,
      PYANNOTE_TPU_LSTM_PRECISION=highest):
@@ -404,20 +408,31 @@ def lstm_bound(T, B, H, D, precision, packed_bytes) -> dict:
     """Least time of one launch on an H100 SXM at 700 W: bytes (xw read,
     out written, packed W_hh read, once each) over 3.35 TB/s against the
     recurrent product's operations (2*T*B*D*4H*H, three bf16 passes for
-    "high") over 989 TFLOP/s bf16 or 67 TFLOP/s float32."""
+    "high") over 989 TFLOP/s bf16 or 67 TFLOP/s float32. For "highest",
+    ``bound_3xtf32_ms`` is the streamed route's: the product as three TF32
+    passes at 495 TFLOP/s dense on the tensor cores (None otherwise)."""
     moved = 4 * T * B * D * 4 * H + 4 * T * B * D * H + packed_bytes
-    flops = 2 * T * B * D * 4 * H * H * (3 if precision == "high" else 1)
+    product = 2 * T * B * D * 4 * H * H
+    flops = product * (3 if precision == "high" else 1)
     rate = 67e12 if precision == "highest" else 989e12
     bytes_ms, ops_ms = moved / 3.35e12 * 1e3, flops / rate * 1e3
+    tf32_ms = 3 * product / 495e12 * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_3xtf32_ms": max(bytes_ms, tf32_ms)
+            if precision == "highest" else None}
 
 
 def library_lstm_ms(device, T, B, D_in, H,
                     dtypes=("float32", "float16", "bfloat16")) -> dict:
-    """torch.nn.LSTM (cuDNN) over the same layer, whole: float32 with TF32
-    off, then fp16 and bf16 where cuDNN takes them (None where not), of
-    ``dtypes``. The yardstick only: the port never calls cuDNN's LSTM."""
+    """torch.nn.LSTM (cuDNN) over the same layer, whole, of ``dtypes``:
+    float32 under torch's default flags ("float32": ``cudnn.allow_tf32``
+    is True, so cuDNN may run its products in TF32; the yardstick of every
+    record since the first port), float32 with TF32 off beside it
+    ("float32_exact", under ``exact_float32``), then fp16 and bf16 where
+    cuDNN takes them (None where not). The yardstick only: the port never
+    calls cuDNN's LSTM."""
+    from pyannote_audio_tpu_torch.utils.runtime import exact_float32
     lstm = torch.nn.LSTM(D_in, H, bidirectional=True).to(device)
     x = torch.randn(T, B, D_in, device=device)
     times = {}
@@ -428,6 +443,10 @@ def library_lstm_ms(device, T, B, D_in, H,
             layer.flatten_parameters()  # one cuDNN weight buffer
             try:
                 times[name] = cuda_ms(lambda: layer(xd), runs=10)
+                if name == "float32":
+                    with exact_float32():
+                        times["float32_exact"] = cuda_ms(lambda: layer(xd),
+                                                         runs=10)
             except RuntimeError as err:
                 log(f"cuDNN LSTM in {name}: not taken ({err})")
                 times[name] = None
@@ -3875,17 +3894,136 @@ def check_kernel_autograd(device: torch.device) -> dict:
             "backward_kernel": backward}
 
 
-# the kernels' streamed route, above H = 256 (W_hh read from device memory
-# every step): the forward at T = 589 (10 s chunks), B = 32 (a training
-# batch) and 256 (a serving batch), in every precision, and at H = 1024
-# with B = 8 in "default"; the backward (and LSTMRecurrence under autograd
-# at 512) at (x)'s training batch of 32. Layer 0 of a PyanNet reads SincNet's
-# 60 features (cuDNN's whole layer is timed over those)
+# the kernels' streamed route, above H = 256 (W_hh through shared memory,
+# resident or streamed by bulk copies): the forward at T = 589 (10 s
+# chunks), B = 32 (a training batch) and 256 (a serving batch), in every
+# precision, at phase 4's H = 512 batch of 171 chunks (3 min) in every
+# precision, and at H = 1024 with B = 8 in "default"; the backward (and
+# LSTMRecurrence under autograd at 512) at (x)'s training batch of 32.
+# Layer 0 of a PyanNet reads SincNet's 60 features (cuDNN's whole layer is
+# timed over those, in WIDE_LIBRARY_ROUNDS rounds between the port's)
 WIDE_HIDDEN = (257, 384, 512)
 WIDE_BATCHES = (32, 256)
+WIDE_PIPELINE_BATCH = (589, 171, 512)
 WIDE_LARGEST = (589, 8, 1024)
+WIDE_LIBRARY_ROUNDS = 3
 WIDE_BACKWARD = ((589, 32, 384), (589, 32, 512))
 WIDE_D_IN = 60
+# the edges of the streamed geometry (``kernel_geometry``,
+# ``backward_geometry``), held at T = WIDE_EDGE_T, (B, H): at H = 512, B
+# astride each step of the rows, the cluster, the k-parts, the row tiles a
+# warp (NTW), the resident / streamed switch and one wave / two, in every
+# mode (the forward: 24 / 25 ... 336 / 337; the backward: 24 / 25 ...
+# 120 / 121); H = 384 at R = 48 (NTW 2) and 64 (NTW 4, and "default"'s
+# switch to a ring); H = 257 at 8 rows and at 64 (NTW 4); H = 768 at B =
+# 168 / 169 ("default": clusters of 16 at R = 64, NTW 4); H = 1024 on
+# clusters of 16 (B = 9, and 113: R = 48, NTW 3); and each cap (1792
+# "default", 1408 "high" and "highest"; 2048 the backward). Together they
+# reach every (mode, NTW) instantiation of the streamed forward and both
+# cluster sizes in every mode (``check_wide_edges`` asserts it)
+WIDE_EDGE_T = 24
+WIDE_EDGES = tuple((B, 512) for B in (
+    24, 25, 48, 49, 56, 57, 72, 73, 96, 97, 112, 113, 120, 121, 144, 145,
+    168, 169, 192, 193, 224, 225, 336, 337)) + (
+    (280, 384), (281, 384), (336, 384), (337, 384), (5, 257), (337, 257),
+    (168, 768), (169, 768), (9, 1024), (113, 1024), (3, 1408), (3, 1792))
+WIDE_BACKWARD_EDGES = ((24, 512), (25, 512), (48, 512), (49, 512),
+                       (56, 512), (57, 512), (112, 512), (113, 512),
+                       (120, 512), (121, 512), (5, 257), (3, 2048))
+# the streamed forward's limits against its plain version: KERNEL_ATOL's,
+# but 1e-5 for "highest" (three TF32 passes on this route; 1e-4 would
+# pass a single TF32 pass, whose error tools/lstm_stream_parts.py reads
+# as its control)
+STREAM_ATOL = dict(KERNEL_ATOL, highest=1e-5)
+
+
+def check_wide_edges(device: torch.device) -> dict:
+    """Both streamed kernels at the edges of their geometry (WIDE_EDGES,
+    WIDE_BACKWARD_EDGES), one launch each, against their plain versions:
+    the forward in every mode within STREAM_ATOL (up to each mode's cap),
+    the backward within BACKWARD_RTOL. Returns the largest errors; raises
+    past a limit, unless each call launched its kernel once, or unless the
+    edges reached every (mode, NTW) instantiation and both cluster sizes
+    in every mode."""
+    from pyannote_audio_tpu_torch.ops.lstm import \
+        lstm_bidirectional_recurrence_plain
+    from pyannote_audio_tpu_torch.ops.lstm_kernel import (
+        STREAM_CLUSTERS, STREAM_MAX_HIDDEN, STREAM_WARPS, backward_geometry,
+        kernel_geometry, lstm_bidirectional_recurrence)
+    T = WIDE_EDGE_T
+    worst = dict.fromkeys(STREAM_ATOL, 0.0)
+    reached = set()
+    for B, H in WIDE_EDGES:
+        xw, w_hh, _ = layer_inputs(device, T, B, WIDE_D_IN, H, 2, seed=B + H)
+        for precision, limit in STREAM_ATOL.items():
+            if H > STREAM_MAX_HIDDEN[precision]:
+                continue
+            g = kernel_geometry(H, precision, B, 2)
+            reset_lstm()
+            out = lstm_bidirectional_recurrence(xw, w_hh, precision)
+            torch.cuda.synchronize()
+            launched = lstm_launches()
+            err = (out - lstm_bidirectional_recurrence_plain(
+                xw, w_hh, precision)).abs().max().item()
+            worst[precision] = max(worst[precision], err)
+            reached |= {(precision, "ntw", g["ntw"]),
+                        (precision, "cluster", g["cluster"])}
+            log(f"lstm_recurrence {precision:8s} streamed edge (T={T}, B={B},"
+                f" H={H}): cluster {g['cluster']}, rows {g['rows']}, NTW "
+                f"{g['ntw']}, {g['kparts']} k-part(s), {g['resident']} of "
+                f"{g['chunks']} chunks resident, {g['slots']} ring slots, "
+                f"{g['waves']} wave(s); max_abs_err {err:.3e} (limit "
+                f"{limit}), launches {launched}")
+            if not (err <= limit and launched == 1):
+                raise AssertionError(
+                    f"the streamed forward kernel ({precision}) disagrees "
+                    f"with its plain version at the edge B={B}, H={H}: "
+                    f"{err} > {limit}, or launched {launched} times")
+        del xw, w_hh
+    missing = {(p, "ntw", n) for p in STREAM_ATOL for n in STREAM_WARPS} \
+        | {(p, "cluster", c) for p in STREAM_ATOL for c in STREAM_CLUSTERS}
+    missing -= reached
+    if missing:
+        raise AssertionError(f"the streamed forward's edges missed "
+                             f"{sorted(missing)}")
+    backward = {"xw": 0.0, "w_hh": 0.0, "max_abs": 0.0}
+    for B, H in WIDE_BACKWARD_EDGES:
+        xw, w_hh, _ = layer_inputs(device, T, B, WIDE_D_IN, H, 2, seed=B * H)
+        grad = torch.randn(T, B, 2 * H, device=device,
+                           generator=torch.Generator(device).manual_seed(B))
+        g = backward_geometry(H, B, 2)
+        errs = check_backward_kernel(
+            f"streamed edge H={H} (cluster {g['cluster']}, rows "
+            f"{g['rows']}, {g['stream_warps']} warps, {g['resident']} of "
+            f"{g['chunks']} chunks resident, ring {g['ring']}, "
+            f"{g['waves']} wave(s))", T, B, xw, w_hh, grad)
+        for key, value in errs.items():
+            backward[key] = max(backward[key], value)
+        del xw, w_hh, grad
+    torch.cuda.empty_cache()
+    return {"forward_max_abs_err": worst, "backward": backward}
+
+
+def fmt_ms(times) -> str:
+    """Times in ms, each to the microsecond, joined by "/"."""
+    return "/".join(f"{t:.3f}" for t in times)
+
+
+def port_layer_ms(xw_inputs, w_hh, precision, prepared) -> float:
+    """The port's whole BiLSTM layer as ``models/blocks/rnn.py`` runs it:
+    the float32 input projection (TF32 off) and the recurrence kernel, ms
+    (median of 5)."""
+    from pyannote_audio_tpu_torch.ops.lstm_kernel import \
+        lstm_bidirectional_recurrence
+    from pyannote_audio_tpu_torch.utils.runtime import exact_float32
+    x, w_ih, b = xw_inputs
+
+    def layer():
+        with exact_float32():
+            xw = (torch.matmul(x, w_ih.t()) + b).contiguous()
+        return lstm_bidirectional_recurrence(xw, w_hh, precision, prepared)
+
+    return cuda_ms(layer, runs=5, warmup=1)
 
 
 def check_wide_kernels(device: torch.device) -> dict:
@@ -3898,17 +4036,28 @@ def check_wide_kernels(device: torch.device) -> dict:
         lstm_bidirectional_recurrence_plain
     from pyannote_audio_tpu_torch.ops.lstm_kernel import (
         kernel_geometry, lstm_bidirectional_recurrence,
-        prepare_recurrent_weights)
+        prepare_recurrent_weights, stream_cluster_capacity)
     start = time.perf_counter()
-    shapes = [(589, B, H, tuple(KERNEL_ATOL)) for H in WIDE_HIDDEN
-              for B in WIDE_BATCHES] + [WIDE_LARGEST + (("default",),)]
-    worst = dict.fromkeys(KERNEL_ATOL, 0.0)
+    shapes = [(589, B, H, tuple(STREAM_ATOL)) for H in WIDE_HIDDEN
+              for B in WIDE_BATCHES] \
+        + [WIDE_PIPELINE_BATCH + (tuple(STREAM_ATOL),),
+           WIDE_LARGEST + (("default",),)]
+    worst = dict.fromkeys(STREAM_ATOL, 0.0)
     forward = {}
     for T, B, H, modes in shapes:
-        xw, w_hh, _ = layer_inputs(device, T, B, WIDE_D_IN, H, 2, seed=H)
+        xw, w_hh, projection = layer_inputs(device, T, B, WIDE_D_IN, H, 2,
+                                            seed=H)
         row = {"T": T, "B": B, "H": H}
         for precision in modes:
-            geometry = kernel_geometry(H, precision)
+            geometry = kernel_geometry(H, precision, B, 2)
+            # the geometry's waves, against the clusters the card holds
+            capacity = stream_cluster_capacity(H, precision, B, 2)
+            if geometry["waves"] != -(-geometry["clusters"] // capacity):
+                raise AssertionError(
+                    f"H={H}, B={B} ({precision}): {geometry['clusters']} "
+                    f"clusters of {geometry['cluster']} take "
+                    f"{geometry['waves']} wave(s) by kernel_geometry, but "
+                    f"the card holds {capacity} at once")
             prepared = prepare_recurrent_weights(w_hh, precision)
             reset_lstm()
             out = lstm_bidirectional_recurrence(xw, w_hh, precision,
@@ -3919,36 +4068,79 @@ def check_wide_kernels(device: torch.device) -> dict:
             err = (out - ref).abs().max().item()
             del out, ref
             worst[precision] = max(worst[precision], err)
-            limit = KERNEL_ATOL[precision]
+            limit = STREAM_ATOL[precision]
             ms = cuda_ms(lambda: lstm_bidirectional_recurrence(
                 xw, w_hh, precision, prepared), runs=5, warmup=1)
             plain_ms = cuda_ms(lambda: lstm_bidirectional_recurrence_plain(
                 xw, w_hh, precision), runs=1, warmup=0)
+            layer_ms = port_layer_ms(projection, w_hh, precision, prepared)
             bound = lstm_bound(T, B, H, 2, precision,
                                prepared.packed.numel()
                                * prepared.packed.element_size())
             row[precision] = dict(ms=ms, plain_ms=plain_ms,
-                                  max_abs_err=err, **bound)
+                                  layer_ms=layer_ms, max_abs_err=err,
+                                  geometry={k: geometry[k] for k in (
+                                      "cluster", "rows", "ntw", "kparts",
+                                      "warps", "resident", "chunks",
+                                      "slots", "waves")}, capacity=capacity,
+                                  **bound)
             log(f"lstm_recurrence {precision:8s} streamed, H={H} "
-                f"(cluster {geometry['cluster']}, padded "
-                f"{geometry['padded']}) at (T={T}, B={B}): max_abs_err "
-                f"{err:.3e} (limit {limit}), launches {launched}; kernel "
-                f"{ms:.3f} ms (median of 5), bound {bound['bound_ms']:.4f} "
-                f"ms ({bound['bound_by']}), plain {plain_ms:.1f} ms")
+                f"(cluster {geometry['cluster']} x {geometry['clusters']}, "
+                f"the card holds {capacity}; rows {geometry['rows']}, "
+                f"{geometry['warps']} warps of {geometry['ntw']} row tiles "
+                f"in {geometry['kparts']} k-part(s), "
+                f"{geometry['resident']} of {geometry['chunks']} chunks "
+                f"resident, {geometry['slots']} ring slots) at (T={T}, "
+                f"B={B}): max_abs_err {err:.3e} (limit {limit}), launches "
+                f"{launched}; kernel {ms:.3f} ms (median of 5), the port's "
+                f"layer (projection + kernel) {layer_ms:.3f} ms, bound "
+                f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})"
+                + (f", {bound['bound_3xtf32_ms']:.4f} ms as 3xTF32"
+                   if bound["bound_3xtf32_ms"] is not None else "")
+                + f", plain {plain_ms:.1f} ms")
             if not (geometry["stream"] and err <= limit and launched == 1):
                 raise AssertionError(
                     f"the streamed forward kernel ({precision}) disagrees "
                     f"with its plain version at H={H}, B={B}: {err} > "
                     f"{limit}, or launched {launched} times")
-        row["library"] = library_lstm_ms(device, T, B, WIDE_D_IN, H,
-                                         dtypes=("float32",))
+        # cuDNN's float32 layer in rounds, each between two timings of the
+        # port's layer and kernel in the slowest mode this shape runs
+        slow = modes[-1]
+        prepared = prepare_recurrent_weights(w_hh, slow)
+        rounds = {"ms": [], "layer_ms": [], "float32": [],
+                  "float32_exact": []}
+        for _ in range(WIDE_LIBRARY_ROUNDS):
+            rounds["ms"].append(cuda_ms(
+                lambda: lstm_bidirectional_recurrence(xw, w_hh, slow,
+                                                      prepared),
+                runs=5, warmup=1))
+            rounds["layer_ms"].append(
+                port_layer_ms(projection, w_hh, slow, prepared))
+            library = library_lstm_ms(device, T, B, WIDE_D_IN, H,
+                                      dtypes=("float32",))
+            rounds["float32"].append(library["float32"])
+            rounds["float32_exact"].append(library["float32_exact"])
+        row["library"] = {k: statistics.median(v) for k, v in
+                          rounds.items() if k.startswith("float32")}
+        row["rounds"] = dict(rounds, mode=slow)
+        faster = sum(k < c for k, c in zip(rounds["ms"], rounds["float32"]))
         log(f"  cuDNN torch.nn.LSTM float32 layer (D_in {WIDE_D_IN}) at "
-            f"H={H}, B={B}: {row['library']['float32']:.3f} ms")
+            f"H={H}, B={B}, {WIDE_LIBRARY_ROUNDS} rounds, ms: "
+            f"{fmt_ms(rounds['float32'])} under torch's default flags "
+            f"(TF32 allowed), {fmt_ms(rounds['float32_exact'])} with TF32 "
+            f"off; between them the port's {slow!r} kernel "
+            f"{fmt_ms(rounds['ms'])}, its layer "
+            f"{fmt_ms(rounds['layer_ms'])}; the kernel is faster than "
+            f"cuDNN's default-flags layer in {faster} of "
+            f"{WIDE_LIBRARY_ROUNDS} rounds")
         forward[f"H={H} B={B}"] = row
-        del xw, w_hh
+        del xw, w_hh, projection
         torch.cuda.empty_cache()
+    edges = check_wide_edges(device)
+    for precision, value in edges["forward_max_abs_err"].items():
+        worst[precision] = max(worst[precision], value)
 
-    backward, worst_backward = {}, {"xw": 0.0, "w_hh": 0.0, "max_abs": 0.0}
+    backward, worst_backward = {}, dict(edges["backward"])
     autograd = {p: {"forward": 0.0, "xw": 0.0, "w_hh": 0.0}
                 for p in AUTOGRAD_GRAD_RTOL}
     for T, B, H in WIDE_BACKWARD:

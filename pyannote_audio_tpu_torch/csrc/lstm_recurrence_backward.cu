@@ -86,16 +86,35 @@
 //   past B read zeros. Their h, c and gradients stay 0.
 // - `phases` selects phase 1, phase 2 or both (3, the wrapper's call): the
 //   parts alone are for timing (chip_smoke.py phase 3).
-// - Above H = 256 (template STREAM) W_hh stays in device memory, resident
-//   in L2, in the same packing: a cluster of 8 CTAs, each owning Hc = Hp / 8
-//   units (Hp = H rounded up to 128), 8 rows per cluster and 16 warps a
-//   CTA. The packing's Hc / 2 warps of fragments become virtual warps, each
-//   real warp taking every 16th, and every product reads its A fragments
-//   from device memory and splits them at each use. The ownership, both
-//   phases, the exchanges and the barriers are the on-chip route's (each
-//   real warp arrives once per step after all its virtual warps' writes).
-//   Shared memory holds the phase buffers alone, about 96 Hp bytes: up to
-//   Hc = 256, H = 2048.
+// - Above H = 256 (template STREAM) W_hh does not fit on chip and streams
+//   through shared memory. What bounds it: each of the 2T steps multiplies
+//   by a CTA's whole share of W_hh (4Hc x Hp float32), read from L2 (W_hh
+//   stays resident there) once per step, and waits for the step before.
+//   A cluster of C = 8 or 16 CTAs (16 where H pads to a multiple of 256
+//   alike: half the share a CTA) owns R = 8 or 16 rows, chosen from B
+//   (`backward_geometry`, ops/lstm_kernel.py) so that the clusters fit one
+//   wave where B allows. The packing's fragments come in chunks of F
+//   k-steps of SW virtual warps, one run of bytes each, in the order the
+//   warps read them: SW (the CTA's warps) is 16, or 12 where rounds of 12
+//   leave fewer virtual warps idle (24 a phase at H = 384), and F the
+//   most k-steps (up to 12) that divide both phases' and of which two
+//   chunks fit beside the phase buffers: the warps meet at every chunk (at
+//   (589, 32, 384) 8 k-steps took 15.0 ms, 4 took 18.1, on an H100). A CTA
+//   keeps the first `resident` chunks of a phase in shared memory (copied
+//   at the phase's start) and the rest pass through a ring of `ring` slots
+//   fed by cp.async.bulk, across step
+//   and phase boundaries; each warp reads its virtual warp's
+//   fragments of every chunk, splits them once into hi and lo, uses them
+//   for the R / 8 row tiles and counts itself out of the slot, and the last
+//   warp out sends the slot's next chunk (a 17th, producer warp would cut
+//   every thread's registers from 128 to 96: warps take registers in
+//   fours). Phase 2's virtual warp is one
+//   16-unit tile over all 4Hc gate rows, so a CTA receives one partial
+//   dh_rec slot from each CTA of the cluster (C slots). The ownership, the
+//   exchanges and the barriers are otherwise the on-chip route's (each
+//   warp arrives once per step after all its virtual warps' writes).
+//   Shared memory holds the phase buffers, the resident chunks and the
+//   ring: H up to 2048.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -107,11 +126,18 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kMaxHidden = 256;  // on chip; above, the streamed route
-constexpr int kStreamCluster = 8;
-constexpr int kStreamRows = 8;
-constexpr int kStreamWarps = 16;       // real warps of a streamed CTA
+// warps of a streamed CTA: 16, or 12 where rounds of 12 virtual warps
+// leave fewer of them idle
 constexpr int kMaxStreamUnits = 256;   // Hc of the streamed route
+constexpr int kMaxStreamCells = 2048;  // Hc x R of the streamed route
+constexpr int kMaxChunkFrags = 12;  // k-steps of a streamed chunk: 2 to 12
+
+// a streamed chunk: `frags` fragments of `warps` virtual warps
+__host__ __device__ inline size_t chunk_bytes(int frags, int warps) {
+  return static_cast<size_t>(warps) * frags * 32 * 16;
+}
 constexpr int kSlots = 8;  // partial dh_rec sums a CTA receives per step
+                           // on chip (C on the streamed route)
 constexpr long long kWaitCycles = 1LL << 34;  // ~9 s at 1.98 GHz
 constexpr int kMaxSharedBytes = 227 * 1024;
 
@@ -126,19 +152,24 @@ struct Params {
   int cluster;
   int units;   // Hc, hidden units per CTA
   int phases;  // bit 0: the recompute, bit 1: the walk
+  int slots;     // partial dh_rec sums a CTA receives per step
+  int resident;  // streamed: chunks of a phase kept in shared memory
+  int ring;      // streamed: ring slots (0 when every chunk is resident)
+  int frags;     // streamed: k-steps of a chunk (2, 4, 8 or 12)
+  int warps;     // streamed: warps of the CTA (12 or 16)
 };
 
 // floats of the phase buffers, shared by the two phases: phase 1 h by
 // parity [2][R][Hp + 4] and the partial gate sums of the two K halves
-// [2][R][4Hc + 4]; phase 2 the partial dh_rec slots [2][kSlots][Hc][R + 2]
+// [2][R][4Hc + 4]; phase 2 the partial dh_rec slots [2][slots][Hc][R + 2]
 // and this CTA's dgates [R][4Hc + 4]
 __host__ __device__ inline size_t buffer_floats(int units, int padded,
-                                                int rows) {
+                                                int rows, int slots) {
   const size_t gate_row = 4 * static_cast<size_t>(units) + 4;
   const size_t fwd = 2 * static_cast<size_t>(rows) * (padded + 4) +
                      2 * static_cast<size_t>(rows) * gate_row;
   const size_t bwd =
-      2 * static_cast<size_t>(kSlots) * units * (rows + 2) + rows * gate_row;
+      2 * static_cast<size_t>(slots) * units * (rows + 2) + rows * gate_row;
   return fwd > bwd ? fwd : bwd;
 }
 
@@ -151,11 +182,19 @@ __host__ __device__ inline size_t a_smem_bytes(int units, int padded,
              : static_cast<size_t>(units / 2) * (padded / 16) * 32 * 16;
 }
 
-// + 4 mbarriers (2 per phase)
+// + 4 mbarriers (2 per phase); streamed, + the resident chunks, the ring,
+// the mbarrier of the resident chunks and each slot's mbarrier and count
+// of warps out
 __host__ __device__ inline size_t shared_bytes(int units, int padded,
-                                               int rows, bool stream) {
+                                               int rows, bool stream,
+                                               int slots, int resident,
+                                               int ring, int frags,
+                                               int warps) {
   return a_smem_bytes(units, padded, stream) +
-         4 * buffer_floats(units, padded, rows) + 4 * sizeof(uint64_t);
+         4 * buffer_floats(units, padded, rows, slots) +
+         static_cast<size_t>(resident + ring) * chunk_bytes(frags, warps) +
+         (4 + (stream ? 1 + 2 * static_cast<size_t>(ring) : 0)) *
+             sizeof(uint64_t);
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -229,6 +268,38 @@ __device__ __forceinline__ void st_async8(unsigned remote, float x, float y,
       : "memory");
 }
 
+// `bytes` of W_hh from device memory (it stays in L2: every step reads
+// it) into this CTA's shared memory by the bulk copy engine, counted on
+// `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Wait for the phase of `parity` of an mbarrier that only this CTA's bulk
+// copies and threads complete (CTA scope: the cluster-scope acquire of
+// `mbar_wait` is for the peers' st.async); trap after kWaitCycles.
+__device__ __forceinline__ void mbar_wait_cta(uint64_t* bar, unsigned parity) {
+  const unsigned addr = smem_addr(bar);
+  const long long start = clock64();
+  unsigned done = 0;
+  while (true) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) break;
+    if (clock64() - start > kWaitCycles) __trap();
+  }
+}
+
 __device__ __forceinline__ void cluster_sync() {
   asm volatile(
       "barrier.cluster.arrive.release.aligned;\n"
@@ -297,13 +368,13 @@ __device__ __forceinline__ float sigmoid(float x) {
 // shortened the recompute at (589, 32) by 0.1 ms on an H100 (tools/
 // lstm_backward_variants.py); above, it takes up to 255. STREAM_HC > 0 is
 // the streamed route for Hc up to STREAM_HC (128 or 256; Hc is p.units),
-// one CTA per SM's registers (at most 128 a thread).
-template <int HC_, int NT, int STREAM_HC>
-__global__ void __launch_bounds__(STREAM_HC ? 32 * kStreamWarps : 16 * HC_,
+// SW (12 or 16) warps, one CTA per SM's registers.
+template <int HC_, int NT, int STREAM_HC, int SW>
+__global__ void __launch_bounds__(STREAM_HC ? 32 * SW : 16 * HC_,
                                   STREAM_HC ? 1 : (NT <= 2 ? 2 : 1))
 lstm_recurrence_backward_kernel(const Params p) {
   constexpr bool STREAM = STREAM_HC > 0;
-  constexpr int kWarps = STREAM ? kStreamWarps : HC_ / 2;  // real warps
+  constexpr int kWarps = STREAM ? SW : HC_ / 2;  // real warps
   constexpr int kThreads = 32 * kWarps;
   constexpr int R = 8 * NT;                 // batch rows of the cluster
   constexpr bool kRegs = !STREAM && HC_ == 16;  // A fragments in registers
@@ -330,18 +401,82 @@ lstm_recurrence_backward_kernel(const Params p) {
   const size_t a_bytes = a_smem_bytes(HC, Hp, STREAM);
   uint4* a_s = reinterpret_cast<uint4*>(smem);
   float* buf = reinterpret_cast<float*>(smem + a_bytes);
+  // streamed: the resident chunks and the ring, after the phase buffers
+  unsigned char* res_s = smem + a_bytes + 4 * buffer_floats(HC, Hp, R,
+                                                            p.slots);
+  unsigned char* ring_s = res_s + static_cast<size_t>(p.resident) *
+                                      chunk_bytes(p.frags, kWarps);
   uint64_t* bars = reinterpret_cast<uint64_t*>(
-      smem + a_bytes + 4 * buffer_floats(HC, Hp, R));
+      ring_s + static_cast<size_t>(p.ring) * chunk_bytes(p.frags, kWarps));
+  uint64_t* wres = bars + 4;      // a phase's resident chunks have landed
+  uint64_t* wfull = bars + 5;     // [ring]: the slot's chunk has landed
+  // [ring]: warps done with the slot's chunk
+  int* out_count = reinterpret_cast<int*>(wfull + p.ring);
   if (tid == 0) {
     // the local warps' arrivals and the expect_tx arrival of each step
     for (int i = 0; i < 4; ++i) mbar_init(&bars[i], kWarps + 1);
+    if constexpr (STREAM) {
+      mbar_init(wres, 1);
+      for (int i = 0; i < p.ring; ++i) {
+        mbar_init(&wfull[i], 1);
+        out_count[i] = 0;
+      }
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  // streamed: phase `phase`'s virtual warps, their fragments (k-steps)
+  // each, and its chunks: rounds of SW virtual warps by k-slices of
+  // p.frags; the first `resident` of a step's chunks stay on chip
+  const int vwarps_of[2] = {HC / 2, STREAM ? F : HC / 2};
+  const int frags_of[2] = {F, STREAM ? HC / 2 : F};
+  auto phase_chunks = [&](int phase) {
+    return (vwarps_of[phase] + kWarps - 1) / kWarps *
+           (frags_of[phase] / p.frags);
+  };
+  auto phase_resident = [&](int phase) {
+    return min(p.resident, phase_chunks(phase));
+  };
+  // the ring's chunks over the launch, in the order the warps read them:
+  // phase 0's streamed chunks (those past the resident ones) for each of
+  // its T - 1 steps that multiply, then phase 1's
+  const int ring_chunks0 =
+      p.phases & 1 ? (T - 1) * (phase_chunks(0) - phase_resident(0)) : 0;
+  const int ring_chunks1 =
+      p.phases & 2 ? (T - 1) * (phase_chunks(1) - phase_resident(1)) : 0;
+  // this warp's next ring chunk, its slot and the parity of the slot's use
+  // (counted, not divided out: a division a chunk cost more than the
+  // chunk's products)
+  int ring_i = 0, ring_slot = 0;
+  unsigned ring_parity = 0;
+  unsigned res_uses = 0;   // phases whose resident chunks were loaded
 
   // this (direction, rank)'s A fragments of `phase` in device memory
   auto a_global = [&](int phase) {
     return reinterpret_cast<const uint4*>(p.a) +
            static_cast<size_t>((d * C + rank) * 2 + phase) * vwarps * F * 32;
+  };
+  // streamed: the chunk a CTA visits v-th in a step of `phase`: round r =
+  // v / slices, k-slice (v + rotation) % slices, so that the clusters that
+  // read the same share do not ask L2 for the same lines at once; the
+  // first `resident` it visits stay on chip
+  const int cluster_index = static_cast<int>(blockIdx.x) / C;
+  auto visit = [&](int phase, int v) {
+    const int slices = frags_of[phase] / p.frags;
+    const int r = v / slices;
+    return r * slices + (v + cluster_index) % slices;
+  };
+  // streamed: chunk c of `phase` (round r, k-slice j) in device memory, and
+  // its bytes: fragments [j p.frags, (j + 1) p.frags) of the
+  // round's virtual warps, one run
+  auto chunk_src = [&](int phase, int c, unsigned& bytes) {
+    const int slices = frags_of[phase] / p.frags;
+    const int r = c / slices, j = c % slices;
+    const int nvw = min(kWarps, vwarps_of[phase] - kWarps * r);
+    bytes = nvw * p.frags * 32 * 16;
+    return a_global(phase) +
+           (static_cast<size_t>(kWarps) * r * frags_of[phase] +
+            static_cast<size_t>(j) * nvw * p.frags) *
+               32;
   };
   // this warp's A fragments of `phase`, split into hi and lo
   uint4 a_hi[kRegs ? kFrags : 1], a_lo[kRegs ? kFrags : 1];
@@ -358,9 +493,8 @@ lstm_recurrence_backward_kernel(const Params p) {
     }
   };
 
-  // out[n] = the 16 x 8 tile n of A . Bop, A the F fragments of virtual
-  // warp vw (this warp on chip) of `phase`, Bop[k][r] = src[r * stride + k0
-  // + k] (k < 8F)
+  // out[n] = the 16 x 8 tile n of A . Bop, A the F fragments of this warp
+  // (vw) of `phase` on chip, Bop[k][r] = src[r * stride + k0 + k] (k < 8F)
   auto product = [&](const float* src, int stride, int k0, int vw, int phase,
                      float (&out)[NT][4]) {
     float acc[NT][kAcc][4];
@@ -371,27 +505,17 @@ lstm_recurrence_backward_kernel(const Params p) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[n][k][e] = 0.0f;
     const float* bk = src + g * stride + k0 + tq;
-    if constexpr (STREAM) {
-      const uint4* a_vw = a_global(phase) + vw * F * 32;
-#pragma unroll 4
-      for (int i = 0; i < F; ++i) {
-        uint4 ahi, alo;
-        split4(__ldg(a_vw + i * 32 + lane), ahi, alo);
-        mma3<NT, kAcc>(acc, ahi, alo, bk + 8 * i, stride);
-      }
-    } else {
 #pragma unroll
-      for (int i = 0; i < kFrags; ++i) {
-        if (i < F) {
-          uint4 ahi, alo;
-          if constexpr (kRegs) {
-            ahi = a_hi[i];
-            alo = a_lo[i];
-          } else {
-            split4(a_s[(warp * F + i) * 32 + lane], ahi, alo);
-          }
-          mma3<NT, kAcc>(acc, ahi, alo, bk + 8 * i, stride);
+    for (int i = 0; i < kFrags; ++i) {
+      if (i < F) {
+        uint4 ahi, alo;
+        if constexpr (kRegs) {
+          ahi = a_hi[i];
+          alo = a_lo[i];
+        } else {
+          split4(a_s[(warp * F + i) * 32 + lane], ahi, alo);
         }
+        mma3<NT, kAcc>(acc, ahi, alo, bk + 8 * i, stride);
       }
     }
 #pragma unroll
@@ -403,6 +527,113 @@ lstm_recurrence_backward_kernel(const Params p) {
         for (int k = 1; k < kAcc; ++k) small += acc[n][k][e];
         out[n][e] = acc[n][0][e] + small;
       }
+  };
+
+  // streamed: ring chunk i into `slot`, counted on the slot's mbarrier
+  // (none past the last)
+  auto send_chunk = [&](int i, int slot) {
+    if (i >= ring_chunks0 + ring_chunks1) return;
+    const int phase = i < ring_chunks0 ? 0 : 1;
+    const int k = phase ? i - ring_chunks0 : i;
+    const int streamed = phase_chunks(phase) - phase_resident(phase);
+    unsigned bytes;
+    const uint4* src = chunk_src(
+        phase, visit(phase, phase_resident(phase) + k % streamed), bytes);
+    mbar_expect(&wfull[slot], bytes);
+    bulk_load(ring_s + static_cast<size_t>(slot) * chunk_bytes(p.frags, kWarps), src,
+              bytes, &wfull[slot]);
+  };
+  // `phase`'s resident chunks, counted on wres
+  auto send_resident = [&](int phase) {
+    const int nres = phase_resident(phase);
+    if (nres == 0) return;
+    unsigned bytes, total = 0;
+    for (int v = 0; v < nres; ++v) {
+      chunk_src(phase, visit(phase, v), bytes);
+      total += bytes;
+    }
+    mbar_expect(wres, total);
+    for (int v = 0; v < nres; ++v) {
+      const uint4* src = chunk_src(phase, visit(phase, v), bytes);
+      bulk_load(res_s + static_cast<size_t>(v) * chunk_bytes(p.frags, kWarps), src,
+                bytes, wres);
+    }
+  };
+
+  // streamed: out[n] = the 16 x 8 tile n of A . Bop as `product`, A the
+  // fragments of round r's virtual warp of this warp (``has``: one exists)
+  // of `phase`, chunk by chunk from the resident chunks or the ring; every
+  // consumer warp reads (and frees) every chunk of the round
+  auto product_ring = [&](const float* src, int stride, int k0, int phase,
+                          int r, bool has, float (&out)[NT][4]) {
+    float acc[NT][kAcc][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int k = 0; k < kAcc; ++k)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][k][e] = 0.0f;
+    const float* bk = src + g * stride + k0 + tq;
+    const int slices = frags_of[phase] / p.frags;
+    const int nres = phase_resident(phase);
+    int j = cluster_index % slices;  // the k-slice of visit v
+    for (int v = r * slices; v < (r + 1) * slices; ++v) {
+      const unsigned char* chunk;
+      const bool ring = v >= nres;
+      if (ring) {
+        mbar_wait_cta(&wfull[ring_slot], ring_parity);
+        chunk = ring_s + static_cast<size_t>(ring_slot) * chunk_bytes(p.frags, kWarps);
+      } else {
+        chunk = res_s + static_cast<size_t>(v) * chunk_bytes(p.frags, kWarps);
+      }
+      if (has) {
+        const uint4* a = reinterpret_cast<const uint4*>(chunk) +
+                         warp * p.frags * 32 + lane;
+#pragma unroll
+        for (int f = 0; f < kMaxChunkFrags; ++f) {
+          if (f == p.frags) break;
+          uint4 ahi, alo;
+          split4(a[f * 32], ahi, alo);
+          mma3<NT, kAcc>(acc, ahi, alo, bk + 8 * (j * p.frags + f),
+                         stride);
+        }
+      }
+      if (ring) {  // this warp's reads of the slot are done
+        __syncwarp();
+        // (the slot's values are in registers: the mma consumed them, and
+        // __syncwarp orders the other lanes; a fence here would also wait
+        // for this thread's stores to the workspace)
+        if (lane == 0 &&
+            atomicAdd(&out_count[ring_slot], 1) == kWarps - 1) {
+          // the last warp out: every read of the slot is done
+          out_count[ring_slot] = 0;
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          send_chunk(ring_i + p.ring, ring_slot);
+        }
+        ++ring_i;
+        if (++ring_slot == p.ring) {
+          ring_slot = 0;
+          ring_parity ^= 1;
+        }
+      }
+      if (++j == slices) j = 0;
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float small = 0.0f;
+#pragma unroll
+        for (int k = 1; k < kAcc; ++k) small += acc[n][k][e];
+        out[n][e] = acc[n][0][e] + small;
+      }
+  };
+  // streamed: wait for `phase`'s resident chunks (the producer's copies at
+  // the phase's start)
+  auto wait_resident = [&](int phase) {
+    if constexpr (STREAM) {
+      if (phase_resident(phase) > 0) mbar_wait_cta(wres, res_uses++ & 1);
+    }
   };
 
   // cell j of this thread: unit ul (fastest), row r
@@ -440,6 +671,7 @@ lstm_recurrence_backward_kernel(const Params p) {
 #pragma unroll
     for (int j = 0; j < kCells; ++j) c_state[j] = 0.0f;
     load(0, cur);
+    wait_resident(0);
     for (int n = 0; n < T; ++n) {
       const int par = n & 1;
       if (n + 1 < T) load(n + 1, nxt);
@@ -449,10 +681,8 @@ lstm_recurrence_backward_kernel(const Params p) {
       if (tid == 0 && n + 1 < T) mbar_expect(&bars[par ^ 1], remote_bytes);
       if (n > 0) {
         // virtual warp vw: tile mt of the gate rows, K half kp
-        for (int vw = warp; vw < vwarps; vw += kWarps) {
+        auto store = [&](int vw, const float (&out)[NT][4]) {
           const int mt = vw % tiles, kp = vw / tiles;
-          float out[NT][4];
-          product(hbuf + par * R * Sh, Sh, kp * F * 8, vw, 0, out);
           float* pp = part + kp * R * Sg + 16 * mt + g;
 #pragma unroll
           for (int m = 0; m < NT; ++m) {
@@ -462,7 +692,23 @@ lstm_recurrence_backward_kernel(const Params p) {
             pp[r * Sg + 8] = out[m][2];
             pp[(r + 1) * Sg + 8] = out[m][3];
           }
-          if constexpr (!STREAM) break;
+        };
+        if constexpr (STREAM) {
+          for (int r = 0; r * kWarps < vwarps; ++r) {
+            const int vw = r * kWarps + warp;
+            float out[NT][4];
+            product_ring(hbuf + par * R * Sh, Sh, vw / tiles * F * 8, 0, r,
+                         vw < vwarps, out);
+            if (vw < vwarps) store(vw, out);
+          }
+        } else {
+          for (int vw = warp; vw < vwarps; vw += kWarps) {
+            const int kp = vw / tiles;
+            float out[NT][4];
+            product(hbuf + par * R * Sh, Sh, kp * F * 8, vw, 0, out);
+            store(vw, out);
+            break;
+          }
         }
       }
       // both K halves of every gate row
@@ -531,11 +777,13 @@ lstm_recurrence_backward_kernel(const Params p) {
 
   // -- phase 2: the walk -----------------------------------------------
   auto walk = [&]() {
-    float* slots = buf;                       // [2][kSlots][HC][Sr]
-    float* dg = buf + 2 * kSlots * HC * Sr;   // [R][Sg]
+    const int nslots = STREAM ? C : kSlots;
+    float* slots = buf;                       // [2][nslots][HC][Sr]
+    float* dg = buf + 2 * nslots * HC * Sr;   // [R][Sg]
     uint64_t* bbar = bars + 2;
     const int tiles = F;                      // 16-unit tiles of Hp
-    const int parts = vwarps / tiles;         // k-parts of 4Hc
+    // k-parts of 4Hc (streamed: one, all 4Hc gate rows a virtual warp)
+    const int parts = STREAM ? 1 : vwarps / tiles;
     const unsigned remote_bytes = (C - 1) * parts * HC * R * 4;
     const unsigned bar_addr = smem_addr(bbar);
     const int64_t out_row = static_cast<int64_t>(D) * H;
@@ -568,6 +816,7 @@ lstm_recurrence_backward_kernel(const Params p) {
 #pragma unroll
     for (int j = 0; j < kCells; ++j) dc_next[j] = 0.0f;
     load(T - 1, cur, true);
+    wait_resident(1);
     for (int n = 0; n < T; ++n) {
       const int s = T - 1 - n;  // the step, in the direction's own order
       const int par = n & 1;
@@ -583,10 +832,14 @@ lstm_recurrence_backward_kernel(const Params p) {
         const int b = row0 + r, u = unit0 + ul;
         float dh = cur[j][6];
         if (n > 0) {
-          const float* sl = slots + par * kSlots * HC * Sr + ul * Sr + r;
+          const float* sl = slots + par * nslots * HC * Sr + ul * Sr + r;
           float rec = 0.0f;
+          if constexpr (STREAM) {
+            for (int k = 0; k < nslots; ++k) rec += sl[k * HC * Sr];
+          } else {
 #pragma unroll
-          for (int k = 0; k < kSlots; ++k) rec += sl[k * HC * Sr];
+            for (int k = 0; k < kSlots; ++k) rec += sl[k * HC * Sr];
+          }
           dh += rec;
         }
         const float i = cur[j][0], f = cur[j][1], gg = cur[j][2],
@@ -611,14 +864,12 @@ lstm_recurrence_backward_kernel(const Params p) {
       __syncthreads();
       if (n + 1 < T) {
         // virtual warp vw: tile mt of the units, k-part kp
-        for (int vw = warp; vw < vwarps; vw += kWarps) {
+        auto send = [&](int vw, const float (&out)[NT][4]) {
           const int mt = vw % tiles, kp = vw / tiles;
           const int dest = 16 * mt / HC, dest_ul = 16 * mt % HC;
           const int slot = rank * parts + kp;
-          float out[NT][4];
-          product(dg, Sg, kp * F * 8, vw, 1, out);
           // tile rows are units dest_ul + g (+8), columns batch rows
-          float* mine = slots + ((par ^ 1) * kSlots + slot) * HC * Sr;
+          float* mine = slots + ((par ^ 1) * nslots + slot) * HC * Sr;
           const int o0 = (dest_ul + g) * Sr + 2 * tq, o1 = o0 + 8 * Sr;
           if (dest == rank) {
 #pragma unroll
@@ -638,7 +889,22 @@ lstm_recurrence_backward_kernel(const Params p) {
               st_async8(base + (o1 + 8 * m) * 4, out[m][2], out[m][3], bar);
             }
           }
-          if constexpr (!STREAM) break;
+        };
+        if constexpr (STREAM) {
+          for (int r = 0; r * kWarps < tiles; ++r) {
+            const int vw = r * kWarps + warp;
+            float out[NT][4];
+            product_ring(dg, Sg, 0, 1, r, vw < tiles, out);
+            if (vw < tiles) send(vw, out);
+          }
+        } else {
+          for (int vw = warp; vw < vwarps; vw += kWarps) {
+            const int kp = vw / tiles;
+            float out[NT][4];
+            product(dg, Sg, kp * F * 8, vw, 1, out);
+            send(vw, out);
+            break;
+          }
         }
         // this warp's local slot written and its reads of dg done
         __syncwarp();
@@ -658,14 +924,25 @@ lstm_recurrence_backward_kernel(const Params p) {
   load_a(p.phases & 1 ? 0 : 1);
   // the mbarriers and A in every CTA
   cluster_sync();
+  if constexpr (STREAM) {
+    // the first phase's resident chunks and the ring's first chunks
+    if (tid == 0) {
+      send_resident(p.phases & 1 ? 0 : 1);
+      for (int i = 0; i < p.ring; ++i) send_chunk(i, i);
+    }
+  }
   if (p.phases & 1) {
     recompute();
     // every st.async of phase 1 has landed (each was waited for) and no
     // CTA reads its buffers any more: phase 2 reuses them
     cluster_sync();
     if (p.phases & 2) {
-      load_a(1);
-      __syncthreads();
+      if constexpr (STREAM) {
+        if (tid == 0) send_resident(1);
+      } else {
+        load_a(1);
+        __syncthreads();
+      }
     }
   }
   if (p.phases & 2) {
@@ -675,16 +952,20 @@ lstm_recurrence_backward_kernel(const Params p) {
   }
 }
 
-template <int HC, int NT, int STREAM_HC = 0>
+template <int HC, int NT, int STREAM_HC = 0, int SW = 16>
 cudaError_t launch(const Params& p, int rows, size_t smem,
                    cudaStream_t stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      lstm_recurrence_backward_kernel<HC, NT, STREAM_HC>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  auto kernel = lstm_recurrence_backward_kernel<HC, NT, STREAM_HC, SW>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err == cudaSuccess && STREAM_HC)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3((p.B + rows - 1) / rows * p.cluster, p.D);
-  config.blockDim = dim3(STREAM_HC ? 32 * kStreamWarps : 16 * HC);
+  config.blockDim = dim3(STREAM_HC ? 32 * SW : 16 * HC);
   config.dynamicSmemBytes = smem;
   config.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -694,8 +975,7 @@ cudaError_t launch(const Params& p, int rows, size_t smem,
   attr[0].val.clusterDim.z = 1;
   config.attrs = attr;
   config.numAttrs = 1;
-  const cudaError_t launched = cudaLaunchKernelEx(
-      &config, lstm_recurrence_backward_kernel<HC, NT, STREAM_HC>, p);
+  const cudaError_t launched = cudaLaunchKernelEx(&config, kernel, p);
   if (launched != cudaSuccess) return launched;
   return cudaGetLastError();
 }
@@ -703,33 +983,59 @@ cudaError_t launch(const Params& p, int rows, size_t smem,
 }  // namespace
 
 // Plain C entry point, bound with ctypes. `a` is W_hh's A fragments as
-// `pack_backward_weights` (ops/lstm_kernel.py) packs them for this (H,
-// cluster); `rows` (8, 16, 32 or 64; 8 above H = 128) the batch rows per
-// cluster; `phases` 1 (the recompute into ws and h_prev), 2 (the walk over
-// them into grad_xw) or 3 (both). H above 256 takes the streamed route (a
-// cluster of 8, 8 rows). Returns a cudaError_t code: 0 on a successful
-// launch. The launch is asynchronous on `stream`, on the current device.
+// `pack_backward_weights` (ops/lstm_kernel.py) packs them for the geometry
+// of `backward_geometry`: on chip (H <= 256) `cluster` 1 to 8 and `rows`
+// (8, 16, 32 or 64; 8 above H = 128) the batch rows per cluster; streamed
+// (H > 256) `cluster` 8 or 16, `rows` 8 or 16, `resident` chunks of a
+// phase kept in shared memory, `ring` slots, `frags` k-steps a chunk and
+// `warps` (12 or 16; all 0 on chip). `phases` 1
+// (the recompute into ws and h_prev), 2 (the walk over them into grad_xw)
+// or 3 (both). Returns a cudaError_t code: 0 on a successful launch. The
+// launch is asynchronous on `stream`, on the current device.
 extern "C" int lstm_recurrence_backward(const void* xw, const void* grad_out,
                                         const void* a, void* ws, void* h_prev,
                                         void* grad_xw, int T, int B, int H,
                                         int D, int cluster, int rows,
-                                        int phases, void* stream) {
+                                        int phases, int resident, int ring,
+                                        int frags, int warps, void* stream) {
   if (T < 1 || B < 1 || H < 1 || D < 1 || D > 2 || phases < 1 || phases > 3)
     return cudaErrorInvalidValue;
   const bool streamed = H > kMaxHidden;
-  // streamed: Hp = H rounded up to 128, Hc = Hp / 8
-  const int units = streamed ? (H + 127) / 128 * 16 : (H > 128 ? 32 : 16);
+  // streamed: Hp = H rounded up to 128, Hc = Hp / cluster
+  const int padded = (H + 127) / 128 * 128;
+  const int units = streamed ? padded / (cluster == 16 ? 16 : 8)
+                             : (H > 128 ? 32 : 16);
   const bool cluster_ok =
-      units == 16 ? (cluster == 1 || cluster == 2 || cluster == 4 ||
-                     cluster == 8)
-                  : cluster == (streamed ? kStreamCluster : 8);
-  const bool rows_ok = units == 16 ? (rows == 8 || rows == 16 ||
-                                      rows == 32 || rows == 64)
-                                   : rows == (streamed ? kStreamRows : 8);
-  if (!cluster_ok || !rows_ok || units * cluster < H ||
-      units > kMaxStreamUnits)
+      streamed ? (cluster == 8 || (cluster == 16 && padded % 256 == 0))
+               : (units == 16 ? (cluster == 1 || cluster == 2 ||
+                                 cluster == 4 || cluster == 8)
+                              : cluster == 8);
+  const bool rows_ok =
+      streamed ? ((rows == 8 || rows == 16) && units * rows <= kMaxStreamCells)
+               : (units == 16 ? (rows == 8 || rows == 16 || rows == 32 ||
+                                 rows == 64)
+                              : rows == 8);
+  // streamed: a ring of at least 2 slots unless every chunk of both phases
+  // is resident (a phase has units / 2 / 16 rounds of Hp / 16 / frags
+  // slices, or Hp / 16 / 16 rounds of units / 2 / frags)
+  const int f = frags > 0 ? frags : 1, w = warps > 0 ? warps : 1;
+  const int chunks0 = (units / 2 + w - 1) / w * (padded / 16 / f);
+  const int chunks1 = (padded / 16 + w - 1) / w * (units / 2 / f);
+  const int most = chunks0 > chunks1 ? chunks0 : chunks1;
+  const bool ring_ok =
+      streamed ? resident >= 0 && (resident >= most ? ring == 0 : ring >= 2)
+               : resident == 0 && ring == 0;
+  const bool frags_ok =
+      streamed ? frags >= 2 && frags <= kMaxChunkFrags && frags % 2 == 0 &&
+                     (padded / 16) % frags == 0 && (units / 2) % frags == 0 &&
+                     (warps == 12 || warps == 16)
+               : frags == 0 && warps == 0;
+  if (!cluster_ok || !rows_ok || !ring_ok || !frags_ok ||
+      units * cluster < H || units > kMaxStreamUnits)
     return cudaErrorInvalidValue;
-  const size_t smem = shared_bytes(units, units * cluster, rows, streamed);
+  const int slots = streamed ? cluster : kSlots;
+  const size_t smem = shared_bytes(units, units * cluster, rows, streamed,
+                                   slots, resident, ring, frags, warps);
   if (smem > kMaxSharedBytes) return cudaErrorInvalidValue;
   Params p;
   p.xw = static_cast<const float*>(xw);
@@ -745,10 +1051,23 @@ extern "C" int lstm_recurrence_backward(const void* xw, const void* grad_out,
   p.cluster = cluster;
   p.units = units;
   p.phases = phases;
+  p.slots = slots;
+  p.resident = resident;
+  p.ring = ring;
+  p.frags = frags;
+  p.warps = warps;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (streamed)
-    return units <= 128 ? launch<0, 1, 128>(p, rows, smem, s)
-                        : launch<0, 1, kMaxStreamUnits>(p, rows, smem, s);
+  if (streamed) {
+    if (warps == 12) {
+      if (units > 128)
+        return launch<0, 1, kMaxStreamUnits, 12>(p, rows, smem, s);
+      return rows == 8 ? launch<0, 1, 128, 12>(p, rows, smem, s)
+                       : launch<0, 2, 128, 12>(p, rows, smem, s);
+    }
+    if (units > 128) return launch<0, 1, kMaxStreamUnits>(p, rows, smem, s);
+    return rows == 8 ? launch<0, 1, 128>(p, rows, smem, s)
+                     : launch<0, 2, 128>(p, rows, smem, s);
+  }
   if (units == 32) return launch<32, 1>(p, rows, smem, s);
   switch (rows) {
     case 8:

@@ -14,8 +14,8 @@ recurrence: one launch of the backward kernel per layer for CUDA tensors
 and computes what the bare call does. The recurrent product runs at
 ``utils.runtime.lstm_precision`` (the JAX package's
 PYANNOTE_TPU_LSTM_PRECISION on a CUDA device, float32 on the CPU). On the
-card both kernels keep W_hh on chip up to H = 256 and stream it from
-device memory above (``ops.lstm_kernel.kernel_geometry`` and
+card both kernels keep W_hh on chip up to H = 256 and stream it through
+shared memory above (``ops.lstm_kernel.kernel_geometry`` and
 ``backward_geometry``): the forward takes any H up to 1792 ("default")
 or 1408 ("high", "highest"), the backward up to 2048, where the JAX
 module sends every ``H % 128 == 0`` to its Pallas kernel (a TPU lane

@@ -95,14 +95,17 @@ def library_path(name: str) -> Path:
     return _hashed_path(CSRC_DIR / f"{name}.cu", NVCC_FLAGS)
 
 
-def build(name: str) -> dict:
+def build(name: str, defines: Sequence[str] = ()) -> dict:
     """Compile ``csrc/<name>.cu`` unless its library exists.
 
     Returns ``{"path", "seconds", "log"}``: ``seconds`` is 0.0 and ``log``
     empty when the library was already built. ``log`` holds nvcc's output,
     including ``-Xptxas -v``'s registers, shared memory and spills.
+    ``defines`` (``"NAME=value"``) build a variant for a tool, beside the
+    library the port loads (which has none).
     """
-    return _compile(find_nvcc(), CSRC_DIR / f"{name}.cu", NVCC_FLAGS)
+    return _compile(find_nvcc(), CSRC_DIR / f"{name}.cu",
+                    NVCC_FLAGS + tuple(f"-D{d}" for d in defines))
 
 
 def build_host(name: str, libs: Sequence[str] = ()) -> dict:

@@ -167,27 +167,140 @@ def test_backward_weights_layout(H):
         assert torch.allclose(values.sum(), w_hh.sum(), atol=1e-3)
 
 
+def _expected_stream_chunks(w_hh: np.ndarray, geometry: dict) -> np.ndarray:
+    """The streamed backward's chunks, from the definition: phase 0's
+    virtual warp kp * (units / 4) + mt holds tile row mt of A (4 units x
+    padded) and k-steps kp * padded / 16 + i, phase 1's virtual warp mt
+    tile row mt of A's transpose and all units / 2 k-steps; lane 4g + t
+    holds (A[g, t], A[g + 8, t], A[g, t + 4], A[g + 8, t + 4]) of each 16 x
+    8 tile; chunk (round r, k-slice j) holds k-steps F j .. F j + F - 1
+    (F = ``frags_per_chunk``) of virtual warps W r .. W r + W - 1 (W =
+    ``stream_warps``, 16 or 12; those that exist), warp by warp."""
+    D, _, H = w_hh.shape
+    C, Hp, units = geometry["cluster"], geometry["padded"], geometry["units"]
+    F, W = geometry["frags_per_chunk"], geometry["stream_warps"]
+    out = np.zeros((D, C, 2, 4 * units * Hp), np.float32)
+    for phase, (tiles, frags, kparts) in enumerate(
+            ((units // 4, Hp // 16, 2), (Hp // 16, units // 2, 1))):
+        vw, i, lane, e = np.meshgrid(np.arange(tiles * kparts),
+                                     np.arange(frags), np.arange(32),
+                                     np.arange(4), indexing="ij")
+        g, t = lane // 4, lane % 4
+        row = 16 * (vw % tiles) + g + 8 * (e % 2)
+        col = 8 * ((vw // tiles) * frags + i) + t + 4 * (e // 2)
+        gate_row, k = (row, col) if phase == 0 else (col, row)
+        q, ul = gate_row // units, gate_row % units
+        for d in range(D):
+            for c in range(C):
+                u = c * units + ul
+                inside = (u < H) & (k < H)
+                frag = np.where(inside, w_hh[d, q * H + np.minimum(u, H - 1),
+                                             np.minimum(k, H - 1)], 0.0)
+                out[d, c, phase] = np.concatenate([
+                    frag[r:r + W, j:j + F].reshape(-1)
+                    for r in range(0, tiles * kparts, W)
+                    for j in range(0, frags, F)])
+    return out
+
+
 @pytest.mark.parametrize("H,D", [(257, 2), (300, 2), (384, 2), (512, 2),
                                  (1024, 1)])
 def test_streamed_backward_geometry_and_layout(H, D):
-    """Above H = 256 the backward kernel streams W_hh's fragments from
-    device memory: a cluster of 8 CTAs of padded / 8 units (H padded to a
-    multiple of 128), 8 rows, 16 warps taking the packing's units / 2
-    warps in turn, no A in registers or shared memory; the packing is the
-    on-chip route's, held against the fragment definition."""
+    """Above H = 256 the backward kernel streams W_hh's fragments through
+    shared memory: a cluster of 8 CTAs, or 16 where H pads to a multiple
+    of 256 (H padded to a multiple of 128), of padded / cluster units, 16
+    or 12 warps (the fewer virtual warps idle) taking the packing's virtual
+    warps in rounds, no A in registers; the packing is chunks of k-steps
+    of a round of virtual warps, held against the fragment definition."""
     geometry = lstm_kernel.backward_geometry(H, 32, D)
     C, Hp, units = (geometry[k] for k in ("cluster", "padded", "units"))
-    assert geometry["stream"] and (C, geometry["rows"]) == (8, 8)
-    assert Hp == -(-H // 128) * 128 and units == Hp // 8
-    assert (geometry["warps"], geometry["threads"]) == (units // 2, 512)
-    assert geometry["frags"] == Hp // 16 and geometry["a_registers"] == 0
+    assert geometry["stream"] and geometry["rows"] in (8, 16)
+    assert Hp == -(-H // 128) * 128 and C == (16 if Hp % 256 == 0 else 8)
+    W = geometry["stream_warps"]
+    assert units == Hp // C and geometry["threads"] == 32 * W
+    vwarps = (units // 2, Hp // 16)
+    assert W == min((16, 12), key=lambda w: (
+        sum(-(-v // w) * w - v for v in vwarps), -w))
+    assert geometry["a_registers"] == 0
+    assert geometry["frags_per_chunk"] in (2, 4, 8, 12)
+    assert (Hp // 16) % geometry["frags_per_chunk"] == 0
+    assert (units // 2) % geometry["frags_per_chunk"] == 0
     assert geometry["shared_bytes"] <= lstm_kernel.SHARED_BYTES
     w_hh = torch.randn(D, 4 * H, H, generator=torch.Generator()
                        .manual_seed(H))
+    for frags in (2, 4, 8):  # chunk sizes the kernel takes
+        g = lstm_kernel._backward_stream_candidate(H, C, geometry["rows"],
+                                                   32, D, frags, W)
+        if g is None:
+            continue
+        packed = lstm_kernel.pack_backward_weights(w_hh, g)
+        assert np.array_equal(packed.numpy(),
+                              _expected_stream_chunks(w_hh.numpy(), g))
     packed = lstm_kernel.pack_backward_weights(w_hh, geometry)
-    assert packed.shape == (D, C, 2, units // 2, Hp // 16, 32, 4)
+    assert packed.shape == (D, C, 2, 4 * units * Hp)
     assert np.array_equal(packed.numpy(),
-                          _expected_fragments(w_hh.numpy(), geometry))
+                          _expected_stream_chunks(w_hh.numpy(), geometry))
+
+
+# (H, B) -> (cluster, rows) of the streamed backward: (x)'s training batch
+# at H = 384 and 512 (phase 3), B astride the steps of the rows and the
+# cluster at H = 512 (24 / 25, 48 / 49, 56 / 57, 112 / 113 one wave / two),
+# the cluster's edge (384 / 385) and the cap
+BACKWARD_STREAM_GEOMETRY = [
+    (384, 32, 8, 8), (512, 32, 16, 16), (385, 32, 16, 16), (512, 1, 16, 8),
+    (512, 24, 16, 8), (512, 25, 16, 16), (512, 48, 16, 16), (512, 49, 8, 8),
+    (512, 56, 8, 8), (512, 57, 8, 16), (512, 112, 8, 16), (512, 113, 8, 8),
+    (1024, 32, 16, 16), (2048, 32, 8, 8), (2048, 256, 8, 8)]
+
+
+@pytest.mark.parametrize("H,B,cluster,rows", BACKWARD_STREAM_GEOMETRY)
+def test_streamed_backward_geometry_follows_the_batch(H, B, cluster, rows):
+    """The streamed backward's rows follow B as the forward's do: the
+    fewest waves of clusters, then the least work a CTA (units x rows at
+    most BACKWARD_STREAM_CELLS), the fewest bytes streamed, the larger
+    cluster; a ring of at least 2 slots beside the resident chunks; every
+    budget fits, up to the cap (2048, not lowered)."""
+    geometry = lstm_kernel.backward_geometry(H, B, 2)
+    assert (geometry["cluster"], geometry["rows"]) == (cluster, rows)
+    assert geometry["units"] * rows <= lstm_kernel.BACKWARD_STREAM_CELLS
+    assert 0 <= geometry["resident"] <= geometry["chunks"]
+    assert geometry["ring"] == 0 if geometry["resident"] == \
+        geometry["chunks"] else 2 <= geometry["ring"] <= \
+        lstm_kernel.BACKWARD_STREAM_SLOTS
+    assert geometry["clusters"] == 2 * -(-B // rows)
+    assert geometry["waves"] == -(-geometry["clusters"] // lstm_kernel
+                                  .STREAM_CLUSTER_CAPACITY[cluster])
+    fewest = min(c["waves"] for c in (
+        lstm_kernel._backward_stream_candidate(H, cl, r, B, 2)
+        for cl in lstm_kernel.STREAM_CLUSTERS for r in (8, 16))
+        if c is not None)
+    assert geometry["waves"] == fewest
+    assert geometry["shared_bytes"] <= lstm_kernel.SHARED_BYTES
+    assert lstm_kernel.BACKWARD_STREAM_MAX_HIDDEN == 2048
+
+
+def test_chip_check_edges_reach_every_streamed_backward_step():
+    """chip_smoke.py's phase 3 holds the streamed backward at B on both
+    sides of every step of its geometry at H = 512 (cluster, rows, warps,
+    chunk size, resident chunks, ring, waves) up to its largest edge, on
+    both warp counts (12 at H = 257, 16 at 512)."""
+    import chip_smoke
+    edges = {B for B, H in chip_smoke.WIDE_BACKWARD_EDGES if H == 512}
+    keys = ("cluster", "rows", "stream_warps", "frags_per_chunk",
+            "resident", "ring", "waves")
+    steps, before = [], None
+    for B in range(1, max(edges) + 1):
+        g = lstm_kernel.backward_geometry(512, B, 2)
+        now = tuple(g[k] for k in keys)
+        if before is not None and now != before:
+            steps.append(B)
+        before = now
+    assert len(steps) >= 5
+    for B in steps:
+        assert {B - 1, B} <= edges, B
+    warps = {lstm_kernel.backward_geometry(H, B, 2)["stream_warps"]
+             for B, H in chip_smoke.WIDE_BACKWARD_EDGES}
+    assert warps == set(lstm_kernel.BACKWARD_STREAM_WARPS)
 
 
 def test_wide_bilstm_gradient_matches_jax():

@@ -268,7 +268,7 @@ def main() -> None:
     fns = {}
     for name, lib in libs.items():
         fn = ctypes.CDLL(str(lib)).lstm_recurrence_backward
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[name] = fn
@@ -296,7 +296,10 @@ def main() -> None:
                                  packed.data_ptr(), ws.data_ptr(),
                                  h_prev.data_ptr(), grad_xw.data_ptr(), T,
                                  B, H, D, geometry["cluster"],
-                                 rows_of[name], phases, stream)
+                                 rows_of[name], phases,
+                                 geometry["resident"], geometry["ring"],
+                                 geometry["frags_per_chunk"],
+                                 geometry["stream_warps"], stream)
                         assert err == 0, err
                     rows.setdefault((name, part), []).append(cuda_ms(launch))
         for (name, part), times in rows.items():

@@ -1469,32 +1469,21 @@ def check_long_file(pipeline, device) -> dict:
             for k, v in runs.items()}
 
 
-@contextlib.contextmanager
-def host_timers(pipeline, seconds: dict):
-    """Host-clock seconds in ``_stage``, in ``_finalize`` and, inside it,
-    waiting for the staged copies (nothing synchronised)."""
-    stage, finalize = pipeline._stage, pipeline._finalize
+# host seconds read from a span recording (``telemetry/spans.py``): the
+# name each is printed under and the span path it sums
+RECORDED_SPANS = (("stage", "stage"), ("finalize", "finalize"),
+                  ("wait", "finalize/staged_wait"),
+                  ("reconstruct_wait",
+                   "finalize/reconstruct/reconstruct_wait"),
+                  ("clustering", "finalize/clustering"))
 
-    def timed_stage(*args, **kwargs):
-        start = time.perf_counter()
-        out = stage(*args, **kwargs)
-        seconds["stage"] += time.perf_counter() - start
-        return out
 
-    def timed_finalize(staged):
-        start = time.perf_counter()
-        if staged["event"] is not None:
-            staged["event"].synchronize()
-        seconds["wait"] += time.perf_counter() - start
-        out = finalize(staged)
-        seconds["finalize"] += time.perf_counter() - start
-        return out
-    seconds.update(stage=0.0, wait=0.0, finalize=0.0)
-    pipeline._stage, pipeline._finalize = timed_stage, timed_finalize
-    try:
-        yield seconds
-    finally:
-        del pipeline._stage, pipeline._finalize
+def recorded_seconds(recording) -> dict:
+    """Host seconds in ``_stage``, in ``_finalize``, and inside it waiting
+    for the staged copies and for the reconstruction, and clustering,
+    from the pipeline's own spans (nothing synchronised)."""
+    totals = recording.totals()
+    return {name: totals.get(path, 0.0) for name, path in RECORDED_SPANS}
 
 
 @contextlib.contextmanager
@@ -1523,6 +1512,7 @@ def reconstruction_stream(pipeline, on: bool):
 def check_batch(pipeline, device, workdir: Path) -> dict:
     """(i) apply_batch on the serving mix against apply file by file."""
     from pyannote_audio_tpu_torch.pipelines.utils.hook import TimingHook
+    from pyannote_audio_tpu_torch.telemetry import spans
     files = write_files(workdir, SERVING_MINUTES)
     minutes = sum(SERVING_MINUTES)
     results, walls, peaks, counts = {}, {}, {}, {}
@@ -1560,14 +1550,16 @@ def check_batch(pipeline, device, workdir: Path) -> dict:
     check_outputs(files, reference)
     log("(i) apply_batch's Annotations and centroids equal apply's on "
         "every file, in both stream modes")
-    seconds = {}
     dicts = [dict(f) for f in files]
-    with host_timers(pipeline, seconds), TimingHook() as timing:
+    with spans.recording() as recording, TimingHook() as timing:
         wall = wall_seconds(lambda: pipeline(dicts, max_speakers=4,
                                              hook=timing))
+    seconds = recorded_seconds(recording)
     log(f"(i) apply_batch host time: _stage {seconds['stage']:.3f} s, "
         f"_finalize {seconds['finalize']:.3f} s (of which waiting for the "
-        f"staged copies {seconds['wait']:.3f} s), in a {wall:.3f} s pass")
+        f"staged copies {seconds['wait']:.3f} s and for the "
+        f"reconstruction {seconds['reconstruct_wait']:.3f} s), in a "
+        f"{wall:.3f} s pass")
     if not all("segmentation" in f.get("timing", {}) for f in dicts):
         raise AssertionError("(i) TimingHook lost a file")
     log(f"(i) TimingHook through apply_batch: {dicts[-1]['timing']}")
@@ -1737,33 +1729,30 @@ def write_community_snapshot(root: Path) -> dict:
 
 
 @contextlib.contextmanager
-def clustering_timer(pipeline, seconds: dict, inputs: list = None):
-    """Host seconds in ``pipeline.clustering`` (and its inputs kept in
-    ``inputs``)."""
+def clustering_inputs(pipeline, inputs: list):
+    """Each call of ``pipeline.clustering``'s arguments and result, kept
+    in ``inputs`` (its host seconds are the ``finalize/clustering`` span's,
+    ``recorded_seconds``)."""
     clustering = pipeline.clustering
 
-    def timed(*args, **kwargs):
-        start = time.perf_counter()
+    def kept(*args, **kwargs):
         out = clustering(*args, **kwargs)
-        seconds["clustering"] = seconds.get("clustering", 0.0) + \
-            time.perf_counter() - start
-        if inputs is not None:
-            inputs.append((args, kwargs, out))
+        inputs.append((args, kwargs, out))
         return out
-    pipeline.clustering = timed
+    pipeline.clustering = kept
     try:
-        yield seconds
+        yield inputs
     finally:
         pipeline.clustering = clustering
 
 
 def serving_pass(pipeline, files: list) -> dict:
     """One ``apply_batch`` pass with host seconds in ``_stage``,
-    ``_finalize`` and clustering."""
-    seconds = {}
-    with host_timers(pipeline, seconds), clustering_timer(pipeline, seconds):
-        seconds["wall"] = wall_seconds(lambda: run_batch(pipeline, files))
-    return seconds
+    ``_finalize`` and clustering, from the pipeline's spans."""
+    from pyannote_audio_tpu_torch.telemetry import spans
+    with spans.recording() as recording:
+        wall = wall_seconds(lambda: run_batch(pipeline, files))
+    return dict(recorded_seconds(recording), wall=wall)
 
 
 def vbx_init(clustering, embeddings, clean_frames, num_frames):
@@ -1922,7 +1911,7 @@ def phase_community(device: torch.device, workdir: Path,
     torch.cuda.synchronize()
     reset_counts(pipeline)
     inputs = []
-    with clustering_timer(pipeline, {}, inputs):
+    with clustering_inputs(pipeline, inputs):
         batch = run_batch(pipeline, files)
     torch.cuda.synchronize()
     counts = read_counts(pipeline)
@@ -2469,18 +2458,20 @@ def check_device_ahc(pipeline, device, workdir: Path) -> dict:
     from scipy.cluster.hierarchy import fcluster, linkage
     from pyannote_audio_tpu_torch.ops.ahc import device_linkage
     from pyannote_audio_tpu_torch.pipelines.clustering import _unit
+    from pyannote_audio_tpu_torch.telemetry import spans
     files = write_files(workdir, SERVING_MINUTES)
     passes, inputs, results = {}, {}, {}
     for gate in ("0", "1", "0", "1"):
         with environ({"PYANNOTE_TPU_DEVICE_AHC": gate}):
             run_batch(pipeline, files[-2:])                     # warm
-            seconds, captured = {}, []
+            captured = []
 
             def call(gate=gate):
                 results[gate] = run_batch(pipeline, files)
-            with host_timers(pipeline, seconds), \
-                    clustering_timer(pipeline, seconds, captured):
-                seconds["wall"] = wall_seconds(call)
+            with spans.recording() as recording, \
+                    clustering_inputs(pipeline, captured):
+                wall = wall_seconds(call)
+        seconds = dict(recorded_seconds(recording), wall=wall)
         passes.setdefault(gate, []).append(seconds)
         inputs[gate] = captured
     for gate, label in (("0", "host scipy"), ("1", "device AHC")):

@@ -33,6 +33,7 @@ from typing import Any, Callable, Dict, List, Optional, Union
 import torch
 from torch import nn
 
+from ..telemetry.spans import span
 from ..utils import native, yaml_subset
 from ..utils.runtime import check_device
 from .inference import Inference, pin_waveform
@@ -380,7 +381,9 @@ class Pipeline:
                  hook: Optional[Callable] = None, **kwargs):
         """Apply to one file, or to a list (any iterable that is not a
         path or a mapping) of files through ``_apply_batch``. Each call
-        is one ``pipeline_apply`` telemetry event (opt-in, ``telemetry``)."""
+        is one ``pipeline_apply`` telemetry event (opt-in, ``telemetry``)
+        and one span (``apply`` or ``apply_batch``, ``telemetry/spans.py``)
+        while spans are recorded."""
         from ..telemetry import track_pipeline_apply
         track_pipeline_apply(self, file,
                              num_speakers=kwargs.get("num_speakers"),
@@ -402,10 +405,13 @@ class Pipeline:
                 hasattr(file, "__iter__")
                 and not isinstance(file, (str, Path, Mapping))
                 and not hasattr(file, "read")):
-            return self._apply_batch(list(file), hook=hook, **kwargs)
+            with span("apply_batch"):
+                return self._apply_batch(list(file), hook=hook, **kwargs)
         file = self.prepare_one(file)
         # stateful hooks (TimingHook, ArtifactHook) write into the file
-        return self.apply(file, hook=self.setup_hook(file, hook), **kwargs)
+        with span("apply", file):
+            return self.apply(file, hook=self.setup_hook(file, hook),
+                              **kwargs)
 
     def _apply_batch(self, files: List[AudioFile],
                      hook: Optional[Callable] = None, **kwargs):

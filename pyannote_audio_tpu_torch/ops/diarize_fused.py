@@ -74,8 +74,9 @@ def fused_reconstruct(scores: torch.Tensor, hard_clusters: torch.Tensor,
     active iff its rank (0 = loudest, ties by cluster index) is below the
     count, or below min(count, 1) for the exclusive variant.
     """
-    neg_inf = torch.tensor(float("-inf"), dtype=scores.dtype,
-                           device=scores.device)
+    # filled on the device: a host scalar's copy would make the host wait
+    # for all the work queued ahead of the reconstruction
+    neg_inf = scores.new_full((), float("-inf"))
     data = torch.nan_to_num(scores, nan=float("-inf"))
     member = hard_clusters[:, None, :, None] == torch.arange(
         num_clusters, device=scores.device)                  # (C, 1, S, K)

@@ -18,6 +18,11 @@ frame counts that ``ops.diarize_fused.fused_count_stats`` computes, with
 the chunks' frame count; VBx also takes the active-frame counts
 (``speaker_frames``), and oracle clustering the file, its binarized
 segmentation and the model's frames.
+
+While spans are recorded (``telemetry/spans.py``), a call opens
+``linkage`` (agglomerative: the dendrogram and its cut, on the host or
+the device; VBx: its AHC initialization), ``vbx`` (VBx: the PLDA
+transform and the EM) and ``assign`` (the centroids and the assignment).
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from ..core.plda import PLDA
 from ..core.segment import SlidingWindow, SlidingWindowFeature
 from ..ops.ahc import device_linkage
 from ..ops.kmeans import kmeans
+from ..telemetry.spans import span
 from ..utils.runtime import device_flag
 from ..utils.vbx import cluster_vbx
 
@@ -152,9 +158,10 @@ class BaseClustering(Pipeline):
         train_clusters = self.cluster(train, min_clusters=min_clusters,
                                       max_clusters=max_clusters,
                                       num_clusters=num_clusters)
-        return self.assign_embeddings(
-            embeddings, chunk_idx, speaker_idx, train_clusters,
-            constrained=self.constrained_assignment)
+        with span("assign"):
+            return self.assign_embeddings(
+                embeddings, chunk_idx, speaker_idx, train_clusters,
+                constrained=self.constrained_assignment)
 
 
 def _single_cluster(embeddings: np.ndarray, train: np.ndarray):
@@ -197,23 +204,24 @@ class AgglomerativeClustering(BaseClustering):
         if num_embeddings == 1:
             return np.zeros((1,), dtype=np.uint8)
 
-        # centroid/median/ward need euclidean: unit-normalize instead
-        if self.metric == "cosine" and \
-                self.method in ("centroid", "median", "ward"):
-            if self.method == "centroid" and device_flag(
-                    "PYANNOTE_TPU_DEVICE_AHC", self.device,
-                    accelerator_default=False):
-                dendrogram = device_linkage(_unit(embeddings),
-                                            device=self.device)
+        with span("linkage"):
+            # centroid/median/ward need euclidean: unit-normalize instead
+            if self.metric == "cosine" and \
+                    self.method in ("centroid", "median", "ward"):
+                if self.method == "centroid" and device_flag(
+                        "PYANNOTE_TPU_DEVICE_AHC", self.device,
+                        accelerator_default=False):
+                    dendrogram = device_linkage(_unit(embeddings),
+                                                device=self.device)
+                else:
+                    dendrogram = linkage(_unit(embeddings),
+                                         method=self.method,
+                                         metric="euclidean")
             else:
-                dendrogram = linkage(_unit(embeddings), method=self.method,
-                                     metric="euclidean")
-        else:
-            dendrogram = linkage(embeddings, method=self.method,
-                                 metric=self.metric)
-
-        clusters = fcluster(dendrogram, self.threshold,
-                            criterion="distance") - 1
+                dendrogram = linkage(embeddings, method=self.method,
+                                     metric=self.metric)
+            clusters = fcluster(dendrogram, self.threshold,
+                                criterion="distance") - 1
 
         def large_of(assign):
             uniq, counts = np.unique(assign, return_counts=True)
@@ -338,46 +346,50 @@ class VBxClustering(BaseClustering):
 
         # AHC initialization on unit-normalized embeddings
         normed = train / np.linalg.norm(train, axis=1, keepdims=True)
-        dendrogram = linkage(normed, method="centroid", metric="euclidean")
-        ahc = fcluster(dendrogram, self.threshold, criterion="distance") - 1
+        with span("linkage"):
+            dendrogram = linkage(normed, method="centroid",
+                                 metric="euclidean")
+            ahc = fcluster(dendrogram, self.threshold,
+                           criterion="distance") - 1
         _, ahc = np.unique(ahc, return_inverse=True)
 
         # VBx EM in the PLDA latent space
-        gamma, pi = cluster_vbx(ahc, self.plda(train), self.plda.phi,
-                                fa=self.Fa, fb=self.Fb, max_iters=20,
-                                device=self.device)
+        with span("vbx"):
+            gamma, pi = cluster_vbx(ahc, self.plda(train), self.plda.phi,
+                                    fa=self.Fa, fb=self.Fb, max_iters=20,
+                                    device=self.device)
+        with span("assign"):
+            # centroids from the responsibilities of surviving speakers
+            keep = pi > 1e-7
+            weights = gamma[:, keep]                           # (T, S_kept)
+            totals = np.maximum(weights.sum(axis=0)[:, None], 1e-8)
+            centroids = (weights.T @ train) / totals
 
-        # centroids from the responsibilities of surviving speakers
-        keep = pi > 1e-7
-        weights = gamma[:, keep]                               # (T, S_kept)
-        totals = np.maximum(weights.sum(axis=0)[:, None], 1e-8)
-        centroids = (weights.T @ train) / totals
+            # KMeans when the count constraints are violated
+            auto = centroids.shape[0]
+            if auto < min_clusters:
+                num_clusters = min_clusters
+            elif auto > max_clusters:
+                num_clusters = max_clusters
+            if num_clusters and num_clusters != auto:
+                constrained = False
+                km = self._kmeans(normed, num_clusters)
+                # an id the port's KMeans left without members gets no centroid
+                centroids = np.stack([train[km == k].mean(axis=0)
+                                      for k in np.unique(km)])
 
-        # KMeans when the count constraints are violated
-        auto = centroids.shape[0]
-        if auto < min_clusters:
-            num_clusters = min_clusters
-        elif auto > max_clusters:
-            num_clusters = max_clusters
-        if num_clusters and num_clusters != auto:
-            constrained = False
-            km = self._kmeans(normed, num_clusters)
-            # an id the port's KMeans left without members gets no centroid
-            centroids = np.stack([train[km == k].mean(axis=0)
-                                  for k in np.unique(km)])
-
-        dist = cdist(embeddings.reshape(-1, dim), centroids,
-                     metric=self.metric)
-        soft = 2.0 - dist.reshape(num_chunks, num_speakers, -1)
-        if constrained:
-            # silent local speakers below any valid score (nanmin: a NaN
-            # embedding row would make min() NaN, which nan_to_num in
-            # constrained_argmax turns into a tie with the valid scores)
-            soft[speaker_frames == 0] = np.nanmin(soft) - 1.0
-            hard = self.constrained_argmax(soft)
-        else:
-            hard = np.argmax(soft, axis=2)
-        return hard.reshape(num_chunks, num_speakers), soft, centroids
+            dist = cdist(embeddings.reshape(-1, dim), centroids,
+                         metric=self.metric)
+            soft = 2.0 - dist.reshape(num_chunks, num_speakers, -1)
+            if constrained:
+                # silent local speakers below any valid score (nanmin: a NaN
+                # embedding row would make min() NaN, which nan_to_num in
+                # constrained_argmax turns into a tie with the valid scores)
+                soft[speaker_frames == 0] = np.nanmin(soft) - 1.0
+                hard = self.constrained_argmax(soft)
+            else:
+                hard = np.argmax(soft, axis=2)
+            return hard.reshape(num_chunks, num_speakers), soft, centroids
 
 
 class OracleClustering(BaseClustering):

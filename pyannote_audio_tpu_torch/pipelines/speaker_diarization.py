@@ -103,6 +103,7 @@ from ..ops.diarize_fused import (fused_count_stats, fused_reconstruct,
                                  make_embedding_masks)
 from ..ops.fbank import fbank_num_frames, whole_fbank
 from ..parallel.mesh import Mesh, map_shards, replicate
+from ..telemetry.spans import device_mark, device_unit, span
 from ..utils.runtime import device_flag
 from .clustering import Clustering, OracleClustering
 from .speaker_verification import analytic_min_num_samples
@@ -686,10 +687,12 @@ class SpeakerDiarization(SpeakerDiarizationMixin, EmbeddingMixin,
         generic batch path and callers that want to warm a file."""
         self._segmentation.preload(file)
 
-    def _fetch_async(self, tensors: Dict[str, torch.Tensor]):
+    def _fetch_async(self, tensors: Dict[str, torch.Tensor],
+                     timing: bool = False):
         """Start the device -> host copies of ``tensors`` into page-locked
-        host tensors and record an event after them; on the CPU the
-        tensors are the host tensors and there is no event."""
+        host tensors and record an event after them (timing-enabled with
+        ``timing``); on the CPU the tensors are the host tensors and there
+        is no event."""
         if self.device.type != "cuda":
             return dict(tensors), None
         host = {}
@@ -697,7 +700,7 @@ class SpeakerDiarization(SpeakerDiarizationMixin, EmbeddingMixin,
             host[name] = torch.empty(tensor.shape, dtype=tensor.dtype,
                                      pin_memory=True)
             host[name].copy_(tensor, non_blocking=True)
-        event = torch.cuda.Event()
+        event = torch.cuda.Event(enable_timing=timing)
         event.record()
         return host, event
 
@@ -712,70 +715,80 @@ class SpeakerDiarization(SpeakerDiarizationMixin, EmbeddingMixin,
         statistics, the pooling masks and the embeddings are queued on the
         current stream, then the copies of the count, the statistics and
         the embeddings into page-locked host memory and an event after
-        them. ``_finalize`` does the host half.
+        them. ``_finalize`` does the host half. Spans: ``stage``, with
+        ``segmentation`` and ``embedding`` inside; while recording on the
+        card, the queued work is the file's ``stage`` device unit.
         """
-        if kwargs:
-            warnings.warn(f"Ignoring unexpected keyword arguments: "
-                          f"{', '.join(kwargs)}")
-        hook = self.setup_hook(file, hook=hook)
-        num_speakers, min_speakers, max_speakers = set_num_speakers(
-            num_speakers=num_speakers, min_speakers=min_speakers,
-            max_speakers=max_speakers)
-        if self._expects_num_speakers and num_speakers is None:
-            if isinstance(file, Mapping) and "annotation" in file:
-                num_speakers = len(file["annotation"].labels())
-            else:
-                raise ValueError(f"num_speakers must be provided when using "
-                                 f"{self.klustering} clustering")
-        waveform = source = sample_rate = None
-        # in training, a file whose caches hold what its models would give
-        # is not even decoded
-        if not (self.training and self.CACHED_SEGMENTATION in file and (
-                self._embedding is None
-                or self._cached_embeddings(file) is not None)):
-            waveform, sample_rate = self._audio(file)
-            source = self._source(waveform, file)
+        with span("stage", file):
+            if kwargs:
+                warnings.warn(f"Ignoring unexpected keyword arguments: "
+                              f"{', '.join(kwargs)}")
+            hook = self.setup_hook(file, hook=hook)
+            num_speakers, min_speakers, max_speakers = set_num_speakers(
+                num_speakers=num_speakers, min_speakers=min_speakers,
+                max_speakers=max_speakers)
+            if self._expects_num_speakers and num_speakers is None:
+                if isinstance(file, Mapping) and "annotation" in file:
+                    num_speakers = len(file["annotation"].labels())
+                else:
+                    raise ValueError(f"num_speakers must be provided when "
+                                     f"using {self.klustering} clustering")
+            waveform = source = sample_rate = None
+            # the file's device unit starts with its first device call
+            start = device_mark(self.device)
+            # in training, a file whose caches hold what its models would
+            # give is not even decoded
+            if not (self.training and self.CACHED_SEGMENTATION in file and (
+                    self._embedding is None
+                    or self._cached_embeddings(file) is not None)):
+                waveform, sample_rate = self._audio(file)
+                source = self._source(waveform, file)
 
-        segmentations = self.get_segmentations(
-            file, hook=hook, source=source, sample_rate=sample_rate)
-        hook("segmentation", segmentations)
-        # queued behind segmentation, before anything the host waits for
-        trunk = self._start_shared_trunk(source) \
-            if self._embedding is not None and not self.training else None
-        scores = segmentations.data                           # (C, F, S)
-        binarized = segmentations
-        if not self._powerset:
-            threshold = self.segmentation.threshold
-            binarized = SlidingWindowFeature(
-                hysteresis(scores.transpose(0, 1), threshold, threshold,
-                           initial_on=False).transpose(0, 1).to(
-                               scores.dtype), segmentations.sliding_window)
-        offsets, num_output_frames, window = self._aggregation_grid(
-            segmentations.sliding_window,
-            self._segmentation.model.receptive_field, scores.shape[0])
-        offsets_dev = to_device(offsets, self.device)
-        count, speaker_frames, clean_frames = fused_count_stats(
-            binarized.data, offsets_dev, num_output_frames)
-        fetch = {"count": count, "speaker_frames": speaker_frames,
-                 "clean_frames": clean_frames}
-        embeddings = None
-        if self._embedding is not None:
-            embeddings = self.get_embeddings(
-                source, binarized,
-                exclude_overlap=self.embedding_exclude_overlap, trunk=trunk,
-                hook=hook, cache=file, defer_fetch=True)
-            fetch["embeddings"] = embeddings
-        host, event = self._fetch_async(fetch)
-        return {"file": file, "hook": hook, "num_speakers": num_speakers,
-                "min_speakers": min_speakers, "max_speakers": max_speakers,
-                # the host waveform stays referenced until the file is
-                # finalized: a pinned one is what its upload reads
-                "waveform": waveform, "scores": scores,
-                "binarized": binarized.data,
-                "chunk_window": segmentations.sliding_window,
-                "offsets": offsets_dev,
-                "num_output_frames": num_output_frames, "window": window,
-                "host": host, "event": event}
+            with span("segmentation"):
+                segmentations = self.get_segmentations(
+                    file, hook=hook, source=source, sample_rate=sample_rate)
+            hook("segmentation", segmentations)
+            # queued behind segmentation, before anything the host waits for
+            trunk = None
+            if self._embedding is not None and not self.training:
+                with span("embedding"):
+                    trunk = self._start_shared_trunk(source)
+            scores = segmentations.data                           # (C, F, S)
+            binarized = segmentations
+            if not self._powerset:
+                threshold = self.segmentation.threshold
+                binarized = SlidingWindowFeature(
+                    hysteresis(scores.transpose(0, 1), threshold, threshold,
+                               initial_on=False).transpose(0, 1).to(
+                                   scores.dtype), segmentations.sliding_window)
+            offsets, num_output_frames, window = self._aggregation_grid(
+                segmentations.sliding_window,
+                self._segmentation.model.receptive_field, scores.shape[0])
+            offsets_dev = to_device(offsets, self.device)
+            count, speaker_frames, clean_frames = fused_count_stats(
+                binarized.data, offsets_dev, num_output_frames)
+            fetch = {"count": count, "speaker_frames": speaker_frames,
+                     "clean_frames": clean_frames}
+            embeddings = None
+            if self._embedding is not None:
+                with span("embedding"):
+                    embeddings = self.get_embeddings(
+                        source, binarized,
+                        exclude_overlap=self.embedding_exclude_overlap,
+                        trunk=trunk, hook=hook, cache=file, defer_fetch=True)
+                fetch["embeddings"] = embeddings
+            host, event = self._fetch_async(fetch, timing=start is not None)
+            device_unit("stage", file, start, event)
+            return {"file": file, "hook": hook, "num_speakers": num_speakers,
+                    "min_speakers": min_speakers, "max_speakers": max_speakers,
+                    # the host waveform stays referenced until the file is
+                    # finalized: a pinned one is what its upload reads
+                    "waveform": waveform, "scores": scores,
+                    "binarized": binarized.data,
+                    "chunk_window": segmentations.sliding_window,
+                    "offsets": offsets_dev,
+                    "num_output_frames": num_output_frames, "window": window,
+                    "host": host, "event": event}
 
     def apply(self, file: Dict, num_speakers: Optional[int] = None,
               min_speakers: Optional[int] = None,
@@ -798,7 +811,8 @@ class SpeakerDiarization(SpeakerDiarizationMixin, EmbeddingMixin,
         ahead of staging, host work only (read, downmix, page-locked
         copy); every CUDA call stays on this thread. A finalized file's
         device buffers, and the waveform this machinery decoded, are
-        dropped.
+        dropped. Span: ``decode_wait`` (a wait) where this thread joins a
+        file's decode thread or decodes the file itself.
         """
         if not files:
             return []
@@ -818,13 +832,16 @@ class SpeakerDiarization(SpeakerDiarizationMixin, EmbeddingMixin,
         results = []
         try:
             # file 0 is on the critical path either way
-            self._decode_into(files[0], False)
+            with span("decode_wait", files[0], wait=True):
+                self._decode_into(files[0], False)
             for i, file in enumerate(files):
                 t = decode_threads.pop(i, None)
-                if t is not None:
-                    t.join()
-                elif i > 0:
-                    self._decode_into(file, False)
+                if t is not None or i > 0:
+                    with span("decode_wait", file, wait=True):
+                        if t is not None:
+                            t.join()
+                        else:
+                            self._decode_into(file, False)
                 start_prefetch(i + window)
                 staged.append(self._stage(file, hook=hook, **kwargs))
                 if len(staged) > stage_ahead:
@@ -849,73 +866,97 @@ class SpeakerDiarization(SpeakerDiarizationMixin, EmbeddingMixin,
     def _reconstruct(self, staged: Dict[str, Any], hard_clusters: np.ndarray,
                      count: np.ndarray, num_clusters: int) -> np.ndarray:
         """(2, frames, clusters) float32: the normal and the exclusive
-        discrete diarization, computed on the device."""
+        discrete diarization, computed on the device (while recording on
+        the card, the file's ``reconstruct`` device unit) and copied back
+        in the ``reconstruct_wait`` span."""
+        start = device_mark(self.device)
         binary, exclusive = fused_reconstruct(
             staged["scores"], to_device(hard_clusters, self.device),
             staged["offsets"], to_device(count, self.device),
             num_clusters, staged["num_output_frames"])
-        return torch.stack([binary, exclusive]).cpu().numpy().astype(
-            np.float32)
+        both = torch.stack([binary, exclusive])
+        device_unit("reconstruct", staged["file"], start,
+                    device_mark(self.device))
+        with span("reconstruct_wait", wait=True):
+            both = both.cpu()
+        return both.numpy().astype(np.float32)
 
     @torch.inference_mode()
     def _finalize(self, staged: Dict[str, Any]
                   ) -> Union[DiarizeOutput, Annotation]:
         """Host half of ``apply``: wait for the staged copies, cluster,
-        reconstruct, annotate. Oracle clustering fetches the binarized
-        scores here, never in ``_stage``."""
+        reconstruct, annotate (spans ``finalize``, with ``staged_wait``,
+        ``clustering``, ``reconstruct`` and ``annotate`` inside). Oracle
+        clustering fetches the binarized scores here, never in
+        ``_stage``."""
         file, hook = staged["file"], staged["hook"]
-        min_speakers = staged["min_speakers"]
-        max_speakers = staged["max_speakers"]
-        if staged["event"] is not None:
-            staged["event"].synchronize()
-        host = {name: tensor.numpy()
-                for name, tensor in staged["host"].items()}
-        count = SlidingWindowFeature(host["count"], staged["window"])
-        hook("speaker_counting", count)
+        with span("finalize", file):
+            min_speakers = staged["min_speakers"]
+            max_speakers = staged["max_speakers"]
+            if staged["event"] is not None:
+                with span("staged_wait", wait=True):
+                    staged["event"].synchronize()
+            host = {name: tensor.numpy()
+                    for name, tensor in staged["host"].items()}
+            count = SlidingWindowFeature(host["count"], staged["window"])
+            hook("speaker_counting", count)
 
-        if np.nanmax(count.data) == 0:
-            # silent file
-            output = DiarizeOutput(
-                Annotation(uri=file["uri"]), Annotation(uri=file["uri"]),
-                np.zeros((0, self._embedding.dimension
-                          if self._embedding is not None else 0)))
-            return output.speaker_diarization if self.legacy else output
+            if np.nanmax(count.data) == 0:
+                # silent file
+                output = DiarizeOutput(
+                    Annotation(uri=file["uri"]), Annotation(uri=file["uri"]),
+                    np.zeros((0, self._embedding.dimension
+                              if self._embedding is not None else 0)))
+                return output.speaker_diarization if self.legacy else output
 
-        embeddings = host.get("embeddings")
-        if embeddings is not None:
-            hook("embeddings", embeddings)
-        oracle = {}
-        if isinstance(self.clustering, OracleClustering):
-            oracle = {"segmentations": SlidingWindowFeature(
-                          staged["binarized"].cpu().numpy(),
-                          staged["chunk_window"]),
-                      "file": file,
-                      "frames": self._segmentation.model.receptive_field}
-        hard_clusters, _, centroids = self.clustering(
-            embeddings, host["clean_frames"],
-            num_frames=staged["scores"].shape[1],
-            num_clusters=staged["num_speakers"], min_clusters=min_speakers,
-            max_clusters=max_speakers,
-            speaker_frames=host["speaker_frames"], **oracle)
+            embeddings = host.get("embeddings")
+            if embeddings is not None:
+                hook("embeddings", embeddings)
+            oracle = {}
+            if isinstance(self.clustering, OracleClustering):
+                oracle = {"segmentations": SlidingWindowFeature(
+                              staged["binarized"].cpu().numpy(),
+                              staged["chunk_window"]),
+                          "file": file,
+                          "frames": self._segmentation.model.receptive_field}
+            with span("clustering"):
+                hard_clusters, _, centroids = self.clustering(
+                    embeddings, host["clean_frames"],
+                    num_frames=staged["scores"].shape[1],
+                    num_clusters=staged["num_speakers"],
+                    min_clusters=min_speakers, max_clusters=max_speakers,
+                    speaker_frames=host["speaker_frames"], **oracle)
 
-        num_different_speakers = int(np.max(hard_clusters)) + 1
-        if num_different_speakers < min_speakers or \
-                num_different_speakers > max_speakers:
-            warnings.warn(textwrap.dedent(
-                f"""
+            num_different_speakers = int(np.max(hard_clusters)) + 1
+            if num_different_speakers < min_speakers or \
+                    num_different_speakers > max_speakers:
+                warnings.warn(textwrap.dedent(
+                    f"""
                 The detected number of speakers ({num_different_speakers})
                 for {file['uri']} is outside the given bounds
                 [{min_speakers}, {max_speakers}]. The audio file may be too
                 short for {min_speakers} speakers.
                 """))
 
-        cnt = np.minimum(count.data, max_speakers).astype(np.int8).reshape(-1)
-        hard_clusters = np.asarray(hard_clusters, dtype=np.int64)
-        hard_clusters[host["speaker_frames"] == 0] = -2      # inactive
-        num_clusters = max(int(hard_clusters.max()) + 1,
-                           int(cnt.max()) if len(cnt) else 0, 1)
-        binary, exclusive = self._reconstruct(staged, hard_clusters, cnt,
-                                              num_clusters)
+            cnt = np.minimum(count.data, max_speakers).astype(
+                np.int8).reshape(-1)
+            hard_clusters = np.asarray(hard_clusters, dtype=np.int64)
+            hard_clusters[host["speaker_frames"] == 0] = -2  # inactive
+            num_clusters = max(int(hard_clusters.max()) + 1,
+                               int(cnt.max()) if len(cnt) else 0, 1)
+            with span("reconstruct"):
+                binary, exclusive = self._reconstruct(
+                    staged, hard_clusters, cnt, num_clusters)
+            with span("annotate"):
+                output = self._annotate(staged, file, hook, binary,
+                                        exclusive, centroids)
+            return output.speaker_diarization if self.legacy else output
+
+    def _annotate(self, staged: Dict[str, Any], file, hook,
+                  binary: np.ndarray, exclusive: np.ndarray,
+                  centroids: Optional[np.ndarray]) -> DiarizeOutput:
+        """Both diarizations as Annotations, labelled, and the centroids
+        in their labels' order."""
         window = staged["window"]
         discrete = SlidingWindowFeature(binary, window)
         hook("discrete_diarization", discrete)
@@ -949,5 +990,4 @@ class SpeakerDiarization(SpeakerDiarizationMixin, EmbeddingMixin,
                                for index, label in mapping.items()}
             centroids = centroids[[inverse_mapping[label]
                                    for label in labels]]
-        output = DiarizeOutput(diarization, exclusive_diarization, centroids)
-        return output.speaker_diarization if self.legacy else output
+        return DiarizeOutput(diarization, exclusive_diarization, centroids)

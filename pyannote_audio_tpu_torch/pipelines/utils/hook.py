@@ -15,6 +15,8 @@ from typing import Any, Mapping, Optional, Text
 
 import torch
 
+from ...telemetry import spans
+
 
 class ArtifactHook:
     """Capture intermediate artifacts into ``file[file_key]``."""
@@ -131,8 +133,10 @@ class TraceHook:
 
     With a ``log_dir``, entering the hook also starts a
     ``torch.profiler.profile`` of the host and the CUDA device (when
-    there is one), and leaving it writes the Chrome trace
-    ``trace.json`` there.
+    there is one) and turns span recording on (``telemetry/spans.py``),
+    so the pipelines' spans show as ranges beside the steps; leaving it
+    writes the Chrome trace ``trace.json`` there and keeps what was
+    recorded in ``recording``.
     """
 
     def __init__(self, log_dir: Optional[Text] = None):
@@ -140,6 +144,8 @@ class TraceHook:
         self._current = None
         self._span = None
         self._profile = None
+        self._recorder = None
+        self.recording = None
 
     def __enter__(self):
         if self.log_dir is not None:
@@ -148,6 +154,8 @@ class TraceHook:
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
             self._profile = torch.profiler.profile(activities=activities)
             self._profile.__enter__()
+            self._recorder = spans.recording()
+            self.recording = self._recorder.__enter__()
         return self
 
     def __exit__(self, *exc):
@@ -155,6 +163,9 @@ class TraceHook:
             self._span.__exit__(None, None, None)
             self._span = None
             self._current = None
+        if self._recorder is not None:
+            self._recorder.__exit__(*exc)
+            self._recorder = None
         if self._profile is not None:
             self._profile.__exit__(*exc)
             Path(self.log_dir).mkdir(parents=True, exist_ok=True)

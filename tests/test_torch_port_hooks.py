@@ -3,7 +3,8 @@
 Held:
 - the hook classes behave as the JAX package's (tests/test_hooks.py);
   ``TraceHook`` opens one ``torch.profiler.record_function`` region per
-  step and, with a ``log_dir``, writes a Chrome trace there;
+  step and, with a ``log_dir``, records the pipeline's spans and writes a
+  Chrome trace there that holds both;
 - the sequence of ``(step_name, artifact is None, total, completed)``
   calls of the port's pipeline equals the JAX pipeline's on the same file
   and weights, whole and in forced slices, and so do the progress calls
@@ -37,6 +38,7 @@ from pyannote_audio_tpu_torch.pipelines.utils.hook import (ArtifactHook,
                                                            ProgressHook,
                                                            TimingHook,
                                                            TraceHook)
+from pyannote_audio_tpu_torch.telemetry import spans
 from test_torch_port_models import (jax_pyannet, jax_wespeaker,
                                     torch_pyannet_from, torch_wespeaker_from)
 from test_torch_port_pipeline import PARAMS
@@ -92,7 +94,7 @@ def test_hooks_compose_and_progress_runs():
     assert file["artifact"] == {"x": 42}
 
 
-def test_trace_hook_regions_and_chrome_trace(tmp_path):
+def test_trace_hook_regions_and_chrome_trace(tmp_path, pipelines):
     with TraceHook(str(tmp_path)) as hook:
         for step in ("segmentation", "segmentation", "embeddings"):
             hook(step, None)
@@ -104,6 +106,19 @@ def test_trace_hook_regions_and_chrome_trace(tmp_path):
     with TraceHook() as hook:
         hook("segmentation", None)
     assert [p.name for p in tmp_path.iterdir()] == ["trace.json"]
+    assert hook.recording is None
+    # with one, the pipeline's spans are recorded while the hook is
+    # entered and show in the trace as ranges beside the steps
+    file, port, _ = pipelines
+    with TraceHook(str(tmp_path / "apply")) as hook:
+        port(dict(file), hook=hook)
+    assert spans.span("probe") is spans.OFF
+    trace = json.loads((tmp_path / "apply" / "trace.json").read_text())
+    names = {event.get("name") for event in trace["traceEvents"]}
+    assert {"apply", "stage", "finalize", "stage/segmentation",
+            "finalize/clustering", "segmentation", "embeddings"} <= names
+    assert {"stage", "finalize"} <= {s.path
+                                     for s in hook.recording.closed()}
 
 
 # -- the pipeline's calls against the JAX pipeline's --------------------------

@@ -1,6 +1,7 @@
 """Run the PyTorch/CUDA port's main paths on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase
+    python3 chip_smoke.py tf32x3     # phases 1, 2 and 3c only
 
 Phases, each fatal on failure:
   1. environment: torch and CUDA versions, the card's name and power
@@ -39,6 +40,14 @@ Phases, each fatal on failure:
      for H = 384 and 512 and at its edges, and LSTMRecurrence against the
      all-plain autograd at H = 512, each timed beside its bound, its plain
      version and cuDNN's float32 layer (in rounds between the port's);
+     3c. the 3xTF32 GEMM (``ops/tf32x3_gemm.py``) at the float32 WavLM-base
+     trunk's shapes (its linears at 32 x 499 rows, convs 1-6 over 32
+     ten-second chunks), each against a float64 product (at most 4x the
+     library's float32 error) and timed beside its bound (3 x 2MNK at
+     495 TFLOP/s), its plain version and the library's float32 call
+     under ``exact_float32`` (cuBLAS, cuDNN), then ``.launches`` and
+     ``.torch_calls`` over one SSeRiouSS file (every product on the
+     kernel, none on torch);
   4. the exact path (the accelerator gates PYANNOTE_TPU_SEG_BF16,
      _SHARED_SINC and _SHARED_TRUNK forced to "0", a float32 trunk,
      PYANNOTE_TPU_LSTM_PRECISION=highest):
@@ -377,7 +386,8 @@ def phase_build() -> None:
     from pyannote_audio_tpu_torch.utils.build import build, build_host
     with ThreadPoolExecutor(4) as pool:
         kernels = [pool.submit(build, name) for name in
-                   ("lstm_recurrence", "lstm_recurrence_backward")]
+                   ("lstm_recurrence", "lstm_recurrence_backward",
+                    "tf32x3_gemm")]
         audio = pool.submit(build_host, "pat_audio")
         codec = pool.submit(native.codec_available)
         infos, audio_info, has_codec = ([k.result() for k in kernels],
@@ -617,6 +627,150 @@ def phase_kernels(device: torch.device) -> dict:
             "layer_ms": layer_ms, "projection_ms": projection_ms,
             "library": library, "t293": t293, "phase10_shapes": new_shapes,
             "phase14_shapes": mesh_shapes}
+
+
+# -- phase 3c: the 3xTF32 GEMM ------------------------------------------------
+
+# the float32 WavLM-base trunk's products at one segmentation batch (32 ten-
+# second chunks, 499 frames): the linears (name, N, K, GELU) at M = 32 x 499,
+# and convs 1-6 (name, input frames, kernel, GELU) over (32, frames, 512)
+TF32X3_ROWS = 32 * 499
+TF32X3_LINEARS = [("q, k, v", 2304, 768, False),
+                  ("out_proj", 768, 768, False),
+                  ("intermediate_dense + GELU", 3072, 768, True),
+                  ("output_dense", 768, 3072, False),
+                  ("feature projection", 768, 512, False)]
+TF32X3_CONVS = [("conv 1", 31999, 3), ("conv 2", 15999, 3),
+                ("conv 3", 7999, 3), ("conv 4", 3999, 3),
+                ("conv 5", 1999, 2), ("conv 6", 999, 2)]
+TF32X3_PEAK = 495e12  # TF32 dense, H100 SXM: three passes a product
+
+
+def tf32x3_row(name, flops, kernel, plain, library, expected) -> dict:
+    """Times (ms, CUDA-event medians) and errors (max |C - C64| / max
+    |C64|) of one shape: the kernel beside its bound (3 TF32 passes at
+    495 TFLOP/s), the plain version, and the library's float32 call."""
+    bound = 3 * flops / TF32X3_PEAK * 1e3
+    row = {"name": name, "gflop": flops / 1e9, "bound_ms": bound}
+    with torch.inference_mode():
+        for key, fn in (("kernel", kernel), ("plain", plain),
+                        ("library", library)):
+            out = fn()
+            row[f"{key}_err"] = ((out.double() - expected).abs().max()
+                                 / expected.abs().max()).item()
+            del out
+            row[f"{key}_ms"] = cuda_ms(fn, runs=3 if key == "plain" else 20)
+    row["tflops"] = flops / row["kernel_ms"] / 1e9
+    row["bound_share"] = bound / row["kernel_ms"]
+    log(f"(3c) {name}: kernel {row['kernel_ms']:.3f} ms "
+        f"({row['tflops']:.1f} TFLOP/s, {100 * row['bound_share']:.1f} % of "
+        f"its bound {bound:.3f} ms), plain {row['plain_ms']:.3f} ms, "
+        f"library (float32, TF32 off) {row['library_ms']:.3f} ms "
+        f"({flops / row['library_ms'] / 1e9:.1f} TFLOP/s); max error / "
+        f"max |C64|: kernel {row['kernel_err']:.3e}, library "
+        f"{row['library_err']:.3e}, plain {row['plain_err']:.3e}")
+    if not row["kernel_err"] <= 4 * row["library_err"]:
+        raise AssertionError(f"(3c) {name}: the kernel is less accurate "
+                             f"than 4x the library's float32 product")
+    return row
+
+
+def phase_tf32x3(device: torch.device, card: str) -> dict:
+    """The 3xTF32 GEMM (``ops/tf32x3_gemm.py``) at the WavLM-base trunk's
+    shapes, against a float64 product, beside its bound, the plain version
+    and the library's float32 call under ``exact_float32`` (cuBLAS for the
+    linears, cuDNN's conv on the (B, C, T) layout the trunk used before);
+    then the kernel's launches and the torch route's calls over one
+    SSeRiouSS file through SpeakerDiarization."""
+    import torch.nn.functional as F
+    from pyannote_audio_tpu_torch.ops import tf32x3_gemm as tf32x3
+    from pyannote_audio_tpu_torch.utils.runtime import exact_float32
+    log(f"phase 3c, the 3xTF32 GEMM, on {card}")
+    g = torch.Generator(device=device).manual_seed(21)
+    rows = []
+    for name, N, K, gelu in TF32X3_LINEARS:
+        a = torch.randn(TF32X3_ROWS, K, generator=g, device=device)
+        layer = torch.nn.Linear(K, N).to(device)
+        w, b = layer.weight.detach(), layer.bias.detach()
+        act = F.gelu if gelu else (lambda y: y)
+        expected = act(a.double() @ w.double().T + b.double())
+        hi, lo = tf32x3.split_tf32(w)
+
+        def library(a=a, w=w, b=b, act=act):
+            with exact_float32():
+                return act(F.linear(a, w, b))
+
+        rows.append(tf32x3_row(
+            name, 2 * TF32X3_ROWS * N * K,
+            lambda a=a, layer=layer, gelu=gelu: tf32x3.linear(a, layer,
+                                                              gelu),
+            lambda a=a, hi=hi, lo=lo, b=b, gelu=gelu:
+                tf32x3.tf32x3_matmul_plain(a, hi, lo, b, gelu),
+            library, expected))
+        del a, expected
+    for name, frames, kernel in TF32X3_CONVS:
+        x = torch.randn(32, frames, 512, generator=g, device=device)
+        conv = torch.nn.Conv1d(512, 512, kernel, stride=2,
+                               bias=False).to(device)
+        w = conv.weight.detach().permute(0, 2, 1).reshape(512, -1)
+        expected = F.gelu(tf32x3.conv_view(x.double(), kernel, 2)
+                          @ w.double().T)
+        hi, lo = tf32x3.split_tf32(w)
+        channels_first = x.transpose(1, 2).contiguous()
+
+        def library(x=channels_first, conv=conv):
+            with exact_float32():
+                return F.gelu(conv(x)).transpose(1, 2)
+
+        rows.append(tf32x3_row(
+            f"{name} + GELU", 2 * 32 * ((frames - kernel) // 2 + 1) * 512
+            * kernel * 512,
+            lambda x=x, conv=conv: tf32x3.strided_conv(x, conv, gelu=True),
+            lambda x=x, kernel=kernel, hi=hi, lo=lo:
+                tf32x3.tf32x3_matmul_plain(tf32x3.conv_view(x, kernel, 2),
+                                           hi, lo, None, True),
+            library, expected))
+        del x, channels_first, expected
+    torch.cuda.empty_cache()
+    return {"shapes": rows, "file": tf32x3_file(device, card)}
+
+
+def tf32x3_file(device: torch.device, card: str) -> dict:
+    """``.launches`` and ``.torch_calls`` of the 3xTF32 GEMM over one
+    1-minute file through SpeakerDiarization with a seeded SSeRiouSS
+    (WavLM-base) and ResNet34: every eligible product of the trunk takes
+    the kernel in inference."""
+    from pyannote_audio_tpu_torch.models.embedding.wespeaker import \
+        WeSpeakerResNet34
+    from pyannote_audio_tpu_torch.models.segmentation.sseriouss import \
+        SSeRiouSS
+    from pyannote_audio_tpu_torch.ops import tf32x3_gemm as tf32x3
+    from pyannote_audio_tpu_torch.pipelines.speaker_diarization import \
+        SpeakerDiarization
+    pipeline = SpeakerDiarization(
+        segmentation=SSeRiouSS(generator=torch.Generator().manual_seed(50)),
+        embedding=WeSpeakerResNet34(generator=torch.Generator()
+                                    .manual_seed(2)),
+        segmentation_batch_size=32, embedding_batch_size=32, device=device)
+    pipeline.instantiate(PARAMS)
+    with tempfile.TemporaryDirectory() as tmp:
+        files = write_files(Path(tmp), (1.0,))
+        before = (tf32x3.tf32x3_gemm.launches,
+                  tf32x3.tf32x3_gemm.torch_calls)
+        wall = wall_seconds(lambda: run_batch(pipeline, files))
+    launches = tf32x3.tf32x3_gemm.launches - before[0]
+    torch_calls = tf32x3.tf32x3_gemm.torch_calls - before[1]
+    batches = len(segmentation_batches((1.0,), SSL_CHUNK_SECONDS, SSL_BATCH))
+    expected = batches * (6 + 1 + 4 * 12)
+    log(f"(3c) one 1-minute SSeRiouSS file through SpeakerDiarization "
+        f"({wall:.2f} s, first call; {card}): tf32x3_gemm.launches "
+        f"{launches} (expected {expected}: {batches} batches x 55), "
+        f".torch_calls {torch_calls}")
+    if launches != expected or torch_calls != 0:
+        raise AssertionError("(3c) the trunk's products did not all take "
+                             "the 3xTF32 kernel")
+    return {"launches": launches, "torch_calls": torch_calls,
+            "batches": batches}
 
 
 def build_pipeline(segmentation, embedding, device):
@@ -6217,7 +6371,15 @@ def main() -> int:
 
     card = timed("1 environment", phase_environment)
     timed("2 build", phase_build)
+    if sys.argv[1:] == ["tf32x3"]:
+        print(json.dumps({"tf32x3": timed("3c tf32x3", phase_tf32x3,
+                                          device, card),
+                          "phase_walls_s": walls}))
+        return 0
+    if sys.argv[1:]:
+        raise SystemExit(f"chip_smoke.py: unknown arguments {sys.argv[1:]}")
     record = timed("3 kernels", phase_kernels, device)
+    record["tf32x3"] = timed("3c tf32x3", phase_tf32x3, device, card)
     record["training_shape"] = timed("3 kernels under autograd",
                                      check_kernel_autograd, device)
     backward = record["training_shape"].pop("backward_kernel")

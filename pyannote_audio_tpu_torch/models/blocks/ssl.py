@@ -19,7 +19,13 @@ over the (out, in) axes at each forward, as the JAX package's converter
 fuses it. Attention is composed torch ops (matmul, softmax, matmul), as
 the JAX package composes it in XLA. Everything runs in float32 with TF32
 off (``utils.runtime.exact_float32``): the JAX package leaves its default
-precision here, which is float32.
+precision here, which is float32. The linears and the feature extractor's
+convs 1-6 run through ``ops.tf32x3_gemm`` (float32-accurate products: the
+hand-written 3xTF32 kernel on a CUDA device, its plain version on the CPU,
+torch's own ops where autograd needs a graph), the q, k and v projections
+as one product; from conv 0's norm and GELU on, the feature extractor
+keeps its activations channels-last, so a strided conv reads its input
+rows in place.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.tf32x3_gemm import linear, linears, strided_conv
 from ...utils.receptive_field import (multi_conv_num_frames,
                                       multi_conv_receptive_field_center,
                                       multi_conv_receptive_field_size)
@@ -74,7 +81,9 @@ def init_conv(conv: nn.Conv1d, generator: Optional[torch.Generator]
 
 
 class ConvLayer(nn.Module):
-    """One feature-extractor conv, its norm (if any) and GELU."""
+    """One feature-extractor conv, its norm (if any) and GELU: conv 0 takes
+    (B, 1, T) and returns channels-last (B, T', C), the others take and
+    return channels-last."""
 
     def __init__(self, in_channels: int, channels: int, kernel: int,
                  stride: int, norm: Optional[str],
@@ -90,17 +99,21 @@ class ConvLayer(nn.Module):
             self.layer_norm = nn.GroupNorm(channels, channels, eps=EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # x: (B, C, T)
-        x = self.conv(x)
-        if self.norm == "layer":
-            x = self.layer_norm(x.transpose(1, 2)).transpose(1, 2)
-        elif self.norm == "group":
-            x = self.layer_norm(x)
-        return F.gelu(x)
+        if self.conv.in_channels == 1:
+            x = self.conv(x)
+            if self.norm == "group":
+                x = self.layer_norm(x)
+            x = x.transpose(1, 2)
+            if self.norm == "layer":
+                x = self.layer_norm(x)
+            return F.gelu(x)
+        if self.norm is None:
+            return strided_conv(x, self.conv, gelu=True)
+        return F.gelu(self.layer_norm(strided_conv(x, self.conv)))
 
 
 class FeatureExtractor(nn.Module):
-    """(B, T) waveform -> (B, C, T') features."""
+    """(B, T) waveform -> (B, T', C) features."""
 
     def __init__(self, channels: int = 512, norm_mode: str = "group",
                  generator: Optional[torch.Generator] = None):
@@ -128,7 +141,7 @@ class FeatureProjection(nn.Module):
         self.projection = init_linear(nn.Linear(channels, hidden), generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.projection(self.layer_norm(x))
+        return linear(self.layer_norm(x), self.projection)
 
 
 class WeightNormConv(nn.Module):
@@ -238,15 +251,15 @@ class Attention(nn.Module):
             bias = gate * position_bias[None]              # (B, H, T, T)
         elif position_bias is not None:
             bias = position_bias[None]
-        q = self.q_proj(h).reshape(B, T, heads, Hd).transpose(1, 2)
-        k = self.k_proj(h).reshape(B, T, heads, Hd).transpose(1, 2)
-        v = self.v_proj(h).reshape(B, T, heads, Hd).transpose(1, 2)
+        q, k, v = (x.reshape(B, T, heads, Hd).transpose(1, 2)
+                   for x in linears(h, (self.q_proj, self.k_proj,
+                                        self.v_proj)))
         logits = torch.matmul(q, k.transpose(-1, -2)) / np.sqrt(Hd)
         if bias is not None:
             logits = logits + bias
         attn = torch.softmax(logits, dim=-1)
         ctx = torch.matmul(attn, v).transpose(1, 2).reshape(B, T, D)
-        return self.out_proj(ctx)
+        return linear(ctx, self.out_proj)
 
 
 class FeedForward(nn.Module):
@@ -258,7 +271,8 @@ class FeedForward(nn.Module):
         self.output_dense = init_linear(nn.Linear(ffn, hidden), generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.output_dense(F.gelu(self.intermediate_dense(x)))
+        return linear(linear(x, self.intermediate_dense, gelu=True),
+                      self.output_dense)
 
 
 class TransformerLayer(nn.Module):
@@ -336,7 +350,7 @@ class SSLEncoder(nn.Module):
     def forward(self, waveforms: torch.Tensor) -> List[torch.Tensor]:
         x = waveforms[:, 0] if waveforms.dim() == 3 else waveforms
         with exact_float32():
-            feats = self.feature_extractor(x).transpose(1, 2)
+            feats = self.feature_extractor(x)
             h = self.feature_projection(feats)
             h = self.encoder.pos_conv_embed(h)
             if not self.pre_ln:

@@ -12,6 +12,9 @@ loads the published one.
 from __future__ import annotations
 
 from portbench import calibration
+from portbench.diarization import (  # noqa: F401  the harness's hooks
+    check, control, install, lstm_launches, lstm_trace, recording_flops,
+    warmup, well_formed)
 from portbench.reference import pyannet, resnet
 from portbench.snapshot import write_checkpoint, write_plda
 from portbench.weights import draw, generator

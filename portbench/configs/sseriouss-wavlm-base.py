@@ -16,6 +16,9 @@ from __future__ import annotations
 import torch
 
 from portbench import calibration
+from portbench.diarization import (  # noqa: F401  the harness's hooks
+    check, control, install, lstm_launches, lstm_trace, recording_flops,
+    warmup, well_formed)
 from portbench.reference import pyannet, resnet, sseriouss
 from portbench.weights import draw, generator
 

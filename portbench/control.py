@@ -4,21 +4,21 @@ configuration states, put in the program's place.
     python3 portbench/control.py --workload <name> --seeds 1 2 3 \
         [--mode fp8|tf32-fp8] [--out control.jsonl]
 
-For each seed it draws the cell's traffic and weights as a run does,
-takes the recordings a run's check takes from a pool (the longest and
-seeded others), and computes the numbers the check compares with the
-reference in the lower mode standing in for the program: its log-probs
-and its embeddings (under the masks of its own hard segmentation) held
-against the float32 reference's. A sound comparison finds it not
-correct. Benchmark runs never run this; it sets the upper reading of
-each limit (``PERF.md``).
+For each seed it draws the cell's traffic and weights as a run does and
+hands them to the configuration module's ``control``, which computes the
+numbers the check compares with the reference in the lower mode standing
+in for the program (for the diarization configurations,
+``portbench/diarization.py``: the longest recording of the pool and
+seeded others, its log-probs and its embeddings, under the masks of its
+own hard segmentation, held against the float32 reference's). A sound
+comparison finds it not correct. Benchmark runs never run this; it sets
+the upper reading of each limit (``PERF.md``).
 """
 
 import argparse
 import json
 import sys
 import tempfile
-import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -27,38 +27,22 @@ if str(ROOT) not in sys.path:
 
 
 def control(workload_name: str, seed: int, mode: str, device,
-            files: int = None, mix: dict = None):
+            files: int = None, mix: dict = None, root: Path = ROOT):
     """-> [(uri, seconds, numbers)] of the seed's checked recordings."""
     from portbench import harness
-    from portbench.reference.check import control_numbers
-    from portbench.reference.pipeline import ReferencePipeline
-    from portbench.traffic.generator import Traffic, load_mix, seeded
-    bench = harness.load_benchmark()
+    from portbench.traffic.generator import Traffic, load_mix
+    bench = harness.load_benchmark(root)
     workload = harness.find(bench["workloads"], workload_name)
     entry = harness.find(bench["configs"], workload["config"])
-    config = json.loads((ROOT / entry["file"]).read_text())
-    module = harness.load_module(
-        ROOT / "portbench" / "configs" / f"{entry['name']}.py",
-        f"portbench_config_{entry['name'].replace('-', '_')}")
+    config = json.loads((root / entry["file"]).read_text())
+    module = harness.config_module(root, entry["name"])
     with tempfile.TemporaryDirectory(prefix="portbench-control-") as tmp:
-        traffic = Traffic(mix or load_mix(workload["traffic"]), seed,
-                          Path(tmp))
+        mix = mix or load_mix(workload["traffic"],
+                              root / harness.HERE.name / "traffic")
+        traffic = Traffic(mix, seed, Path(tmp))
         traffic.write(device)
         ctx = harness.Context(seed, device, Path(tmp), config, traffic)
-        ref = ReferencePipeline(config, module.draw_weights(ctx), device)
-        pool = sorted(traffic.pool, key=lambda r: -r.samples)
-        count = min(files or config["check_files"], len(pool)) - 1
-        others = seeded(seed, 3).choice(len(pool) - 1, size=count,
-                                        replace=False)
-        out = []
-        for rec in [pool[0]] + [pool[1 + i] for i in others]:
-            start = time.perf_counter()
-            found = control_numbers(ref, traffic.audio(rec), mode)
-            harness.log(f"control {mode} seed {seed} pool_{rec.index:02d} "
-                        f"({rec.seconds:.1f} s) in "
-                        f"{time.perf_counter() - start:.3f} s: {found}")
-            out.append((f"pool_{rec.index:02d}", rec.seconds, found))
-        return out
+        return module.control(ctx, module.draw_weights(ctx), mode, files)
 
 
 def main(argv) -> int:
@@ -85,7 +69,7 @@ def main(argv) -> int:
             lines.append({"workload": args.workload, "mode": mode,
                           "seed": seed, "recording": uri,
                           "seconds": seconds, **found})
-    for name in ("logp_mean_gap", "logp_chunk_gap", "ssl_gap", "emb_gap"):
+    for name in config["limits"]:
         if name in lines[0]:
             worst = [max(line[name] for line in lines if line["seed"] == s)
                      for s in args.seeds]

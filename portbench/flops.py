@@ -8,7 +8,12 @@ fbank over the recording's chunk grid, the embedding trunk over the
 recording's own fbank frames once (no panels, no halos), and the pooling
 and projection once per real (chunk, local speaker). So a count follows
 the audio and the published widths only, and a share of the peak taken
-from it cannot pass 100 %.
+from it cannot pass 100 %. A configuration module's ``recording_flops``
+sums a recording's stages from these functions (``diarization.py`` for
+the diarization configurations); a segmentation kind's reference module
+(``portbench/reference/<kind>.py``) gives the FLOPs and LSTM steps of its
+chunk (``chunk_flops``) and of what it runs once over a recording
+(``shared_flops``).
 
 ``lstm_bound`` is the least time of one LSTM recurrence launch (a copy of
 ``chip_smoke.py``'s): bytes (xw read, out written, W_hh read, once each)
@@ -18,7 +23,7 @@ the tensor cores' rate in the precision's mode.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 # NVIDIA H100 SXM (data sheet, dense, 700 W)
 PEAK = {"bf16_flops": 989e12, "fp32_flops": 67e12, "hbm_bytes": 3.35e12}
@@ -106,71 +111,19 @@ def fbank_flops(frames: int, window: int = 400, fft: int = 512,
     return conv1d_flops(frames, window, 1, 2 * bins) + 2 * frames * bins * mel
 
 
-def recording_flops(config: dict, num_samples: int) -> Dict[str, int]:
-    """Per-stage FLOPs of one recording through the configuration."""
-    seg = config["segmentation"]
-    hp = seg["hparams"]
-    rate = hp["sample_rate"]
-    window = int(round(seg["specifications"]["duration"] * rate))
-    step = int(round(config["segmentation_step"] * window))
-    chunks, padded = chunk_grid(num_samples, window, step)
-    classes = 7
-    out = {}
-    if seg["kind"] == "pyannet":
-        per_chunk, _ = pyannet_chunk_flops(
-            window, hp["sincnet"]["stride"], hp["lstm"]["hidden_size"],
-            hp["lstm"]["num_layers"], hp["linear"]["hidden_size"],
-            hp["linear"]["num_layers"], classes)
-        out["sinc"] = conv1d_flops(conv1d_out(padded, 251,
-                                              hp["sincnet"]["stride"]),
-                                   251, 1, 80)
-    else:
-        trunk, steps = wavlm_chunk_flops(window, seg["ssl"])
-        H, layers = hp["lstm"]["hidden_size"], hp["lstm"]["num_layers"]
-        d = seg["ssl"]["hidden"]
-        widths = [2 * H] + [hp["linear"]["hidden_size"]] * \
-            hp["linear"]["num_layers"] + [classes]
-        per_chunk = trunk + lstm_flops(steps, [d] + [2 * H] * (layers - 1),
-                                       H) \
-            + 2 * steps * sum(a * b for a, b in zip(widths, widths[1:]))
-    out["segmentation"] = per_chunk * chunks
-    emb = config["embedding"]["hparams"]
-    frames = conv1d_out(num_samples, 400, 160)
-    out["fbank"] = fbank_flops(conv1d_out(padded, 400, 160))
-    out["trunk"] = resnet_trunk_flops_per_frame(
-        emb["m_channels"], emb["num_blocks"], emb["num_mel_bins"]) * frames
-    freq = emb["num_mel_bins"]
-    for _ in range(3):
-        freq = (freq + 1) // 2
-    pooled = emb["m_channels"] * 8 * freq
-    trunk_frames = conv1d_out(window, 400, 160)
-    for _ in range(3):
-        trunk_frames = (trunk_frames - 1) // 2 + 1
-    speakers = len(seg["specifications"]["classes"])
-    out["pool_and_embed"] = chunks * speakers * (
-        2 * trunk_frames * pooled + 2 * 2 * pooled * emb["embed_dim"])
-    return out
+def chunk_flops(spec: dict, window: int, classes: int) -> Tuple[int, int]:
+    """(FLOPs, LSTM steps) of one chunk through the segmentation model
+    ``spec``, from its kind's reference module
+    (``portbench/reference/<kind>.py``)."""
+    from portbench.reference.segmentation_models import model
+    return model(spec).chunk_flops(spec, window, classes)
 
 
-def lstm_launches(config: dict, num_samples: int) -> List[Tuple[int, int]]:
-    """(T, B) of each recurrence launch of one recording: one per layer
-    and batch of chunks."""
-    seg = config["segmentation"]
-    hp = seg["hparams"]
-    rate = hp["sample_rate"]
-    window = int(round(seg["specifications"]["duration"] * rate))
-    step = int(round(config["segmentation_step"] * window))
-    chunks, _ = chunk_grid(num_samples, window, step)
-    if seg["kind"] == "pyannet":
-        _, steps = pyannet_chunk_flops(window, hp["sincnet"]["stride"], 1, 1,
-                                       1, 1, 1)
-    else:
-        _, steps = wavlm_chunk_flops(window, seg["ssl"])
-    batch = config["segmentation_batch_size"]
-    sizes = [batch] * (chunks // batch) + ([chunks % batch]
-                                           if chunks % batch else [])
-    return [(steps, b) for b in sizes
-            for _ in range(hp["lstm"]["num_layers"])]
+def shared_flops(spec: dict, padded: int) -> Dict[str, int]:
+    """FLOPs by stage of what the segmentation model ``spec`` runs once
+    over a recording grid-padded to ``padded`` samples, not per chunk."""
+    from portbench.reference.segmentation_models import model
+    return model(spec).shared_flops(spec, padded)
 
 
 def lstm_bound(T: int, B: int, H: int, D: int, precision: str) -> float:

@@ -1,8 +1,33 @@
 """One run of one cell: set-up, the measured window, the check, the line.
 
 ``main(argv, started)`` is ``run.py``'s entry. Tests call it with
-``device`` set to the CPU, which skips the look for a card, and may pass
-``prepare(pipeline)`` to break the timed path underneath.
+``device`` set to the CPU, which skips the look for a card, may pass
+``prepare(pipeline)`` to break the timed path underneath, and may give
+another benchmark ``root``: a tree that holds a ``BENCHMARK.json`` and,
+under ``portbench/``, the files it names.
+
+The harness asks everything about a configuration of its module,
+``portbench/configs/<name>.py`` beside ``<name>.json``, which defines:
+
+- ``build(ctx)`` -> (the pipeline on ``ctx.device``, the weights the
+  reference gets), and ``draw_weights(ctx)`` -> those weights alone;
+- ``install(capture, pipeline)``: which calls are timed under which span
+  labels, and what each file keeps for the check (``capture.py``);
+- ``warmup(traffic, config)`` -> the recordings set-up runs;
+- ``lstm_launches(config, samples)`` -> (T, B) of each LSTM kernel launch
+  a recording needs (``launches_short``, on the card);
+- ``recording_flops(config, samples)`` -> FLOPs by stage of a recording;
+- ``lstm_trace(config, recordings)`` -> the trace's ``lstm`` entry
+  (``hidden``, ``directions``, ``precision``, ``launches``);
+- ``well_formed(output)`` -> whether a file's output counts as an answer;
+- ``check(ctx, weights, done, outputs, records)`` -> every compared
+  number, each held to the limit of that name in ``<name>.json``;
+- ``control(ctx, weights, mode, files)`` -> the control's numbers
+  (``control.py``).
+
+The diarization configurations take these from ``portbench/diarization.py``.
+A traffic mix is ``portbench/traffic/<mix>.json``, a per-layer metric the
+reader ``portbench/metrics/<name>.py``: all found under the root by name.
 """
 
 from __future__ import annotations
@@ -41,6 +66,12 @@ def log(message: str) -> None:
 
 def load_benchmark(root: Path = ROOT) -> dict:
     return json.loads((root / "BENCHMARK.json").read_text())
+
+
+def config_module(root: Path, name: str):
+    """The configuration's module, ``portbench/configs/<name>.py``."""
+    return load_module(root / HERE.name / "configs" / f"{name}.py",
+                       f"portbench_config_{name.replace('-', '_')}")
 
 
 def find(entries: List[dict], name: str) -> dict:
@@ -94,13 +125,13 @@ def parse(argv: List[str]) -> argparse.Namespace:
 
 
 def main(argv: List[str], started: Optional[float] = None, device=None,
-         prepare: Optional[Callable] = None, mix: Optional[dict] = None
-         ) -> int:
-    """``device``, ``prepare`` and ``mix`` (in place of the cell's traffic
-    file) serve the tests."""
+         prepare: Optional[Callable] = None, mix: Optional[dict] = None,
+         root: Path = ROOT) -> int:
+    """``device``, ``prepare``, ``mix`` (in place of the cell's traffic
+    file) and ``root`` serve the tests."""
     started = time.perf_counter() if started is None else started
     args = parse(argv)
-    bench = load_benchmark()
+    bench = load_benchmark(root)
     workload = find(bench["workloads"], args.workload)
     entry = find(bench["configs"], workload["config"])
     import torch
@@ -114,40 +145,23 @@ def main(argv: List[str], started: Optional[float] = None, device=None,
     os.environ["TORCH_EXTENSIONS_DIR"] = str(CACHE / "torch_extensions")
     os.environ["TRITON_CACHE_DIR"] = str(CACHE / "triton")
     log(card_line())
-    config = json.loads((ROOT / entry["file"]).read_text())
-    os.environ["PYANNOTE_TPU_LSTM_PRECISION"] = config["lstm_precision"]
+    config = json.loads((root / entry["file"]).read_text())
+    if "lstm_precision" in config:
+        os.environ["PYANNOTE_TPU_LSTM_PRECISION"] = config["lstm_precision"]
     workdir = Path(tempfile.mkdtemp(prefix="portbench-"))
     try:
         return run_cell(args, bench, workload, entry, config, device, workdir,
-                        started, prepare, mix)
+                        started, prepare, mix, root)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
 
 def warmup_recordings(traffic, config: dict):
-    """The shortest recording of the pool that fills one segmentation
-    batch and leaves a tail batch, and with ``warmup_longest`` in the
-    configuration the longest too (the host's and the card's memory
-    caches then hold blocks of every size a list asks for)."""
-    first = _batch_and_tail(traffic, config)
-    longest = max(traffic.pool, key=lambda r: r.samples)
-    if config.get("warmup_longest") and longest is not first:
-        return [first, longest]
-    return [first]
-
-
-def _batch_and_tail(traffic, config: dict):
-    from portbench.flops import chunk_grid
-    seg = config["segmentation"]
-    rate = seg["hparams"]["sample_rate"]
-    window = int(round(seg["specifications"]["duration"] * rate))
-    step = int(round(config["segmentation_step"] * window))
-    batch = config["segmentation_batch_size"]
-    for rec in sorted(traffic.pool, key=lambda r: r.samples):
-        chunks, _ = chunk_grid(rec.samples, window, step)
-        if chunks > batch and chunks % batch:
-            return rec
-    return max(traffic.pool, key=lambda r: r.samples)
+    """The diarization configurations' warm-up, as
+    ``tools/pipeline_spans.py`` asks for it; the harness asks the
+    configuration module."""
+    from portbench.diarization import warmup
+    return warmup(traffic, config)
 
 
 def lstm_launches_counted() -> int:
@@ -157,34 +171,34 @@ def lstm_launches_counted() -> int:
 
 
 def run_cell(args, bench, workload, entry, config, device, workdir: Path,
-             started: float, prepare, mix) -> int:
+             started: float, prepare, mix, root: Path) -> int:
     import torch
 
     from portbench.capture import Capture
-    from portbench.flops import lstm_launches
     from portbench.traffic.generator import Traffic, load_mix
 
     log(f"set-up: imports and device at {time.perf_counter() - started:.3f} s")
-    traffic = Traffic(mix or load_mix(workload["traffic"]), args.seed,
-                      workdir)
+    traffic = Traffic(mix or load_mix(workload["traffic"],
+                                      root / HERE.name / "traffic"),
+                      args.seed, workdir)
     traffic.write(device)
     log(f"set-up: traffic written at {time.perf_counter() - started:.3f} s")
-    module = load_module(HERE / "configs" / f"{entry['name']}.py",
-                         f"portbench_config_{entry['name'].replace('-', '_')}")
+    module = config_module(root, entry["name"])
     ctx = Context(args.seed, device, workdir, config, traffic)
     pipeline, weights = module.build(ctx)
     log(f"set-up: weights drawn, pipeline built at "
         f"{time.perf_counter() - started:.3f} s")
     if prepare is not None:
         prepare(pipeline)
-    capture = Capture(ranges=bool(args.trace)).install(pipeline)
+    capture = Capture(ranges=bool(args.trace))
+    module.install(capture, pipeline)
     on_card = torch.device(device).type == "cuda"
 
     def sync():
         if on_card:
             torch.cuda.synchronize()
 
-    warm = warmup_recordings(traffic, config)
+    warm = module.warmup(traffic, config)
     pipeline([{"audio": str(r.path), "uri": f"warmup_{k}"}
               for k, r in enumerate(warm)])
     sync()
@@ -261,11 +275,11 @@ def run_cell(args, bench, workload, entry, config, device, workdir: Path,
     launches_short = 0
     if on_card:
         for d in done:
-            expected = sum(len(lstm_launches(config, r.samples))
+            expected = sum(len(module.lstm_launches(config, r.samples))
                            for r in d["recordings"])
             launches_short += abs(expected - d["launches"])
     for uri in [f["uri"] for d in done for f in d["files"]]:
-        if not _well_formed(outputs.get(uri)):
+        if not module.well_formed(outputs.get(uri)):
             failed += 1
 
     for d in done:
@@ -276,12 +290,13 @@ def run_cell(args, bench, workload, entry, config, device, workdir: Path,
                                     for k, v in sorted(d["spans"].items())))
     metrics, extra = {}, {}
     if args.trace:
-        trace = trace_summary(done, config, capture.intervals)
+        trace = trace_summary(done, config, capture.intervals, module)
         readers = [m for m in bench["per_layer"]
                    if args.workload in m.get("workloads",
                                              [args.workload])]
         for metric in readers:
-            reader = load_module(HERE / "metrics" / f"{metric['name']}.py",
+            reader = load_module(root / HERE.name / "metrics"
+                                 / f"{metric['name']}.py",
                                  f"portbench_metric_{metric['name']}")
             value = reader.read(trace)
             if value is not None:
@@ -302,8 +317,7 @@ def run_cell(args, bench, workload, entry, config, device, workdir: Path,
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    values = check(config, weights, device, traffic, done, outputs, records,
-                   args.seed)
+    values = module.check(ctx, weights, done, outputs, records)
     if on_card:
         values["launches_short"] = launches_short
     values["failed"] = failed
@@ -335,66 +349,6 @@ def run_cell(args, bench, workload, entry, config, device, workdir: Path,
     return 0
 
 
-def _well_formed(output) -> bool:
-    annotation = getattr(output, "speaker_diarization", None)
-    return annotation is not None and hasattr(annotation, "itertracks")
-
-
-def check(config, weights, device, traffic, done, outputs, records,
-          seed: int) -> Dict[str, float]:
-    """Every compared number, the largest over a seeded sample of the
-    finished recordings (each recording's first finished pass) that always
-    holds the longest."""
-    import numpy as np
-
-    from portbench.reference.check import numbers
-    from portbench.reference.pipeline import ReferencePipeline
-    from portbench.traffic.generator import seeded
-    finished = [(f["uri"], r) for d in done
-                for f, r in zip(d["files"], d["recordings"])
-                if f["uri"] in outputs and "embeddings" in records.get(
-                    f["uri"], {})]
-    longest = max(range(len(finished)), key=lambda i: finished[i][1].samples)
-    rest = [i for i in range(len(finished)) if i != longest]
-    count = min(config["check_files"], len(finished)) - 1
-    chosen = [longest] + list(seeded(seed, 3).choice(rest, size=count,
-                                                     replace=False))
-    ref = ReferencePipeline(config, weights, device)
-    values: Dict[str, float] = {}
-    shares = []
-    for i in chosen:
-        uri, rec = finished[i]
-        record = dict(records[uri], output=outputs[uri])
-        start = time.perf_counter()
-        parts = {}
-        found = numbers(ref, traffic.audio(rec), record, parts,
-                        end_to_end=i == longest)
-        output = record["output"]
-        active = record["speaker_frames"] > 0
-        frames = record["binarized"].shape[1]
-        log(f"{uri}: {traffic.voices(rec)} voices; the program's "
-            f"{len(np.unique(record['hard'][active]))} clusters, "
-            f"{len(output.speaker_diarization.labels())} speakers, "
-            f"{len(list(output.speaker_diarization.itertracks()))} segments"
-            + (f"; the reference alone's {found.pop('clusters')} clusters"
-               if "clusters" in found else "")
-            + f"; {int((record['clean_frames'] >= 0.2 * frames).sum())}"
-            f" embeddings clustered of {active.size}")
-        binarized = record["binarized"].float()
-        active = binarized.sum(dim=-1)
-        shares.append(((active >= 1).float().mean().item(),
-                       (active >= 2).float().mean().item()))
-        log(f"checked {uri} ({rec.seconds:.1f} s) in "
-            f"{time.perf_counter() - start:.3f} s "
-            f"({', '.join(f'{k} {v:.2f}' for k, v in parts.items())}): "
-            f"{found}")
-        for name, value in found.items():
-            values[name] = max(values.get(name, value), value)
-    log("frames with speech / with overlap in the checked recordings: "
-        + ", ".join(f"{a:.3f} / {b:.3f}" for a, b in shares))
-    return values
-
-
 def profiled(fn, sync, with_cpu: bool):
     """Run ``fn`` under the profiler: CUDA activity, and CPU ops with
     ``with_cpu``. Returns ((profile, host clock at its start), result)."""
@@ -414,13 +368,14 @@ def _rate(d: dict) -> float:
     return sum(r.seconds for r in d["recordings"]) / (d["end"] - d["begin"])
 
 
-def trace_summary(done: List[dict], config: dict, intervals) -> dict:
+def trace_summary(done: List[dict], config: dict, intervals, module
+                  ) -> dict:
     """What the per-layer readers read: ``spans`` from the lists run
     without a profile, ``device`` from the device-only profile, ``ranges``
-    from the full one."""
+    from the full one; the FLOPs and the LSTM launches of the profiled
+    list's recordings from the configuration's ``module``."""
     from torch.autograd import DeviceType
 
-    from portbench.flops import lstm_launches, recording_flops
     plain = [d for d in done if d["kind"] is None]
     spans = {"audio_s": sum(r.seconds for d in plain for r in d["recordings"]),
              "seconds": {}}
@@ -448,17 +403,13 @@ def trace_summary(done: List[dict], config: dict, intervals) -> dict:
     for name, seconds in kernels:
         by_name[name] = by_name.get(name, 0.0) + seconds
     device_ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    seg = config["segmentation"]["hparams"]
     device = {
         "audio_s": sum(r.seconds for r in listed["recordings"]),
         "window_s": listed["end"] - listed["begin"], "busy_s": busy_s,
         "kernels": kernels,
-        "flops": sum(sum(recording_flops(config, r.samples).values())
+        "flops": sum(sum(module.recording_flops(config, r.samples).values())
                      for r in listed["recordings"]),
-        "lstm": {"hidden": seg["lstm"]["hidden_size"], "directions": 2,
-                 "precision": config["lstm_precision"],
-                 "launches": [shape for r in listed["recordings"]
-                              for shape in lstm_launches(config, r.samples)]}}
+        "lstm": module.lstm_trace(config, listed["recordings"])}
 
     ranged = next(d for d in done if d["kind"] == "ranges")
     device_s: Dict[str, float] = {}

@@ -135,8 +135,7 @@ def downstream_numbers(ref: ReferencePipeline, record: dict
                                  record["clean_frames"],
                                  record["speaker_frames"], binarized.shape[1])
     cluster_mismatch = moved(record["hard"], clusters, soft, active,
-                             per_chunk=ref.config["clustering"]["kind"]
-                             == "vbx")
+                             per_chunk=ref.clusterer.per_chunk)
     mismatch = 0
     output = record["output"]
     for exclusive, annotation in (
@@ -241,10 +240,10 @@ def control_numbers(ref: ReferencePipeline, samples: np.ndarray,
     binarized = ref.binarize(logp)
     reference_logp = ref.logprobs(samples, Numerics("float32"))
     out = segmentation_numbers(ref, samples, logp, binarized, reference_logp)
-    if ref.config["segmentation"]["kind"] == "sseriouss":
-        batch = ref.config["segmentation_batch_size"]
-        out.update(ssl_numbers(ref, samples, ref.ssl_output(
-            samples, min(batch, len(logp)), low)))
+    states = ref.ssl_output(
+        samples, min(ref.config["segmentation_batch_size"], len(logp)), low)
+    if states is not None:
+        out.update(ssl_numbers(ref, samples, states))
     with torch.inference_mode():
         embeddings = ref.embeddings(samples, binarized.float(), low)
     out.update(embedding_numbers(ref, samples, binarized,

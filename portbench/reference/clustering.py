@@ -25,7 +25,7 @@ the pipeline.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 from scipy.cluster.hierarchy import fcluster, linkage
@@ -168,16 +168,49 @@ def ahc_clustering(embeddings: np.ndarray, clean_frames: np.ndarray,
     return np.argmax(soft, axis=2), soft
 
 
-def cluster(kind: str, embeddings: np.ndarray, clean_frames: np.ndarray,
-            speaker_frames: np.ndarray, num_frames: int, params: dict,
-            plda: Optional[Plda]) -> Tuple[np.ndarray, np.ndarray]:
-    """(hard clusters, the scores they were assigned from)."""
-    if kind == "vbx":
+class VBx:
+    """``vbx_clustering`` at the configuration's parameters, in its
+    PLDA's space; the Hungarian chooses a chunk's clusters together."""
+
+    per_chunk = True
+
+    def __init__(self, params: dict, weights: dict):
+        self.params, self.plda = params, Plda(weights["plda"])
+
+    def __call__(self, embeddings: np.ndarray, clean_frames: np.ndarray,
+                 speaker_frames: np.ndarray, num_frames: int
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+        p = self.params
         return vbx_clustering(embeddings, clean_frames, speaker_frames,
-                              num_frames, plda, params["threshold"],
-                              params["Fa"], params["Fb"])
-    return ahc_clustering(embeddings, clean_frames, num_frames,
-                          params["threshold"], params["min_cluster_size"])
+                              num_frames, self.plda, p["threshold"], p["Fa"],
+                              p["Fb"])
+
+
+class AHC:
+    """``ahc_clustering`` at the configuration's parameters; each pair
+    chooses its cluster alone."""
+
+    per_chunk = False
+
+    def __init__(self, params: dict, weights: dict):
+        self.params = params
+
+    def __call__(self, embeddings: np.ndarray, clean_frames: np.ndarray,
+                 speaker_frames: np.ndarray, num_frames: int
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+        return ahc_clustering(embeddings, clean_frames, num_frames,
+                              self.params["threshold"],
+                              self.params["min_cluster_size"])
+
+
+KINDS = {"vbx": VBx, "ahc": AHC}
+
+
+def method(kind: str, params: dict, weights: dict):
+    """The clustering of ``kind``: called with (embeddings, clean frames,
+    speaker frames, frames a chunk), it returns (hard clusters, the scores
+    they were assigned from)."""
+    return KINDS[kind](params, weights)
 
 
 def moved(ours: np.ndarray, theirs: np.ndarray, soft: np.ndarray,

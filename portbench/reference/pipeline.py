@@ -15,7 +15,7 @@ Imports neither the program, nor JAX, nor the JAX package.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -36,8 +36,9 @@ class ReferencePipeline:
             len(seg["specifications"]["classes"]),
             seg["specifications"]["powerset_max_classes"])
         self.frame_duration, self.frame_step = self.segmentation_frames()
-        self.plda = clustering.Plda(weights["plda"]) \
-            if config["clustering"]["kind"] == "vbx" else None
+        self.clusterer = clustering.method(
+            config["clustering"]["kind"], config["instantiate"]["clustering"],
+            weights)
 
     # -- segmentation -------------------------------------------------------
 
@@ -70,16 +71,15 @@ class ReferencePipeline:
                 chunks, num)
 
     def ssl_output(self, samples: np.ndarray, chunks: int, num: Numerics
-                   ) -> torch.Tensor:
+                   ) -> Optional[torch.Tensor]:
         """The SSL trunk's last layer over the recording's first
-        ``chunks`` chunks (an SSeRiouSS configuration only)."""
-        from . import sseriouss
-        spec = self.config["segmentation"]
+        ``chunks`` chunks, or None where the model has no SSL trunk."""
+        from . import segmentation_models
         x = self.padded(samples).unfold(0, self.window, self.step)[:chunks]
-        with torch.inference_mode(), num.flags():
-            return sseriouss.trunk(x.contiguous(), self.weights["segmentation"],
-                                   dict(spec["hparams"], ssl=spec["ssl"]),
-                                   last=True)
+        with torch.inference_mode():
+            return segmentation_models.ssl_output(
+                self.config["segmentation"], self.weights["segmentation"], x,
+                num)
 
     def binarize(self, logprobs: torch.Tensor) -> torch.Tensor:
         return pyannet.to_multilabel(logprobs, self.mapping)
@@ -120,11 +120,8 @@ class ReferencePipeline:
     def cluster(self, embeddings: np.ndarray, clean_frames: np.ndarray,
                 speaker_frames: np.ndarray, num_frames: int):
         """(hard clusters, the scores they were assigned from)."""
-        spec = self.config["clustering"]
-        return clustering.cluster(spec["kind"], embeddings, clean_frames,
-                                  speaker_frames, num_frames,
-                                  self.config["instantiate"]["clustering"],
-                                  self.plda)
+        return self.clusterer(embeddings, clean_frames, speaker_frames,
+                              num_frames)
 
     def grid(self, num_chunks: int):
         step_s = self.step / self.sample_rate

@@ -225,3 +225,51 @@ def head_leaves(spec: dict, width: int):
     bound = width ** -0.5
     return [Leaf("classifier.weight", (classes, width), ("uniform", bound)),
             Leaf("classifier.bias", (classes,), ("uniform", bound))]
+
+
+# -- the segmentation kind "pyannet" (``segmentation_models``) ----------------
+
+BATCH = 256
+
+
+def hparams(spec: dict) -> dict:
+    """The hyper-parameters ``pyannet`` takes."""
+    return spec["hparams"]
+
+
+def forward(spec: dict, p: Dict[str, torch.Tensor], chunks: torch.Tensor,
+            num: Numerics, features: bool = False) -> torch.Tensor:
+    """(B, 1, samples) -> (B, frames, powerset classes) log-probs (the
+    BiLSTM's output with ``features``), in batches that fit the card."""
+    return torch.cat([
+        pyannet(chunks[b:b + BATCH].contiguous(), p, spec["hparams"], num,
+                features=features)
+        for b in range(0, len(chunks), BATCH)])
+
+
+def num_frames(spec: dict, num_samples: int) -> int:
+    return conv_frames(num_samples, spec["hparams"]["sincnet"]["stride"])
+
+
+def frames(spec: dict) -> Tuple[float, float]:
+    return receptive_field(spec["hparams"]["sincnet"]["stride"],
+                           spec["hparams"]["sample_rate"])
+
+
+def chunk_flops(spec: dict, window: int, classes: int) -> Tuple[int, int]:
+    """(FLOPs after the shared sinc conv, LSTM steps) of one chunk."""
+    from ..flops import pyannet_chunk_flops
+    hp = spec["hparams"]
+    return pyannet_chunk_flops(
+        window, hp["sincnet"]["stride"], hp["lstm"]["hidden_size"],
+        hp["lstm"]["num_layers"], hp["linear"]["hidden_size"],
+        hp["linear"]["num_layers"], classes)
+
+
+def shared_flops(spec: dict, padded: int) -> Dict[str, int]:
+    """The sinc conv, which the chunks share, over the grid-padded
+    recording."""
+    from ..flops import conv1d_flops, conv1d_out
+    stride = spec["hparams"]["sincnet"]["stride"]
+    return {"sinc": conv1d_flops(conv1d_out(padded, SINC_TAPS, stride),
+                                 SINC_TAPS, 1, SINC_FILTERS)}

@@ -235,3 +235,55 @@ def finish(p: Dict[str, torch.Tensor]) -> None:
     conv = "wav2vec.encoder.pos_conv_embed.conv"
     p[f"{conv}.weight_g"] = torch.linalg.vector_norm(
         p[f"{conv}.weight_v"], dim=(0, 1), keepdim=True)
+
+
+# -- the segmentation kind "sseriouss" (``segmentation_models``) --------------
+
+def hparams(spec: dict) -> dict:
+    """The hyper-parameters ``sseriouss`` takes: the SSL trunk's with the
+    rest."""
+    return dict(spec["hparams"], ssl=spec["ssl"])
+
+
+def forward(spec: dict, p: Dict[str, torch.Tensor], chunks: torch.Tensor,
+            num: Numerics, features: bool = False) -> torch.Tensor:
+    """(B, 1, samples) -> (B, frames, powerset classes) log-probs (the
+    BiLSTM's output with ``features``)."""
+    return sseriouss(chunks, p, hparams(spec), num, features=features)
+
+
+def num_frames(spec: dict, num_samples: int) -> int:
+    for _, kernel, stride in CONV:
+        num_samples = (num_samples - kernel) // stride + 1
+    return num_samples
+
+
+def frames(spec: dict) -> Tuple[float, float]:
+    return receptive_field(spec["hparams"]["sample_rate"])
+
+
+def ssl_output(spec: dict, p: Dict[str, torch.Tensor], chunks: torch.Tensor,
+               num: Numerics) -> torch.Tensor:
+    """(B, samples) chunks -> the SSL trunk's last layer."""
+    with num.flags():
+        return trunk(chunks.contiguous(), p, hparams(spec), last=True)
+
+
+def chunk_flops(spec: dict, window: int, classes: int) -> Tuple[int, int]:
+    """(FLOPs, LSTM steps) of one chunk: the trunk, the BiLSTM over its
+    frames and the head."""
+    from ..flops import lstm_flops, wavlm_chunk_flops
+    hp = spec["hparams"]
+    trunk_flops, steps = wavlm_chunk_flops(window, spec["ssl"])
+    H, layers = hp["lstm"]["hidden_size"], hp["lstm"]["num_layers"]
+    d = spec["ssl"]["hidden"]
+    widths = [2 * H] + [hp["linear"]["hidden_size"]] * \
+        hp["linear"]["num_layers"] + [classes]
+    return trunk_flops + lstm_flops(steps, [d] + [2 * H] * (layers - 1), H) \
+        + 2 * steps * sum(a * b for a, b in zip(widths, widths[1:])), steps
+
+
+def shared_flops(spec: dict, padded: int) -> Dict[str, int]:
+    """Nothing runs over the whole recording: every chunk has its own
+    trunk pass."""
+    return {}

@@ -4,7 +4,7 @@ import json
 
 import pytest
 
-from portbench import flops
+from portbench import diarization, flops
 from portbench.harness import ROOT
 
 
@@ -63,10 +63,10 @@ def test_lstm_bound_by_hand():
 def test_lstm_launches_follow_the_batches():
     config = _config("community1")
     # 5 min: 291 chunks, nine batches of 32 and a tail of 3, four layers
-    assert flops.lstm_launches(config, 300 * 16000) == \
+    assert diarization.lstm_launches(config, 300 * 16000) == \
         [(589, 32)] * 4 * 9 + [(589, 3)] * 4
     sseriouss = _config("sseriouss-wavlm-base")
-    assert len(flops.lstm_launches(sseriouss, 300 * 16000)) == 4 * 10
+    assert len(diarization.lstm_launches(sseriouss, 300 * 16000)) == 4 * 10
 
 
 def test_recording_flops_count_no_padding():
@@ -76,6 +76,6 @@ def test_recording_flops_count_no_padding():
         diarization_device_flops, total_flops)
     config = _config("community1")
     for seconds in (61.0, 300.0, 899.5):
-        ours = sum(flops.recording_flops(config, int(seconds * 16000))
+        ours = sum(diarization.recording_flops(config, int(seconds * 16000))
                    .values())
         assert 0 < ours <= total_flops(diarization_device_flops(seconds))

@@ -15,6 +15,7 @@ sys.path.insert(0, sys.argv[1])
 here = Path(sys.argv[1]) / "portbench"
 import portbench.harness as harness
 import portbench.capture, portbench.control, portbench.flops
+import portbench.diarization
 import portbench.snapshot, portbench.weights, portbench.calibration
 import portbench.traffic.generator
 import portbench.reference.check, portbench.reference.pipeline

@@ -64,8 +64,9 @@ class Recording:
         return self.samples / self.rate
 
 
-def load_mix(name: str) -> dict:
-    return json.loads((HERE / f"{name}.json").read_text())
+def load_mix(name: str, directory: Path = HERE) -> dict:
+    """The mix ``<directory>/<name>.json``."""
+    return json.loads((directory / f"{name}.json").read_text())
 
 
 def pool_lengths(mix: dict) -> List[int]:

@@ -18,6 +18,14 @@ on the device by a one-hot projection of each chunk's hard clusters, so
 only the (samples, clusters) result crosses to the host. ``device`` is the
 CUDA card by default and raises without one; ``device="cpu"`` runs on the
 CPU.
+
+Spans (``telemetry/spans.py``, off unless a caller records): ``separate``
+(the model over every chunk, up to the scores' copy), ``embedding``,
+``clustering``, ``reconstruct``, ``overlap_add`` with ``overlap_add_wait``
+(a wait, its copy to the host) and ``leakage``; on a card the device units
+``separate`` and ``overlap_add``; counters ``separated_chunks`` (summed)
+and ``chunk_sources_peak_bytes`` (the largest of a file's chunk sources
+held on the device until the overlap-add).
 """
 
 from __future__ import annotations
@@ -28,7 +36,6 @@ from typing import Any, Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
-from scipy.ndimage import binary_dilation
 
 from ..core.annotation import Annotation
 from ..core.inference import (Inference, _chunk_grid,
@@ -39,6 +46,7 @@ from ..core.parameter import Categorical, ParamDict, Uniform
 from ..core.pipeline import Pipeline, check_device
 from ..core.segment import SlidingWindow, SlidingWindowFeature
 from ..metrics.der import GreedyDiarizationErrorRate
+from ..telemetry.spans import counter, device_mark, device_unit, span
 from ..utils.signal import binarize_swf
 from .clustering import Clustering, OracleClustering
 from .speaker_diarization import (DiarizeOutput, EmbeddingMixin,
@@ -130,12 +138,18 @@ class SpeechSeparation(SpeakerDiarizationMixin, EmbeddingMixin, Pipeline):
         window = round(inference.duration * sample_rate)
         step = round(inference.step * sample_rate)
         starts, padded_len = _chunk_grid(waveform.shape[1], window, step)
-        buffer = pad_to_grid(_upload_waveform_cached(
-            waveform, file if isinstance(file, Mapping) else None,
-            self.device), window, step)
-        diarization, sources = inference._slide_scores(buffer, starts,
-                                                       window, False)
-        return diarization.cpu().numpy(), sources, starts, padded_len
+        with span("separate", file):
+            start = device_mark(self.device)
+            buffer = pad_to_grid(_upload_waveform_cached(
+                waveform, file if isinstance(file, Mapping) else None,
+                self.device), window, step)
+            diarization, sources = inference._slide_scores(buffer, starts,
+                                                           window, False)
+            device_unit("separate", file, start, device_mark(self.device))
+            counter("separated_chunks", len(starts))
+            counter("chunk_sources_peak_bytes",
+                    sources.numel() * sources.element_size(), peak=True)
+            return diarization.cpu().numpy(), sources, starts, padded_len
 
     @torch.inference_mode()
     def _overlap_add(self, sources: torch.Tensor, hard_clusters: np.ndarray,
@@ -153,6 +167,7 @@ class SpeechSeparation(SpeakerDiarizationMixin, EmbeddingMixin, Pipeline):
         num_chunks, window, _ = sources.shape
         num_clusters = int(np.max(hard_clusters)) + 1
         device = sources.device
+        start = device_mark(device)
         clusters = torch.from_numpy(
             np.asarray(hard_clusters, dtype=np.int64)).to(device)
         onehot = torch.nn.functional.one_hot(
@@ -173,8 +188,10 @@ class SpeechSeparation(SpeakerDiarizationMixin, EmbeddingMixin, Pipeline):
             contrib = torch.bmm(sources[r::rounds], onehot[r::rounds])
             total.index_add_(0, idx, contrib.reshape(-1, num_clusters))
         counts = torch.cumsum(steps, dim=0)[:num_samples]
-        return (total[:num_samples] / torch.clamp(counts, min=1.0)) \
-            .cpu().numpy()
+        separated = total[:num_samples] / torch.clamp(counts, min=1.0)
+        device_unit("overlap_add", None, start, device_mark(device))
+        with span("overlap_add_wait", wait=True):
+            return separated.cpu().numpy()
 
     def apply(self, file: Dict, num_speakers: Optional[int] = None,
               min_speakers: Optional[int] = None,
@@ -208,45 +225,50 @@ class SpeechSeparation(SpeakerDiarizationMixin, EmbeddingMixin, Pipeline):
 
         seg = binarized.data
         if self._embedding is not None:
-            embeddings = self.get_embeddings(
-                waveform, SlidingWindowFeature(
-                    torch.from_numpy(seg).to(self.device),
-                    binarized.sliding_window),
-                exclude_overlap=False, hook=hook, cache=file)
+            with span("embedding"):
+                embeddings = self.get_embeddings(
+                    waveform, SlidingWindowFeature(
+                        torch.from_numpy(seg).to(self.device),
+                        binarized.sliding_window),
+                    exclude_overlap=False, hook=hook, cache=file)
         else:
             # the local sources' activity patterns stand for embeddings
             embeddings = np.transpose(seg, (0, 2, 1))
         # frames where a speaker is active alone (the JAX package's
         # filter_embeddings on host scores)
         alone = np.sum(seg, axis=2, keepdims=True) == 1
-        hard_clusters, _, centroids = self.clustering(
-            embeddings, np.sum(seg * alone, axis=1),
-            num_frames=seg.shape[1], num_clusters=num_speakers,
-            min_clusters=min_speakers, max_clusters=max_speakers,
-            segmentations=binarized, file=file,
-            frames=model.receptive_field)
+        with span("clustering"):
+            hard_clusters, _, centroids = self.clustering(
+                embeddings, np.sum(seg * alone, axis=1),
+                num_frames=seg.shape[1], num_clusters=num_speakers,
+                min_clusters=min_speakers, max_clusters=max_speakers,
+                segmentations=binarized, file=file,
+                frames=model.receptive_field)
         hard_clusters = np.array(hard_clusters)
 
         count.data = np.minimum(count.data, max_speakers).astype(np.int8)
         hard_clusters[np.sum(seg, axis=1) == 0] = -2        # inactive
         min_duration_off = self.segmentation.min_duration_off
-        discrete = self.reconstruct(segmentations, hard_clusters, count)
-        diarization = self.to_annotation(discrete,
-                                         min_duration_off=min_duration_off)
-        diarization.uri = file["uri"]
-        count.data = np.minimum(count.data, 1).astype(np.int8)
-        exclusive = self.to_annotation(
-            self.reconstruct(segmentations, hard_clusters, count),
-            min_duration_off=min_duration_off)
-        exclusive.uri = file["uri"]
+        with span("reconstruct"):
+            discrete = self.reconstruct(segmentations, hard_clusters, count)
+            diarization = self.to_annotation(
+                discrete, min_duration_off=min_duration_off)
+            diarization.uri = file["uri"]
+            count.data = np.minimum(count.data, 1).astype(np.int8)
+            exclusive = self.to_annotation(
+                self.reconstruct(segmentations, hard_clusters, count),
+                min_duration_off=min_duration_off)
+            exclusive.uri = file["uri"]
 
-        separated = self._overlap_add(sources, hard_clusters, starts,
-                                      padded_len, num_samples)
+        with span("overlap_add"):
+            separated = self._overlap_add(sources, hard_clusters, starts,
+                                          padded_len, num_samples)
         del sources
-        separated = apply_leakage_mask(
-            separated, diarization, sample_rate,
-            leakage_removal=bool(self.separation.leakage_removal),
-            asr_collar=float(self.separation.asr_collar))
+        with span("leakage"):
+            separated = apply_leakage_mask(
+                separated, diarization, sample_rate,
+                leakage_removal=bool(self.separation.leakage_removal),
+                asr_collar=float(self.separation.asr_collar))
         # SI-SDR training leaves the scale free: peak-normalise each one
         separated = separated / (
             np.max(np.abs(separated), axis=0, keepdims=True) + 1e-8)
@@ -284,12 +306,31 @@ class SpeechSeparation(SpeakerDiarizationMixin, EmbeddingMixin, Pipeline):
         return SeparationOutput(diarization, exclusive, centroids, separated)
 
 
+def dilate(active: np.ndarray, collar: int) -> np.ndarray:
+    """``scipy.ndimage.binary_dilation(active, structure=np.ones(2 *
+    collar))`` for a 1-D bool array, in time linear in its length: the
+    even structure's centre is its element ``collar``, so sample i is on
+    where an active sample lies in [i - collar + 1, i + collar]. Each run
+    of active samples [a, b) becomes [a - collar, b + collar - 1), clipped
+    to the array. ``collar`` 0 leaves ``active`` as it is."""
+    if collar <= 0:
+        return active
+    n = len(active)
+    padded = np.concatenate(([False], active, [False]))
+    edges = np.flatnonzero(padded[1:] != padded[:-1])
+    out = np.zeros(n, dtype=bool)
+    for a, b in zip(edges[0::2], edges[1::2]):
+        out[max(0, a - collar):min(n, b + collar - 1)] = True
+    return out
+
+
 def apply_leakage_mask(sources: np.ndarray, diarization: Annotation,
                        sample_rate: int, leakage_removal: bool = True,
                        asr_collar: float = 0.1) -> np.ndarray:
     """Zero each cluster's source where the (integer-labelled) diarization
     has it inactive, its activity first dilated by ``asr_collar`` seconds
-    on each side (scipy's ``binary_dilation``, as the JAX package)."""
+    (scipy's ``binary_dilation`` by ``2 * collar`` ones, as the JAX
+    package, computed by ``dilate`` in time linear in the samples)."""
     if not leakage_removal:
         return sources
     num_samples, num_clusters = sources.shape
@@ -302,7 +343,5 @@ def apply_leakage_mask(sources: np.ndarray, diarization: Annotation,
                 i0 = int(segment.start * sample_rate)
                 i1 = int(segment.end * sample_rate)
                 active[max(0, i0):min(num_samples, i1)] = True
-        if collar > 0:
-            active = binary_dilation(active, structure=np.ones(2 * collar))
-        out[~active, k] = 0.0
+        out[~dilate(active, collar), k] = 0.0
     return out

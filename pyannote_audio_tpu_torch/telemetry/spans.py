@@ -36,8 +36,14 @@ interval is where the stream ran it. The diarization pipeline's units are
 a file's staged program (``stage``) and its reconstruction
 (``reconstruct``); one stream runs them in order, so the time between one
 unit's end and the next one's start is time when the card had nothing of
-the pipeline's to run. ``tools/pipeline_spans.py`` reads a recording:
-self times, idle shares and gaps, the gaps' labels.
+the pipeline's to run. The separation pipeline's units are a file's
+``separate`` (the model over every chunk) and ``overlap_add``.
+
+Counters: ``counter(name, value)`` adds ``value`` to the recording's
+``counters[name]``, ``counter(name, value, peak=True)`` keeps the largest
+value seen; nothing while no recording is on.
+``tools/pipeline_spans.py`` reads a recording: self times, idle shares
+and gaps, the gaps' labels, the counters.
 """
 
 from __future__ import annotations
@@ -174,6 +180,14 @@ def device_unit(name: str, file, start, end) -> None:
     recording.add_unit(name, file, start, end)
 
 
+def counter(name: str, value: int, peak: bool = False) -> None:
+    """Add ``value`` to the counter ``name`` (keep the largest with
+    ``peak``) while a recording is on."""
+    recording = _RECORDER
+    if recording is not None:
+        recording.count(name, value, peak)
+
+
 @contextlib.contextmanager
 def recording() -> Iterator["Recording"]:
     """Record spans and device units inside the block. Inside another
@@ -209,11 +223,12 @@ def _wall_offset() -> int:
 
 class Recording:
     """What one ``recording()`` saw: ``spans`` in the order they opened,
-    ``units`` once resolved."""
+    ``units`` once resolved, ``counters`` by name."""
 
     def __init__(self):
         self.spans: List[Span] = []
         self.units: List[Unit] = []
+        self.counters: Dict[str, int] = {}
         self._pending: list = []
         # id of a marked event -> its device index, until its unit is kept
         self._marked: Dict[int, int] = {}
@@ -221,6 +236,12 @@ class Recording:
         self._anchors: Dict[int, Tuple[object, int]] = {}
         # the wall clock (time.time_ns) less this recording's clock
         self.wall_offset_ns = _wall_offset()
+
+    def count(self, name: str, value: int, peak: bool = False) -> None:
+        if peak:
+            self.counters[name] = max(self.counters.get(name, value), value)
+        else:
+            self.counters[name] = self.counters.get(name, 0) + value
 
     # -- device units ---------------------------------------------------------
 

@@ -5,7 +5,8 @@
 
 Builds the cell as ``portbench/run.py`` does (its configuration, traffic
 and warm-up, from the seed, on the CUDA card), puts the benchmark's
-outside spans on the pipeline (``portbench/capture.py``), then runs four
+outside spans on the pipeline (the configuration module's ``install``,
+``portbench/capture.py``), then runs four
 phases of ``--lists`` lists (a round of the cell by default) in turns,
 span recording off / on / on / off (``telemetry/spans.py``), one list with
 recording on under a device-only profile and one under a profile with CPU
@@ -30,11 +31,13 @@ ops. It prints, as one JSON line (also appended to ``--out`` where given):
   percentile, most), and how far the pairs' median lies from that
   offset;
 - ``cost``: seconds per span entered and left, with recording off and on,
-  and the spans per list.
+  and the spans per list;
+- ``counters``: the recordings' counters (``counter_totals``), per list.
 
 The readers of a recording (``self_seconds``, ``busy_ns``, ``idle_share``,
-``label``, ``idle_gaps``, ``profiler_pairs``) are plain functions, tested
-on the CPU (``tests/test_torch_port_spans.py``).
+``label``, ``idle_gaps``, ``profiler_pairs``, ``counter_totals``) are
+plain functions, tested on the CPU (``tests/test_torch_port_spans.py``,
+``tests/test_torch_port_separation_wavlm.py``).
 """
 
 from __future__ import annotations
@@ -64,9 +67,9 @@ sys.path.insert(0, str(ROOT))
 import torch  # noqa: E402
 
 from portbench.capture import Capture  # noqa: E402
-from portbench.harness import (CACHE, HERE, Context, _merged,  # noqa: E402
-                               card_line, find, load_benchmark, load_module,
-                               profiled, warmup_recordings)
+from portbench.harness import (CACHE, Context, _merged,  # noqa: E402
+                               card_line, config_module, find,
+                               load_benchmark, profiled)
 from portbench.traffic.generator import Traffic, load_mix  # noqa: E402
 from pyannote_audio_tpu_torch.telemetry import spans  # noqa: E402
 
@@ -164,6 +167,19 @@ def profiler_pairs(rec, prof) -> list:
     return pairs
 
 
+def counter_totals(recordings) -> Dict[str, int]:
+    """The counters of several recordings together: summed, except those
+    named ``*_peak_bytes``, of which the largest."""
+    out: Dict[str, int] = {}
+    for rec in recordings:
+        for name, value in rec.counters.items():
+            if name.endswith("_peak_bytes"):
+                out[name] = max(out.get(name, value), value)
+            else:
+                out[name] = out.get(name, 0) + value
+    return out
+
+
 def span_cost(repeats: int = 200_000) -> dict:
     """Seconds to enter and leave one span, recording off and on."""
     out = {}
@@ -231,17 +247,17 @@ def measure(args, workload, entry, config, device, workdir: Path,
     traffic = Traffic(mix or load_mix(workload["traffic"]), args.seed,
                       workdir)
     traffic.write(device)
-    module = load_module(HERE / "configs" / f"{entry['name']}.py",
-                         f"portbench_config_{entry['name'].replace('-', '_')}")
+    module = config_module(ROOT, entry["name"])
     pipeline, _ = module.build(Context(args.seed, device, workdir, config,
                                        traffic))
-    capture = Capture().install(pipeline)
+    capture = Capture()
+    module.install(capture, pipeline)
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize()
 
-    warm = warmup_recordings(traffic, config)
+    warm = module.warmup(traffic, config)
     pipeline([{"audio": str(r.path), "uri": f"warmup_{k}"}
               for k, r in enumerate(warm)])
     for with_cpu in (False, True):
@@ -321,6 +337,9 @@ def measure(args, workload, entry, config, device, workdir: Path,
         "units_per_list": sum(len(rec.units) for rec, _ in recordings)
         / (2 * count),
         "spans_per_list": span_count / (2 * count),
+        "counters": {name: value / (2 * count) if not name.endswith(
+            "_peak_bytes") else value for name, value in counter_totals(
+                [rec for rec, _ in recordings]).items()},
     }
 
     # one list under a device-only profile, recording on
